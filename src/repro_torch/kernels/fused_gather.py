@@ -1,0 +1,74 @@
+"""Fused gather + frozen-model sampler.
+
+The gathered-row sampler reads (T, K) rows that a caller materialised as
+``n_wk[word]`` / ``n_kd[slot]``. This variant reads each token's rows
+straight out of the resident matrices, so no (T, K) intermediate exists.
+``zen_fused_infer_sample_cuda`` launches ``zen_infer_fused`` from
+``csrc/zen_infer.cu``, which shares its scoring routine with the gathered
+kernel: the two are bit-identical on the card, as the reference requires
+of its two Pallas kernels. ``zen_fused_infer_sample_plain`` is the same
+function in plain torch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.zen_sampler import (
+    PLAIN_CHUNK,
+    check_cuda_args,
+    infer_argmax_rows,
+)
+
+
+def zen_fused_infer_sample_plain(n_wk, n_kd, word, slot, z_old, seeds,
+                                 alpha_k, n_k, *, beta: float,
+                                 w_beta: float) -> torch.Tensor:
+    """Plain-torch version: gathers one chunk of rows at a time."""
+    alpha = alpha_k.to(torch.float32)
+    denom = n_k.to(torch.float32) + w_beta
+    word, slot = word.long(), slot.long()
+    out = torch.empty(word.shape[0], dtype=torch.int32, device=n_wk.device)
+    for s in range(0, word.shape[0], PLAIN_CHUNK):
+        e = s + PLAIN_CHUNK
+        out[s:e] = infer_argmax_rows(
+            n_wk[word[s:e]], n_kd[slot[s:e]], z_old[s:e], seeds[s:e],
+            alpha, denom, beta,
+        )
+    return out
+
+
+def zen_fused_infer_sample_cuda(n_wk, n_kd, word, slot, z_old, seeds,
+                                alpha_k, n_k, *, beta: float,
+                                w_beta: float) -> torch.Tensor:
+    """Launch ``zen_infer_fused`` on the current stream; no sync. A word
+    or slot id outside its matrix aborts the kernel, and the caller's next
+    synchronize raises, as the plain version's indexing does on the card."""
+    from repro_torch.kernels._build import check_launch, library
+
+    i32, f32 = torch.int32, torch.float32
+    check_cuda_args(
+        [("n_wk", n_wk), ("n_kd", n_kd), ("word", word), ("slot", slot),
+         ("z_old", z_old), ("seeds", seeds), ("alpha_k", alpha_k),
+         ("n_k", n_k)],
+        [i32, i32, i32, i32, i32, i32, f32, f32],
+    )
+    (w, k), (b, kd), t = n_wk.shape, n_kd.shape, word.shape[0]
+    if kd != k or any(x.shape != (t,) for x in (word, slot, z_old, seeds)) \
+            or alpha_k.shape != (k,) or n_k.shape != (k,):
+        raise ValueError(
+            f"shape mismatch: n_wk {tuple(n_wk.shape)}, n_kd "
+            f"{tuple(n_kd.shape)}, token vectors of {t}, alpha_k "
+            f"{tuple(alpha_k.shape)}, n_k {tuple(n_k.shape)}"
+        )
+    out = torch.empty(t, dtype=i32, device=n_wk.device)
+    stream = torch.cuda.current_stream(n_wk.device).cuda_stream
+    with torch.cuda.device(n_wk.device):
+        check_launch("zen_infer_fused", library().zen_infer_fused(
+            n_wk.data_ptr(), n_kd.data_ptr(), word.data_ptr(),
+            slot.data_ptr(), z_old.data_ptr(), seeds.data_ptr(),
+            alpha_k.data_ptr(), n_k.data_ptr(), out.data_ptr(),
+            t, k, w, b, ctypes.c_float(beta), ctypes.c_float(w_beta), stream,
+        ))
+    return out

@@ -1,0 +1,153 @@
+"""Counter-based hash noise and the gathered-row frozen-model sampler.
+
+The hash is the Murmur3-style finalizer of the JAX package's
+``kernels/zen_sampler.py``: Gumbel noise for (seed, row, col) is computed,
+never stored, so the CUDA kernel, its plain version and the reference all
+draw from the same coordinates. torch on the CPU cannot shift ``uint32``,
+so every hash value here is an ``int64`` tensor holding a uint32 and masked
+with ``0xFFFFFFFF`` after each multiply: int64 products wrap, and their low
+32 bits are exact.
+
+``zen_infer_sample_cuda`` launches the hand-written Hopper kernel
+(``csrc/zen_infer.cu``, ``zen_infer_gathered``) on pre-gathered (T, K)
+rows; ``zen_infer_sample_plain`` is the same function in plain torch. The
+public dispatching wrapper is ``repro_torch.kernels.ops.zen_infer_sample``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_GOLD = 0x9E3779B9
+
+# tokens per chunk of the plain versions: bounds the (chunk, K) float
+# temporaries without changing any draw (every token is independent)
+PLAIN_CHUNK = 4096
+
+
+def u32(x) -> torch.Tensor:
+    """Any integer tensor (or int) as int64 holding its uint32 bit pattern."""
+    x = torch.as_tensor(x)
+    return x.to(torch.int64) & MASK32
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    x = ((x ^ (x >> 16)) * _M1) & MASK32
+    x = ((x ^ (x >> 13)) * _M2) & MASK32
+    return x ^ (x >> 16)
+
+
+def hash_bits(seed, row, col) -> torch.Tensor:
+    """The 32-bit hash of (seed, row, col), broadcast, as int64."""
+    return _mix(u32(seed) ^ ((u32(row) * _GOLD) & MASK32) ^ _mix(u32(col)))
+
+
+def hash_uniform(seed, row, col) -> torch.Tensor:
+    """Counter-based U(0, 1] in float32 from 24 hash bits (the top value
+    rounds to exactly 1.0, as in the reference)."""
+    h = hash_bits(seed, row, col)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+
+
+def gumbel_noise(seed, row, col) -> torch.Tensor:
+    """Gumbel(0, 1) noise; +inf where the uniform rounds to 1.0."""
+    return -torch.log(-torch.log(hash_uniform(seed, row, col)))
+
+
+def mix32(x) -> torch.Tensor:
+    """The avalanche mixer on uint32 values (int64 in, int64 out)."""
+    return _mix(u32(x))
+
+
+def golden_seed(key_bits_hi, key_bits_lo, pos) -> torch.Tensor:
+    """Per-token int32 seeds ``mix(hi ^ mix(lo) ^ pos * GOLDEN)`` with the
+    high bit cleared. Broadcasts: ``(B, 1)`` key words and ``(1, L)``
+    positions give the ``(B, L)`` serving seed grid."""
+    h = mix32(u32(key_bits_hi) ^ mix32(key_bits_lo)
+              ^ ((u32(pos) * _GOLD) & MASK32))
+    return (h & 0x7FFFFFFF).to(torch.int32)
+
+
+def infer_argmax_rows(nwk_rows, nkd_rows, z_old, seeds, alpha_k, denom,
+                      beta: float) -> torch.Tensor:
+    """One chunk of the frozen-model Gumbel-max draw on gathered rows:
+    ``argmax_k log max(p, 1e-30) + g(seed[t], 0, k)`` with
+    ``p = (N_kd^¬t + α_k)(N_wk + β) / denom``; first maximal index wins."""
+    k = nwk_rows.shape[1]
+    cols = torch.arange(k, device=nwk_rows.device)
+    self_hit = (cols[None, :] == z_old[:, None]).to(torch.float32)
+    nw = nwk_rows.to(torch.float32)
+    nd = nkd_rows.to(torch.float32) - self_hit
+    p = (nd + alpha_k[None, :]) * (nw + beta) / denom[None, :]
+    g = gumbel_noise(seeds[:, None], 0, cols[None, :])
+    score = torch.log(torch.clamp_min(p, 1e-30)) + g
+    return torch.argmax(score, dim=1).to(torch.int32)
+
+
+def zen_infer_sample_plain(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k,
+                           *, beta: float, w_beta: float) -> torch.Tensor:
+    """Plain-torch version of the gathered-row serving kernel."""
+    alpha = alpha_k.to(torch.float32)
+    denom = n_k.to(torch.float32) + w_beta
+    out = torch.empty(nwk_rows.shape[0], dtype=torch.int32,
+                      device=nwk_rows.device)
+    for s in range(0, nwk_rows.shape[0], PLAIN_CHUNK):
+        e = s + PLAIN_CHUNK
+        out[s:e] = infer_argmax_rows(
+            nwk_rows[s:e], nkd_rows[s:e], z_old[s:e], seeds[s:e],
+            alpha, denom, beta,
+        )
+    return out
+
+
+def check_cuda_args(named, dtypes) -> None:
+    """Raise unless every tensor lies on one CUDA device, is contiguous and
+    has the dtype the kernel reads."""
+    dev = None
+    for (name, t), dt in zip(named, dtypes):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        dev = t.device
+        if t.dtype != dt:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def zen_infer_sample_cuda(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k,
+                          *, beta: float, w_beta: float) -> torch.Tensor:
+    """Launch ``zen_infer_gathered`` on the current stream; no sync."""
+    from repro_torch.kernels._build import check_launch, library
+
+    i32, f32 = torch.int32, torch.float32
+    check_cuda_args(
+        [("nwk_rows", nwk_rows), ("nkd_rows", nkd_rows), ("z_old", z_old),
+         ("seeds", seeds), ("alpha_k", alpha_k), ("n_k", n_k)],
+        [i32, i32, i32, i32, f32, f32],
+    )
+    t, k = nwk_rows.shape
+    if nkd_rows.shape != (t, k) or z_old.shape != (t,) \
+            or seeds.shape != (t,) or alpha_k.shape != (k,) \
+            or n_k.shape != (k,):
+        raise ValueError(
+            f"shape mismatch: rows {tuple(nwk_rows.shape)}/"
+            f"{tuple(nkd_rows.shape)}, z_old {tuple(z_old.shape)}, "
+            f"seeds {tuple(seeds.shape)}, alpha_k {tuple(alpha_k.shape)}, "
+            f"n_k {tuple(n_k.shape)}"
+        )
+    out = torch.empty(t, dtype=i32, device=nwk_rows.device)
+    stream = torch.cuda.current_stream(nwk_rows.device).cuda_stream
+    with torch.cuda.device(nwk_rows.device):
+        check_launch("zen_infer_gathered", library().zen_infer_gathered(
+            nwk_rows.data_ptr(), nkd_rows.data_ptr(), z_old.data_ptr(),
+            seeds.data_ptr(), alpha_k.data_ptr(), n_k.data_ptr(),
+            out.data_ptr(), t, k, ctypes.c_float(beta),
+            ctypes.c_float(w_beta), stream,
+        ))
+    return out

@@ -29,3 +29,11 @@ def rng():
 @pytest.fixture()
 def key():
     return jax.random.key(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels); skips "
+        "without one. Run on the card with: pytest -m gpu",
+    )
