@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, each printing one JSON line:
 
 1. device  — the card, and ``nvidia-smi`` name / power limit;
-2. build   — nvcc builds ``src/repro_torch/kernels/csrc/zen_infer.cu`` for
-   sm_90a (prints the ``-Xptxas -v`` summary);
+2. build   — nvcc builds ``src/repro_torch/kernels/csrc/zen_infer.cu`` and
+   ``zen_train.cu`` for sm_90a, one nvcc each, in parallel (prints the
+   ``-Xptxas -v`` summary);
 3. kernels — both serving kernels at NYTIMES width (W = 101,636,
    K = 1000) on one full bucket sweep (32 slots x 512 = 16,384 tokens):
    the fused kernel must be bit-equal to the gathered one, and both may
@@ -26,8 +28,27 @@ Phases, each printing one JSON line:
    Each run's launch counts are zeroed after its warm-up and read right
    after its serving window: a throughput run must launch its own kernel
    and no other, and the latency run (RT-LDA has no kernel) none.
+5. train_kernels — both training kernels at NYTIMES width on the first
+   1,048,576 tokens of the corpus below after init (the gathered rows are
+   8.4 GB): fused bit-equal to gathered, each against its plain version
+   with mismatches only at near-ties on at most 1e-4 of tokens; CUDA-event
+   times, the bytes, the logf and the instruction counts per (t, k) read
+   from ``cuobjdump -sass``, and the bounds;
+6. train   — ``TrainSession`` with ``zen_pallas`` (``kernels="auto"``) on
+   the corpus ``launch.train --topics 1000 --synthetic-docs 299752
+   --synthetic-words 101636 --synthetic-len 332`` builds (~99.5M tokens):
+   random init, 5 iterations with an eval at init and after each one;
+   count invariants after every step, predictive llh rising at every eval,
+   change rate in (0, 1), exactly 5 fused launches and no gathered one,
+   then ``save_model`` read back bit-equal; one more step profiled;
+7. train_small — the same recipe at 4,096 documents (~1.36M tokens) and
+   the same initial topics, 3 iterations of ``zen`` (plain torch, cdf),
+   ``zen_pallas`` fused and ``zen_pallas`` gathered (``kernels="off"``):
+   fused and gathered topics bit-identical after every iteration, each run
+   launching only its own kernel (``zen`` none), and ``zen``'s per-token
+   llh within 1% of the fused run's.
 
-Then it prints the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line
+Then it prints the ``{"kernels": [...]}`` line (all four kernels), the ``nvidia-smi`` line
 and, last, ``{"ok": true, "device": {...}}``. It exits non-zero, before
 any result, when no CUDA device is present, when the repository's
 ``src/`` is missing, or when any check fails.
@@ -45,10 +66,14 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 
 W_NYT, K_NYT = 101_636, 1000  # src/repro/configs/zenlda.py NYTIMES
+D_NYT, LEN_NYT = 299_752, 332  # NYTIMES documents, mean tokens per doc
 SLOTS, BUCKET = 32, 512
 N_DOCS = 256
+TRAIN_ITERS, SMALL_DOCS, SMALL_ITERS = 5, 4096, 3
+KERNEL_TOKENS = 1 << 20  # training-kernel phase: first 1,048,576 tokens
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SFU_PER_SM_PER_CLK = 16  # special-function unit results per SM per clock
+INSTR_PER_SM_PER_CLK = 4 * 32  # 4 warp schedulers x 32 lanes
 NEAR_TIE = 1e-4
 
 
@@ -303,7 +328,8 @@ def main() -> int:
              if "ptxas" in ln and ("registers" in ln or "spill" in ln
                                    or "Compiling" in ln)]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "source": str(_build.SOURCE.relative_to(ROOT)), "ptxas": ptxas})
+          "sources": [str(src.relative_to(ROOT)) for src in _build.SOURCES],
+          "ptxas": ptxas})
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = phase_kernels(gen, dev, props.multi_processor_count, sm_clock_hz)
@@ -364,8 +390,15 @@ def main() -> int:
         emit({"phase": "profile", "run": name, "docs": len(ds[:64]),
               **profile_serving(model, cfg, ds[:64], args.seed)})
 
+    # -- training: kernels, the full NYTIMES run, the three backends ------
+    train_rows, train_launches = run_training(args.seed, dev, props, smi,
+                                              sm_clock_hz)
+    launches.update(train_launches)
+    rows = train_rows + rows
     for r in rows:
         r["launches"] = launches[r["name"]]
+        check(r["launches"] > 0,
+              f"{r['name']} was not launched on its path")
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
@@ -373,6 +406,374 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def sass_loop_stats(kernel: str):
+    """Instructions in the K loop of ``kernel`` (one (t, k) per lane per
+    pass: the loop is kept rolled), from ``cuobjdump -sass`` of the built
+    library: the span of the function's widest backward branch. None when
+    the tool or the pattern is missing."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = [_build.target(s) for s in _build.SOURCES
+           if s.name == "zen_train.cu"][0]
+    try:
+        out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, timeout=120).stdout
+    except OSError:
+        return None
+    funcs = re.split(r"\n\s*Function : ", out)
+    body = next((f for f in funcs[1:] if kernel in f.splitlines()[0]), None)
+    if body is None:
+        return None
+    instr, labels = [], {}
+    pending = []
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            instr.append((addr, m.group(2)))
+    best = None
+    for addr, text in instr:
+        if "BRA" not in text.split():
+            continue
+        m = re.search(r"\(\s*(\.L_x_\d+)\s*\)|BRA\s+(0x[0-9a-f]+)", text)
+        if not m:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else int(m.group(2),
+                                                               16)
+        if target is not None and target < addr and (
+                best is None or addr - target > best[1] - best[0]):
+            best = (target, addr)
+    if best is None:
+        return None
+    loop = [t for a, t in instr if best[0] <= a <= best[1]]
+    return {"loop_instructions": len(loop),
+            "loop_mufu": sum("MUFU" in t for t in loop),
+            "function_instructions": len(instr)}
+
+
+def synthetic_nytimes(num_docs: int):
+    """The corpus ``launch.train --synthetic-docs num_docs
+    --synthetic-words 101636 --synthetic-len 332`` builds."""
+    from repro_torch.data.corpus import synthetic_corpus
+
+    return synthetic_corpus(0, num_docs=num_docs, num_words=W_NYT,
+                            avg_doc_len=LEN_NYT, zipf_a=1.2)
+
+
+def phase_train_kernels(sess, st, seed: int, sm_count: int,
+                        sm_clock_hz: float):
+    """Both training kernels on the first KERNEL_TOKENS tokens of the
+    initialised NYTIMES state, against each other and the plain version."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_gather import zen_fused_sample_plain
+    from repro_torch.kernels.zen_sampler import gumbel_noise
+
+    c, h = sess.corpus, sess.hyper
+    t, k = KERNEL_TOKENS, K_NYT
+    word, doc, z = c.word[:t], c.doc[:t], st.topic[:t]
+    alpha = h.alpha_k(st.n_k).contiguous()
+    n_k = st.n_k.to(torch.float32)
+    beta, w_beta = h.beta, c.num_words * h.beta
+    kseed = seed * 7919 + 1
+    nwk_rows = st.n_wk[word.long()].contiguous()
+    nkd_rows = st.n_kd[doc.long()].contiguous()
+
+    def fused():
+        return ops.zen_fused_sample(st.n_wk, st.n_kd, word, doc, z, alpha,
+                                    n_k, kseed, beta=beta, w_beta=w_beta)
+
+    def gathered():
+        return ops.zen_sample(nwk_rows, nkd_rows, z, alpha, n_k, kseed,
+                              beta=beta, w_beta=w_beta)
+
+    def plain():
+        return zen_fused_sample_plain(st.n_wk, st.n_kd, word, doc, z, alpha,
+                                      n_k, kseed, beta=beta, w_beta=w_beta)
+
+    out_f, out_g, out_p = fused(), gathered(), plain()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(out_f, out_g)),
+          "training: fused and gathered kernels disagree")
+    check(int(out_f.min()) >= 0 and int(out_f.max()) < k,
+          "training kernel drew a topic outside [0, K)")
+    mism = (out_f != out_p).nonzero().flatten()
+    gaps = []
+    if mism.numel():
+        m = mism.long()
+        cand = torch.stack([out_f[m], out_p[m]], 1).long()
+        hit = (cand == z[m, None].long()).to(torch.float32)
+        nw = st.n_wk[word[m].long()].gather(1, cand).to(torch.float32) - hit
+        nd = st.n_kd[doc[m].long()].gather(1, cand).to(torch.float32) - hit
+        a = alpha[cand]
+        p = (a * beta + nw * a + nd * (nw + beta)) / (n_k[cand] - hit
+                                                      + w_beta)
+        sc = torch.log(torch.clamp_min(p, 1e-30)) \
+            + gumbel_noise(kseed, m[:, None], cand)
+        gaps = (sc[:, 0] - sc[:, 1]).abs().tolist()
+    check(all(g <= NEAR_TIE for g in gaps),
+          f"training kernel-vs-plain mismatches that are no near-tie: {gaps}")
+    check(len(gaps) <= NEAR_TIE * t,
+          f"training: {len(gaps)} kernel-vs-plain mismatches over {t}")
+
+    ms_f = cuda_ms(fused, reps=5, warmup=1)
+    ms_g = cuda_ms(gathered, reps=5, warmup=1)
+    ms_p = cuda_ms(plain, reps=2, warmup=0)
+
+    uniq_w = int(torch.unique(word).numel())
+    uniq_d = int(torch.unique(doc).numel())
+    vec = 2 * k * 4  # alpha_k and n_k
+    bytes_f = (uniq_w + uniq_d) * k * 4 + vec + t * 3 * 4 + t * 4
+    bytes_g = 2 * t * k * 4 + vec + t * 4 + t * 4
+    logf = 3 * t * k
+    sfu_ms = logf / (sm_count * SFU_PER_SM_PER_CLK * sm_clock_hz) * 1e3
+    sass = {name: sass_loop_stats(kern) for name, kern in (
+        ("zen_fused_sample", "zen_train_fused_kernel"),
+        ("zen_sample", "zen_train_gathered_kernel"))}
+
+    def row(name, replaces, ms, nbytes):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        loop = sass[name]
+        issue_ms = (t * k * loop["loop_instructions"]
+                    / (sm_count * INSTR_PER_SM_PER_CLK * sm_clock_hz) * 1e3
+                    if loop else None)
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/zen_train.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(gaps, default=0.0), "mismatches": len(gaps),
+            "near_tie_gaps": gaps, "tokens": t,
+            "ms": ms, "plain_ms": ms_p,
+            "bound_ms": max(bytes_ms, sfu_ms),
+            "bound_by": "bytes" if bytes_ms >= sfu_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms,
+            "logf": logf, "logf_ms": sfu_ms, "sass": loop,
+            "issue_bound_ms": issue_ms, "library_ms": None,
+        }
+
+    rows = [
+        row("zen_fused_sample", "src/repro/kernels/fused_gather.py:46",
+            ms_f, bytes_f),
+        row("zen_sample", "src/repro/kernels/zen_sampler.py:105", ms_g,
+            bytes_g),
+    ]
+    emit({"phase": "train_kernels", "W": W_NYT, "K": k, "T": t,
+          "unique_words": uniq_w, "unique_docs": uniq_d,
+          "fused_equals_gathered": True, "mismatches_vs_plain": len(gaps),
+          "ms": {"fused": ms_f, "gathered": ms_g, "plain": ms_p},
+          "sass": sass})
+    del nwk_rows, nkd_rows
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train(sess, st, smi):
+    """Five iterations of the full NYTIMES run, evaluated at init and
+    after each step; returns the fused-kernel launch count."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.train.checkpoint import load_lda_model
+
+    corpus = sess.corpus
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    evals = [sess.metrics(st)]
+    step_s, eval_s = [], []
+    for _ in range(TRAIN_ITERS):
+        t0 = time.perf_counter()
+        st = sess.step(st)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        st.check_invariants(corpus)
+        t0 = time.perf_counter()
+        evals.append(sess.metrics(st))
+        eval_s.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    llh = [m["llh"] for m in evals]
+    emit({"phase": "train", "tokens": corpus.num_tokens,
+          "docs": corpus.num_docs, "W": corpus.num_words, "K": K_NYT,
+          "llh": llh, "perplexity": [m["perplexity"] for m in evals],
+          "change_rate": [m["change_rate"] for m in evals[1:]],
+          "step_seconds": step_s, "eval_seconds": eval_s,
+          "peak_device_gb": peak_gb, "launches": counts, "card": smi})
+    check(all(b > a for a, b in zip(llh, llh[1:])),
+          f"train: predictive llh did not rise at every eval: {llh}")
+    check(all(0 < m["change_rate"] < 1 for m in evals[1:]),
+          "train: change rate outside (0, 1)")
+    check(counts["zen_fused_sample"] == TRAIN_ITERS
+          and all(v == 0 for n, v in counts.items()
+                  if n != "zen_fused_sample"),
+          f"train: expected {TRAIN_ITERS} fused launches only, got {counts}")
+
+    ckpt = ROOT / "build" / "chip_smoke_train_model"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    sess.save_model(st, str(ckpt))
+    n_wk, n_k, hyper, meta, step = load_lda_model(str(ckpt))
+    t_ckpt = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(step == TRAIN_ITERS and hyper == sess.hyper
+          and meta["algorithm"] == "zen_pallas"
+          and bool((torch.from_numpy(n_wk).to(st.n_wk.device)
+                    == st.n_wk).all())
+          and bool((torch.from_numpy(n_k).to(st.n_k.device)
+                    == st.n_k).all()),
+          "train: save_model then load_lda_model changed the model")
+    emit({"phase": "train_checkpoint", "seconds": t_ckpt,
+          "n_wk_bytes": int(n_wk.nbytes)})
+    emit({"phase": "train_profile", **profile_step(sess, st)})
+    return counts["zen_fused_sample"]
+
+
+def profile_step(sess, st):
+    """Device busy share and time by kernel name over one more training
+    step and its eval, from ``torch.profiler``; run after the main path's
+    counts were read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in (("step", lambda: sess.step(st)),
+                     ("eval", lambda: sess.metrics(st))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        out[name] = device_summary(prof, wall_us)
+    fused = [v for k, v in out["step"]["top_device_ms"].items()
+             if "zen_train_fused_kernel" in k]
+    out["kernel_ms_per_launch"] = fused[0][0] / fused[0][1] if fused \
+        else None
+    return out
+
+
+def device_summary(prof, wall_us: float):
+    """Device busy time, idle share and the largest device items of one
+    profiled window. Only events that ran on the card count: an operator's
+    host-side entry also carries its kernels' device time, and counting
+    both would count that time twice."""
+    from torch.autograd import DeviceType
+
+    by_name, calls = {}, {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "host_ms": (wall_us - busy_us) / 1e3,
+            "device_idle_share": (1 - busy_us / wall_us) if busy_us
+            else None,
+            "top_device_ms": {k[:80]: [v / 1e3, calls[k]] for k, v in top}}
+
+
+def phase_train_small(seed: int, dev, smi):
+    """zen, zen_pallas fused and zen_pallas gathered from the same initial
+    topics; returns the gathered run's launch count."""
+    import torch
+
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.kernels import ops
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus = synthetic_nytimes(SMALL_DOCS)
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    runs = (("zen", "zen", "auto", None),
+            ("fused", "zen_pallas", "auto", "zen_fused_sample"),
+            ("gathered", "zen_pallas", "off", "zen_sample"))
+    topics, llh, counts_by = {}, {}, {}
+    for name, algorithm, kernels, kernel in runs:
+        sess = TrainSession(corpus, hyper, RunConfig(
+            algorithm=algorithm, kernels=kernels), device=dev)
+        st = sess.init(seed)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        topics[name] = []
+        for _ in range(SMALL_ITERS):
+            st = sess.step(st)
+            st.check_invariants(sess.corpus)
+            topics[name].append(st.topic.clone())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        counts_by[name] = counts
+        llh[name] = sess.llh(st) / corpus.num_tokens
+        emit({"phase": "train_small", "run": name, "algorithm": algorithm,
+              "kernels": kernels, "tokens": corpus.num_tokens,
+              "seconds": secs, "llh_per_token": llh[name],
+              "launches": counts, "card": smi})
+        check(all((v > 0) == (n == kernel) for n, v in counts.items()),
+              f"train_small {name}: expected launches of {kernel} only, "
+              f"got {counts}")
+        del sess, st
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(topics["fused"],
+                                                 topics["gathered"]))
+    check(same, "train_small: fused and gathered runs drew different "
+          "topics")
+    rel = abs(llh["zen"] / llh["fused"] - 1)
+    emit({"phase": "train_small_check", "fused_equals_gathered": True,
+          "zen_vs_fused_llh_rel": rel})
+    check(rel < 0.01, f"train_small: zen llh/token {llh['zen']} vs fused "
+          f"{llh['fused']} differ by {rel:.4f} (>= 1%)")
+    return counts_by["gathered"]["zen_sample"]
+
+
+def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
+    """The three training phases; returns the two training kernels' rows
+    and their launches on their paths."""
+    import torch
+
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    t0 = time.perf_counter()
+    corpus = synthetic_nytimes(D_NYT)
+    t_corpus = time.perf_counter() - t0
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    sess = TrainSession(corpus, hyper, RunConfig(algorithm="zen_pallas"),
+                        device=dev)
+    del corpus
+    t0 = time.perf_counter()
+    st = sess.init(seed)
+    st.check_invariants(sess.corpus)
+    torch.cuda.synchronize()
+    emit({"phase": "train_setup", "tokens": sess.corpus.num_tokens,
+          "corpus_seconds": t_corpus,
+          "init_seconds": time.perf_counter() - t0})
+    rows = phase_train_kernels(sess, st, seed, props.multi_processor_count,
+                               sm_clock_hz)
+    fused_launches = phase_train(sess, st, smi)
+    del sess, st
+    torch.cuda.empty_cache()
+    gathered_launches = phase_train_small(seed, dev, smi)
+    return rows, {"zen_fused_sample": fused_launches,
+                  "zen_sample": gathered_launches}
 
 
 def profile_serving(model, cfg, docs, seed: int):
@@ -393,18 +794,7 @@ def profile_serving(model, cfg, docs, seed: int):
         engine.infer_batch(docs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us
-    busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": (1 - busy_us / wall_us) if busy_us
-            else None,
-            "top_device_ms": {k[:80]: v / 1e3 for k, v in top}}
+    return device_summary(prof, wall_us)
 
 
 def serve_cpu(model, cfg, docs):

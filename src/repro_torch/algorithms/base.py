@@ -1,6 +1,20 @@
-"""The sampler-backend contract, serving half (``repro/algorithms/base.py``).
+"""The sampler-backend contract (``repro/algorithms/base.py``).
 
-A backend serves a frozen model through
+A backend trains through
+
+* ``prepare(corpus, hyper, knobs) -> aux`` — per-run precompute, passed
+  back into every ``sweep`` (default: none);
+* ``sweep(state, corpus, hyper, knobs, aux) -> (E,)`` — one pass over
+  all tokens against iteration-start counts; the training plan owns masking,
+  the delta merge and the state update;
+* ``cell_sweep(seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
+  num_words_pad, knobs) -> (T,)`` — the per-cell form. ``seed`` is the
+  sweep's int31 seed (``core.keys.key_seed``), where the reference passes
+  a ``jax.random`` key; every draw hashes it with the global token index.
+  ``CellBackend`` derives the single-box ``sweep`` from it, treating the
+  whole corpus as one cell.
+
+and serves a frozen model through
 
 * ``prepare_infer(n_wk, n_k, hyper, knobs) -> aux`` — one-time tables,
   called when an engine is built;
@@ -11,18 +25,20 @@ A backend serves a frozen model through
 
 The base class derives ``infer_sweep`` for every backend: the dense
 frozen-phi sweep (:func:`_dense_infer_sweep`), in lockstep with
-``core.inference.cgs_infer``. The training half (``sweep``,
-``cell_sweep``) belongs to the training slice, which is not ported yet.
+``core.inference.cgs_infer``. The padded-sparse knobs (``max_kw``,
+``max_kd``, row-pad resolution) belong to the padded-sparse slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.core.inference import chain_sweep, frozen_phi_rows
+from repro_torch.core.keys import fold_in, key_seed
+from repro_torch.core.sampler import DENSE_CHUNK_ELEMS, chunk_size
 
 # SamplerKnobs.kernels policy: "auto" = kernels when the tensors lie on
 # CUDA; "on"/"off" pick the fused or the gathered kernel there
@@ -32,12 +48,6 @@ VALID_KERNEL_MODES = ("auto", "on", "off")
 # both packages (the CUDA kernels take any bt/bk)
 _MIN_BT = 8
 _LANE = 128
-
-TRAINING_NOT_PORTED = (
-    "training sweeps belong to the training slice of the port, which is "
-    "not ported yet; train with the JAX package (python -m "
-    "repro.launch.train --checkpoint-dir ...) and serve its checkpoint here"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +83,9 @@ class SamplerKnobs:
                 f"{VALID_KERNEL_MODES}"
             )
 
+    def chunk_or_none(self) -> Optional[int]:
+        return self.token_chunk or None
+
 
 def kernel_dispatch(mode: str, device: torch.device) -> bool:
     """Resolve a ``kernels`` policy: True picks the fused kernel path.
@@ -90,21 +103,36 @@ def kernel_dispatch(mode: str, device: torch.device) -> bool:
     return mode == "on"
 
 
+_KNOB_FIELDS = tuple(f.name for f in dataclasses.fields(SamplerKnobs))
+
+
+def knobs_from(cfg) -> SamplerKnobs:
+    """THE SamplerKnobs derivation: every training config builds its knobs
+    here, from the fields it shares with :class:`SamplerKnobs`."""
+    return SamplerKnobs(**{f: getattr(cfg, f) for f in _KNOB_FIELDS})
+
+
 class SamplerBackend:
-    """Base class: the serving contract plus a default derivation."""
+    """Base class: the training and serving contracts, with a default
+    serving derivation."""
 
     name: str = "?"
     native_infer: bool = False
 
-    def sweep(self, state, corpus, hyper, knobs: SamplerKnobs,
-              aux: Any = None):
-        raise NotImplementedError(f"backend {self.name!r}: "
-                                  + TRAINING_NOT_PORTED)
+    def prepare(self, corpus, hyper, knobs: SamplerKnobs) -> Any:
+        """Per-run precompute; returns the aux threaded into ``sweep``."""
+        return None
 
-    def cell_sweep(self, key, word, doc, z_old, mask, n_wk, n_kd, n_k,
-                   hyper, num_words_pad: int, knobs: SamplerKnobs):
-        raise NotImplementedError(f"backend {self.name!r}: "
-                                  + TRAINING_NOT_PORTED)
+    def sweep(self, state, corpus, hyper, knobs: SamplerKnobs,
+              aux: Any = None) -> torch.Tensor:
+        raise NotImplementedError(
+            f"backend {self.name!r} has no single-box sweep")
+
+    def cell_sweep(self, seed: int, word, doc, z_old, mask, n_wk, n_kd,
+                   n_k, hyper, num_words_pad: int,
+                   knobs: SamplerKnobs) -> torch.Tensor:
+        raise NotImplementedError(
+            f"backend {self.name!r} has no cell sweep")
 
     def prepare_infer(self, n_wk, n_k, hyper, knobs: SamplerKnobs,
                       num_words_total: Optional[int] = None) -> Any:
@@ -136,3 +164,34 @@ def _dense_infer_sweep(keys, words, mask, z_old, n_kd, n_wk, n_k, hyper,
     phi = frozen_phi_rows(n_wk, n_k, words, hyper, num_words_total)
     return chain_sweep(phi, hyper.alpha_k(n_k), keys, z_old, mask, n_kd,
                        method)
+
+
+class CellBackend(SamplerBackend):
+    """Single-box sweep derived from the cell sweep: the whole corpus is
+    one cell, every id is already local, every token is live."""
+
+    def sweep(self, state, corpus, hyper, knobs: SamplerKnobs, aux=None):
+        seed = key_seed(fold_in(state.rng, state.iteration))
+        return self.cell_sweep(
+            seed, corpus.word, corpus.doc, state.topic, None,
+            state.n_wk, state.n_kd, state.n_k, hyper, corpus.num_words,
+            knobs,
+        )
+
+
+def chunked_token_map(chunk_fn: Callable[..., torch.Tensor],
+                      arrays: Sequence[torch.Tensor], token_chunk: int,
+                      num_topics: int,
+                      elems: int = DENSE_CHUNK_ELEMS) -> torch.Tensor:
+    """``chunk_fn(start, *chunks) -> (chunk,)`` over token chunks of the
+    (E,) ``arrays``, concatenated. The chunk is ``token_chunk`` when set
+    (E must divide evenly, as in the reference), else a size whose
+    (chunk, K) temporaries hold ``elems`` elements. ``start`` is the
+    chunk's first global token index: draws hash it, so the chunking
+    changes no draw."""
+    e = arrays[0].shape[0]
+    size = chunk_size(e, num_topics, token_chunk, elems)
+    out = torch.empty(e, dtype=torch.int32, device=arrays[0].device)
+    for s in range(0, e, size):
+        out[s:s + size] = chunk_fn(s, *(a[s:s + size] for a in arrays))
+    return out

@@ -43,3 +43,14 @@ def get(name: str) -> SamplerBackend:
 def registered() -> Tuple[str, ...]:
     """Primary backend names in registration order."""
     return tuple(_PRIMARY)
+
+
+def describe() -> List[Tuple[str, SamplerBackend, Tuple[str, ...]]]:
+    """(primary name, backend, aliases) for every entry — CLI listings."""
+    out = []
+    for name in _PRIMARY:
+        b = _REGISTRY[name]
+        aliases = tuple(n for n, inst in _REGISTRY.items()
+                        if inst is b and n != name)
+        out.append((name, b, aliases))
+    return out

@@ -1,12 +1,65 @@
-"""``zen`` (+ ``zen_dense`` alias): the dense three-term backend. In this
-slice it serves through the default dense frozen-phi sweep; its training
-sweep comes with the training slice."""
+"""``zen`` (+ ``zen_dense`` alias): the dense three-term backend, in plain
+torch (the reference has no kernel for it either).
+
+Per-token dense (T, K) probabilities with exact ¬dw self-exclusion,
+sampled by inverse CDF or Gumbel-max. The single-box ``sweep`` is the
+oracle sweep ``core.sampler.cgs_sweep_stale``, as in the reference;
+``cell_sweep`` is the per-cell form (``zen_dense_cell``). It serves
+through the default dense frozen-phi sweep. ``std`` is not ported yet.
+"""
 from __future__ import annotations
 
-from repro_torch.algorithms.base import SamplerBackend
+import torch
+
+from repro_torch.algorithms.base import (
+    CellBackend,
+    SamplerKnobs,
+    chunked_token_map,
+)
 from repro_torch.algorithms.registry import register
+from repro_torch.core.sampler import cgs_sweep_stale, sample_categorical
+
+
+def zen_dense_cell(seed: int, word_l, doc_l, z_old, mask, n_wk_l, n_kd_l,
+                   n_k, hyper, num_words_pad: int, method: str,
+                   token_chunk: int) -> torch.Tensor:
+    """Dense per-token (T, K) three-term probabilities; exact ¬dw. Token
+    t's noise hashes (seed, t)."""
+    k = hyper.num_topics
+    alpha_k = hyper.alpha_k(n_k)[None, :]
+    w_beta = num_words_pad * hyper.beta
+    cols = torch.arange(k, device=n_k.device)
+
+    def chunk(start, w, d, z):
+        onehot = (cols[None, :] == z.long()[:, None]).to(torch.int32)
+        nw = (n_wk_l[w.long()] - onehot).to(torch.float32)
+        nd = (n_kd_l[d.long()] - onehot).to(torch.float32)
+        nk = (n_k[None, :] - onehot).to(torch.float32)
+        t1 = 1.0 / (nk + w_beta)
+        p = (alpha_k * hyper.beta + nw * alpha_k
+             + nd * (nw + hyper.beta)) * t1
+        rows = torch.arange(start, start + w.shape[0], device=w.device)
+        return sample_categorical(p, seed, rows, method)
+
+    return chunked_token_map(chunk, (word_l, doc_l, z_old), token_chunk, k)
 
 
 @register("zen", "zen_dense")
-class ZenDense(SamplerBackend):
+class ZenDense(CellBackend):
     """ZenLDA three-term decomposition over dense rows (paper Eq. 3)."""
+
+    decomposition = "zen"
+
+    def sweep(self, state, corpus, hyper, knobs: SamplerKnobs, aux=None):
+        return cgs_sweep_stale(
+            state, corpus, hyper, method=knobs.sampling_method,
+            decomposition=self.decomposition,
+            token_chunk=knobs.chunk_or_none(),
+        )
+
+    def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
+                   hyper, num_words_pad, knobs: SamplerKnobs):
+        return zen_dense_cell(
+            seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
+            num_words_pad, knobs.sampling_method, knobs.token_chunk,
+        )

@@ -1,7 +1,8 @@
-"""``zen_pallas`` (+ ``zen_dense_kernel`` alias): the frozen-model
-Gumbel-max sampler as a serving backend. The registry names are the
+"""``zen_pallas`` (+ ``zen_dense_kernel`` alias): the fused three-term
+Gumbel-max sampler, for training and serving. The registry names are the
 reference's, so one config names one backend in both packages; here the
-sampler is the hand-written CUDA kernel pair of ``kernels/csrc``."""
+samplers are the hand-written CUDA kernels of ``kernels/csrc``
+(``zen_train.cu`` for training, ``zen_infer.cu`` for serving)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -9,13 +10,24 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.algorithms.base import (
-    SamplerBackend,
+    CellBackend,
     SamplerKnobs,
+    chunked_token_map,
     kernel_dispatch,
 )
 from repro_torch.algorithms.registry import register
 from repro_torch.core.keys import token_seeds
-from repro_torch.kernels.ops import zen_fused_infer_sample, zen_infer_sample
+from repro_torch.core.sampler import check_token_chunk
+from repro_torch.kernels.ops import (
+    zen_fused_infer_sample,
+    zen_fused_sample,
+    zen_infer_sample,
+    zen_sample,
+)
+
+# tokens of one gathered-kernel launch: bounds its two (chunk, K) int32
+# row matrices to 2^30 elements each (4 GiB)
+GATHER_CHUNK_ELEMS = 1 << 30
 
 
 class FrozenPallasModel(NamedTuple):
@@ -27,10 +39,42 @@ class FrozenPallasModel(NamedTuple):
 
 
 @register("zen_pallas", "zen_dense_kernel")
-class ZenPallas(SamplerBackend):
-    """Fused three-term Gumbel-max sampler (CUDA kernel on the card)."""
+class ZenPallas(CellBackend):
+    """Fused three-term Gumbel-max sampler (CUDA kernels on the card)."""
 
     native_infer = True
+
+    def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
+                   hyper, num_words_pad, knobs: SamplerKnobs):
+        """One training sweep through the kernels: exact ¬dw exclusion on
+        all three counts, noise at (seed, global token index, topic).
+
+        With the kernel policy on (``auto`` on CUDA) the fused kernel
+        reads ``n_wk[word]``/``n_kd[doc]`` in place: one launch per sweep,
+        whatever ``token_chunk`` is (the rows are never materialised). With
+        it off, the gathered kernel runs on rows gathered here, one launch
+        per chunk (``token_chunk``, else ``GATHER_CHUNK_ELEMS`` of rows).
+        The two are bit-identical; on the CPU both run plain torch."""
+        alpha_k = hyper.alpha_k(n_k).contiguous()
+        n_k_f = n_k.to(torch.float32).contiguous()
+        w_beta = num_words_pad * hyper.beta
+        n_wk_i = n_wk.to(torch.int32).contiguous()
+        n_kd_i = n_kd.to(torch.int32).contiguous()
+        kw = dict(beta=hyper.beta, w_beta=w_beta, bt=knobs.bt, bk=knobs.bk)
+        if kernel_dispatch(knobs.kernels, word.device):
+            check_token_chunk(word.shape[0], knobs.token_chunk)
+            return zen_fused_sample(
+                n_wk_i, n_kd_i, word.contiguous(), doc.contiguous(),
+                z_old.contiguous(), alpha_k, n_k_f, seed, **kw)
+
+        def chunk(start, w, d, z):
+            return zen_sample(n_wk_i[w.long()], n_kd_i[d.long()],
+                              z.contiguous(), alpha_k, n_k_f, seed,
+                              row_offset=start, **kw)
+
+        return chunked_token_map(chunk, (word, doc, z_old),
+                                 knobs.token_chunk, n_k.shape[0],
+                                 GATHER_CHUNK_ELEMS)
 
     def prepare_infer(self, n_wk, n_k, hyper, knobs: SamplerKnobs,
                       num_words_total=None):

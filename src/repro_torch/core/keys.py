@@ -1,7 +1,7 @@
-"""Counter-based request keys for serving.
+"""Counter-based keys for serving and training.
 
-The reference draws its serving randomness from ``jax.random`` keys,
-whose threefry streams torch cannot reproduce. Here a key is two uint32
+The reference draws its randomness from ``jax.random`` keys, whose
+threefry streams torch cannot reproduce. Here a key is two uint32
 words (held in int64, as everywhere in the port's hash), the same shape as
 ``jax.random.key_data`` of a reference key, and every draw is a hash of
 (key, counter) through the kernels' ``mix32``:
@@ -18,6 +18,13 @@ words (held in int64, as everywhere in the port's hash), the same shape as
 Each draw therefore depends only on its own request's key and token
 position: results are independent of batch composition and prefix-stable
 in the bucket width, the contract the reference engine's tests pin.
+
+Training (``core.init``, ``core.sampler``, ``algorithms``) uses the same
+words: a run key comes from :func:`as_key`, :func:`split` derives the
+init and state keys as the reference's ``jax.random.split`` does, and
+sweep ``i`` draws from the int31 :func:`key_seed` of ``fold_in(state
+key, i)``, hashed with the global token index (and topic). A training
+draw therefore depends only on (run key, iteration, token index).
 """
 from __future__ import annotations
 
@@ -62,14 +69,34 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([new_hi, new_lo], dim=-1)
 
 
+# split() counters sit above every iteration counter fold_in sees
+_SPLIT_BASE = 1 << 31
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``num`` keys (num, 2) from ``key``, on counters of their own."""
+    return fold_in(key, torch.arange(num, dtype=torch.int64) + _SPLIT_BASE)
+
+
+def key_seed(key: torch.Tensor) -> int:
+    """One non-negative int31 seed from a (2,) key (the kernels' seed)."""
+    return int(golden_seed(key[0], key[1], 0))
+
+
+def uniform_ints(key: torch.Tensor, n: int, high: int,
+                 device=None) -> torch.Tensor:
+    """(n,) int64 draws in [0, high): entry ``i`` hashes (key, i) only."""
+    pos = torch.arange(n, device=device)
+    k = key.to(device)
+    return mix32(golden_seed(k[0], k[1], pos)) % high
+
+
 def init_topics(key: torch.Tensor, length: int, num_topics: int,
                 device=None) -> torch.Tensor:
     """A request's initial topics, (length,) int32, uniform over K and
     prefix-stable in ``length``."""
-    k0 = fold_in(key, 0).to(device)
-    pos = torch.arange(length, device=device)
-    seeds = golden_seed(k0[0], k0[1], pos)
-    return (mix32(seeds) % num_topics).to(torch.int32)
+    return uniform_ints(fold_in(key, 0), length, num_topics,
+                        device=device).to(torch.int32)
 
 
 def token_seeds(keys: torch.Tensor, length: int) -> torch.Tensor:

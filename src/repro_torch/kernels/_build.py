@@ -1,9 +1,11 @@
-"""Build ``csrc/zen_infer.cu`` with nvcc and bind it by ctypes.
+"""Build the CUDA sources with nvcc and bind them by ctypes.
 
-The source compiles to a shared library with a plain C interface, named by
-a hash of its source and flags, into ``build/`` beside this file (listed in
-``.gitignore``). A library already built from the same source and flags is
-reused. Nothing here runs at import: the first launch builds and loads.
+Each source in :data:`SOURCES` compiles to a shared library with a plain C
+interface, named by a hash of its source and flags, into ``build/`` beside
+this file (listed in ``.gitignore``). The sources not built yet compile
+in parallel, one nvcc each; a library already built from the same source
+and flags is reused. Nothing here runs at import: the first launch builds
+and loads.
 """
 from __future__ import annotations
 
@@ -13,10 +15,15 @@ import os
 import pathlib
 import shutil
 import subprocess
+import types
 from typing import Optional
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "zen_infer.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
+_HERE = pathlib.Path(__file__).resolve().parent
+SOURCES = (
+    _HERE / "csrc" / "zen_infer.cu",  # serving: queue-2 kernels 3 and 4
+    _HERE / "csrc" / "zen_train.cu",  # training: queue-2 kernels 1 and 2
+)
+BUILD_DIR = _HERE / "build"
 
 # -fmad=false: no multiply-add contraction, so every float op rounds as
 # its plain torch version does; no --use_fast_math (approximate logf and
@@ -29,14 +36,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of the source's extern "C" launchers
+# argtypes of the sources' extern "C" launchers
 SIGNATURES = {
     "zen_infer_gathered": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "zen_infer_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _F, _P),
+    "zen_train_gathered": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                           _P),
+    "zen_train_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _F, _F, _P),
 }
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[types.SimpleNamespace] = None
 
 
 def nvcc_path() -> str:
@@ -51,44 +62,59 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _target() -> pathlib.Path:
+def target(source: pathlib.Path) -> pathlib.Path:
+    """The library built from ``source`` with :data:`NVCC_FLAGS`."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{SOURCE.stem}_{digest}.so"
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
 def build() -> str:
-    """Compile the source unless already built; return nvcc's output (the
-    ``-Xptxas -v`` register/spill summary, empty for a reused library).
-    Raises if the compile fails."""
-    out = _target()
-    if out.exists():
+    """Compile every source not built yet, all at once; return nvcc's
+    output (the ``-Xptxas -v`` register/spill summary, empty when every
+    library is reused). Raises if a compile fails."""
+    todo = [s for s in SOURCES if not target(s).exists()]
+    if not todo:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA build of {SOURCE.name} failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    # atomic: a concurrent build never sees half a file
-    os.replace(tmp, out)
-    return proc.stdout
+    procs = []
+    for src in todo:
+        tmp = target(src).with_suffix(f".{os.getpid()}.tmp")
+        procs.append((src, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    logs, failed = [], []
+    for src, tmp, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"CUDA build of {src.name} failed (nvcc exit "
+                          f"{proc.returncode}):\n{out}")
+        else:
+            # atomic: a concurrent build never sees half a file
+            os.replace(tmp, target(src))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
 
 
-def library() -> ctypes.CDLL:
-    """The loaded library, built at first use."""
+def library() -> types.SimpleNamespace:
+    """Every launcher of :data:`SIGNATURES`, bound from the library that
+    exports it; the libraries are built at first use."""
     global _LIB
     if _LIB is None:
         build()
-        lib = ctypes.CDLL(str(_target()))
-        for fn, argtypes in SIGNATURES.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIB = lib
+        libs = [ctypes.CDLL(str(target(s))) for s in SOURCES]
+        fns = {}
+        for name, argtypes in SIGNATURES.items():
+            fn = next(getattr(lib, name) for lib in libs
+                      if hasattr(lib, name))
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        _LIB = types.SimpleNamespace(**fns)
     return _LIB
 
 

@@ -1,13 +1,14 @@
-"""Fused gather + frozen-model sampler.
+"""Fused gather + sample, for serving and for training.
 
-The gathered-row sampler reads (T, K) rows that a caller materialised as
-``n_wk[word]`` / ``n_kd[slot]``. This variant reads each token's rows
-straight out of the resident matrices, so no (T, K) intermediate exists.
-``zen_fused_infer_sample_cuda`` launches ``zen_infer_fused`` from
-``csrc/zen_infer.cu``, which shares its scoring routine with the gathered
-kernel: the two are bit-identical on the card, as the reference requires
-of its two Pallas kernels. ``zen_fused_infer_sample_plain`` is the same
-function in plain torch.
+The gathered-row samplers read (T, K) rows that a caller materialised as
+``n_wk[word]`` / ``n_kd[slot or doc]``. These variants read each token's
+rows straight out of the resident matrices, so no (T, K) intermediate
+exists. ``zen_fused_infer_sample_cuda`` launches ``zen_infer_fused``
+(``csrc/zen_infer.cu``) and ``zen_fused_sample_cuda`` launches
+``zen_train_fused`` (``csrc/zen_train.cu``); each shares its scoring
+routine with its gathered kernel, so the two are bit-identical on the
+card, as the reference requires of its Pallas kernels. The ``_plain``
+functions are the same functions in plain torch.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ import torch
 from repro_torch.kernels.zen_sampler import (
     PLAIN_CHUNK,
     check_cuda_args,
+    check_seed,
     infer_argmax_rows,
+    train_argmax_rows,
 )
 
 
@@ -70,5 +73,62 @@ def zen_fused_infer_sample_cuda(n_wk, n_kd, word, slot, z_old, seeds,
             slot.data_ptr(), z_old.data_ptr(), seeds.data_ptr(),
             alpha_k.data_ptr(), n_k.data_ptr(), out.data_ptr(),
             t, k, w, b, ctypes.c_float(beta), ctypes.c_float(w_beta), stream,
+        ))
+    return out
+
+
+def zen_fused_sample_plain(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
+                           seed: int, *, beta: float, w_beta: float,
+                           row_offset: int = 0) -> torch.Tensor:
+    """Plain-torch version of the fused training kernel: gathers one chunk
+    of rows at a time; token t's noise row is ``row_offset + t``."""
+    alpha = alpha_k.to(torch.float32)
+    nk = n_k.to(torch.float32)
+    word, doc = word.long(), doc.long()
+    t = word.shape[0]
+    out = torch.empty(t, dtype=torch.int32, device=n_wk.device)
+    for s in range(0, t, PLAIN_CHUNK):
+        e = min(s + PLAIN_CHUNK, t)
+        rows = torch.arange(row_offset + s, row_offset + e,
+                            device=n_wk.device)
+        out[s:e] = train_argmax_rows(
+            n_wk[word[s:e]], n_kd[doc[s:e]], z_old[s:e], rows, seed, alpha,
+            nk, beta, w_beta,
+        )
+    return out
+
+
+def zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
+                          seed: int, *, beta: float, w_beta: float,
+                          row_offset: int = 0) -> torch.Tensor:
+    """Launch ``zen_train_fused`` on the current stream; no sync. A word
+    or doc id outside its matrix aborts the kernel, and the caller's next
+    synchronize raises."""
+    from repro_torch.kernels._build import check_launch, library
+
+    i32, f32 = torch.int32, torch.float32
+    check_cuda_args(
+        [("n_wk", n_wk), ("n_kd", n_kd), ("word", word), ("doc", doc),
+         ("z_old", z_old), ("alpha_k", alpha_k), ("n_k", n_k)],
+        [i32, i32, i32, i32, i32, f32, f32],
+    )
+    (w, k), (d, kd), t = n_wk.shape, n_kd.shape, word.shape[0]
+    if kd != k or any(x.shape != (t,) for x in (word, doc, z_old)) \
+            or alpha_k.shape != (k,) or n_k.shape != (k,):
+        raise ValueError(
+            f"shape mismatch: n_wk {tuple(n_wk.shape)}, n_kd "
+            f"{tuple(n_kd.shape)}, token vectors of {t}, alpha_k "
+            f"{tuple(alpha_k.shape)}, n_k {tuple(n_k.shape)}"
+        )
+    check_seed(seed, row_offset, t)
+    out = torch.empty(t, dtype=i32, device=n_wk.device)
+    stream = torch.cuda.current_stream(n_wk.device).cuda_stream
+    with torch.cuda.device(n_wk.device):
+        check_launch("zen_train_fused", library().zen_train_fused(
+            n_wk.data_ptr(), n_kd.data_ptr(), word.data_ptr(),
+            doc.data_ptr(), z_old.data_ptr(), alpha_k.data_ptr(),
+            n_k.data_ptr(), out.data_ptr(), t, k, w, d, int(seed),
+            int(row_offset), ctypes.c_float(beta), ctypes.c_float(w_beta),
+            stream,
         ))
     return out

@@ -16,13 +16,19 @@ from typing import Dict
 from repro_torch.kernels.fused_gather import (
     zen_fused_infer_sample_cuda,
     zen_fused_infer_sample_plain,
+    zen_fused_sample_cuda,
+    zen_fused_sample_plain,
 )
 from repro_torch.kernels.zen_sampler import (
     zen_infer_sample_cuda,
     zen_infer_sample_plain,
+    zen_sample_cuda,
+    zen_sample_plain,
 )
 
 _LAUNCHES: Dict[str, int] = {
+    "zen_sample": 0,
+    "zen_fused_sample": 0,
     "zen_infer_sample": 0,
     "zen_fused_infer_sample": 0,
 }
@@ -42,6 +48,39 @@ def _route(t) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def zen_sample(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
+               beta: float, w_beta: float, bt: int = 256, bk: int = 512,
+               row_offset: int = 0):
+    """Training draw on gathered (T, K) rows: exact ¬dw exclusion on all
+    three counts, noise at (seed, row_offset + t, topic). Returns (T,)
+    int32. Unlike the reference's padded Pallas grid, no topic id >= K can
+    come out."""
+    if _route(nwk_rows) == "cpu":
+        return zen_sample_plain(nwk_rows, nkd_rows, z_old, alpha_k, n_k,
+                                seed, beta=beta, w_beta=w_beta,
+                                row_offset=row_offset)
+    out = zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed,
+                          beta=beta, w_beta=w_beta, row_offset=row_offset)
+    _LAUNCHES["zen_sample"] += 1
+    return out
+
+
+def zen_fused_sample(n_wk, n_kd, word, doc, z_old, alpha_k, n_k, seed: int,
+                     *, beta: float, w_beta: float, bt: int = 256,
+                     bk: int = 512, row_offset: int = 0):
+    """``zen_sample(n_wk[word], n_kd[doc], ...)`` without the gathered
+    rows; bit-identical to it. Returns (T,) int32."""
+    if _route(n_wk) == "cpu":
+        return zen_fused_sample_plain(n_wk, n_kd, word, doc, z_old, alpha_k,
+                                      n_k, seed, beta=beta, w_beta=w_beta,
+                                      row_offset=row_offset)
+    out = zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
+                                seed, beta=beta, w_beta=w_beta,
+                                row_offset=row_offset)
+    _LAUNCHES["zen_fused_sample"] += 1
+    return out
 
 
 def zen_infer_sample(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k, *,

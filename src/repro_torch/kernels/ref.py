@@ -1,4 +1,4 @@
-"""Plain oracles of the serving kernels, mirroring ``repro/kernels/ref.py``:
+"""Plain oracles of the sampler kernels, mirroring ``repro/kernels/ref.py``:
 the whole (T, K) score matrix at once, with no chunking, written apart from
 the kernels' plain versions so that each can be held against the other."""
 from __future__ import annotations
@@ -31,5 +31,47 @@ def zen_fused_infer_sample_ref(n_wk, n_kd, word, slot, z_old, seeds,
     gathered-row oracle."""
     return zen_infer_sample_ref(
         n_wk[word.long()], n_kd[slot.long()], z_old, seeds, alpha_k, n_k,
+        beta=beta, w_beta=w_beta,
+    )
+
+
+def _train_probs(nwk_rows, nkd_rows, z_old, alpha_k, n_k, beta, w_beta):
+    t, k = nwk_rows.shape
+    cols = torch.arange(k, device=nwk_rows.device)[None, :]
+    self_hit = (cols == z_old[:, None]).to(torch.float32)
+    nw = nwk_rows.to(torch.float32) - self_hit
+    nd = nkd_rows.to(torch.float32) - self_hit
+    nk = n_k.to(torch.float32)[None, :] - self_hit
+    a = alpha_k.to(torch.float32)[None, :]
+    return (a * beta + nw * a + nd * (nw + beta)) / (nk + w_beta)
+
+
+def zen_sample_ref(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed, *,
+                   beta: float, w_beta: float) -> torch.Tensor:
+    """Oracle of ``ops.zen_sample``: exact ¬dw exclusion on all three
+    counts, noise at (seed, token, topic), the real K only."""
+    t, k = nwk_rows.shape
+    p = _train_probs(nwk_rows, nkd_rows, z_old, alpha_k, n_k, beta, w_beta)
+    rows = torch.arange(t, device=nwk_rows.device)[:, None]
+    cols = torch.arange(k, device=nwk_rows.device)[None, :]
+    g = gumbel_noise(int(seed), rows, cols)
+    score = torch.log(torch.clamp_min(p, 1e-30)) + g
+    return torch.argmax(score, dim=-1).to(torch.int32)
+
+
+def zen_probs_ref(nwk_rows, nkd_rows, z_old, alpha_k, n_k, *, beta: float,
+                  w_beta: float) -> torch.Tensor:
+    """The exact ¬dw conditional the training kernels draw from,
+    normalised per row (for chi-square tests)."""
+    p = _train_probs(nwk_rows, nkd_rows, z_old, alpha_k, n_k, beta, w_beta)
+    return p / torch.sum(p, dim=-1, keepdim=True)
+
+
+def zen_fused_sample_ref(n_wk, n_kd, word, doc, z_old, alpha_k, n_k, seed,
+                         *, beta: float, w_beta: float) -> torch.Tensor:
+    """Oracle of ``ops.zen_fused_sample``: gather, then the gathered-row
+    oracle."""
+    return zen_sample_ref(
+        n_wk[word.long()], n_kd[doc.long()], z_old, alpha_k, n_k, seed,
         beta=beta, w_beta=w_beta,
     )

@@ -1,4 +1,4 @@
-"""Counter-based hash noise and the gathered-row frozen-model sampler.
+"""Counter-based hash noise and the two gathered-row Gumbel-max samplers.
 
 The hash is the Murmur3-style finalizer of the JAX package's
 ``kernels/zen_sampler.py``: Gumbel noise for (seed, row, col) is computed,
@@ -8,10 +8,12 @@ so every hash value here is an ``int64`` tensor holding a uint32 and masked
 with ``0xFFFFFFFF`` after each multiply: int64 products wrap, and their low
 32 bits are exact.
 
-``zen_infer_sample_cuda`` launches the hand-written Hopper kernel
+Serving: ``zen_infer_sample_cuda`` launches the hand-written Hopper kernel
 (``csrc/zen_infer.cu``, ``zen_infer_gathered``) on pre-gathered (T, K)
-rows; ``zen_infer_sample_plain`` is the same function in plain torch. The
-public dispatching wrapper is ``repro_torch.kernels.ops.zen_infer_sample``.
+rows; ``zen_infer_sample_plain`` is the same function in plain torch.
+Training: ``zen_sample_cuda`` launches ``zen_train_gathered``
+(``csrc/zen_train.cu``) and ``zen_sample_plain`` is its plain version.
+The public dispatching wrappers are in ``repro_torch.kernels.ops``.
 """
 from __future__ import annotations
 
@@ -104,6 +106,55 @@ def zen_infer_sample_plain(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k,
     return out
 
 
+def train_argmax_rows(nwk_rows, nkd_rows, z_old, rows, seed: int, alpha_k,
+                      n_k, beta: float, w_beta: float) -> torch.Tensor:
+    """One chunk of the training Gumbel-max draw on gathered rows:
+    ``argmax_k log max(p, 1e-30) + g(seed, rows[t], k)`` with exact ¬dw
+    exclusion on all three counts and
+    ``p = (α_k·β + N_wk·α_k + N_kd·(N_wk+β)) / (N_k + Wβ)``, in the
+    reference kernel's op order; the first maximal index wins."""
+    k = nwk_rows.shape[1]
+    cols = torch.arange(k, device=nwk_rows.device)
+    self_hit = (cols[None, :] == z_old[:, None]).to(torch.float32)
+    nw = nwk_rows.to(torch.float32) - self_hit
+    nd = nkd_rows.to(torch.float32) - self_hit
+    nk = n_k[None, :] - self_hit
+    a = alpha_k[None, :]
+    p = (a * beta + nw * a + nd * (nw + beta)) / (nk + w_beta)
+    g = gumbel_noise(seed, rows[:, None], cols[None, :])
+    score = torch.log(torch.clamp_min(p, 1e-30)) + g
+    return torch.argmax(score, dim=1).to(torch.int32)
+
+
+def zen_sample_plain(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
+                     beta: float, w_beta: float,
+                     row_offset: int = 0) -> torch.Tensor:
+    """Plain-torch version of the gathered-row training kernel; token t's
+    noise row is ``row_offset + t``."""
+    alpha = alpha_k.to(torch.float32)
+    nk = n_k.to(torch.float32)
+    t = nwk_rows.shape[0]
+    out = torch.empty(t, dtype=torch.int32, device=nwk_rows.device)
+    for s in range(0, t, PLAIN_CHUNK):
+        e = min(s + PLAIN_CHUNK, t)
+        rows = torch.arange(row_offset + s, row_offset + e,
+                            device=nwk_rows.device)
+        out[s:e] = train_argmax_rows(
+            nwk_rows[s:e], nkd_rows[s:e], z_old[s:e], rows, seed, alpha, nk,
+            beta, w_beta,
+        )
+    return out
+
+
+def check_seed(seed: int, row_offset: int, num_tokens: int) -> None:
+    """The kernels take a non-negative int31 seed and int31 noise rows."""
+    if not 0 <= int(seed) < 2**31:
+        raise ValueError(f"seed {seed} is not a non-negative int31")
+    if row_offset < 0 or row_offset + num_tokens > 2**31:
+        raise ValueError(f"noise rows [{row_offset}, "
+                         f"{row_offset + num_tokens}) exceed int31")
+
+
 def check_cuda_args(named, dtypes) -> None:
     """Raise unless every tensor lies on one CUDA device, is contiguous and
     has the dtype the kernel reads."""
@@ -148,6 +199,39 @@ def zen_infer_sample_cuda(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k,
             nwk_rows.data_ptr(), nkd_rows.data_ptr(), z_old.data_ptr(),
             seeds.data_ptr(), alpha_k.data_ptr(), n_k.data_ptr(),
             out.data_ptr(), t, k, ctypes.c_float(beta),
+            ctypes.c_float(w_beta), stream,
+        ))
+    return out
+
+
+def zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
+                    beta: float, w_beta: float,
+                    row_offset: int = 0) -> torch.Tensor:
+    """Launch ``zen_train_gathered`` on the current stream; no sync."""
+    from repro_torch.kernels._build import check_launch, library
+
+    i32, f32 = torch.int32, torch.float32
+    check_cuda_args(
+        [("nwk_rows", nwk_rows), ("nkd_rows", nkd_rows), ("z_old", z_old),
+         ("alpha_k", alpha_k), ("n_k", n_k)],
+        [i32, i32, i32, f32, f32],
+    )
+    t, k = nwk_rows.shape
+    if nkd_rows.shape != (t, k) or z_old.shape != (t,) \
+            or alpha_k.shape != (k,) or n_k.shape != (k,):
+        raise ValueError(
+            f"shape mismatch: rows {tuple(nwk_rows.shape)}/"
+            f"{tuple(nkd_rows.shape)}, z_old {tuple(z_old.shape)}, "
+            f"alpha_k {tuple(alpha_k.shape)}, n_k {tuple(n_k.shape)}"
+        )
+    check_seed(seed, row_offset, t)
+    out = torch.empty(t, dtype=i32, device=nwk_rows.device)
+    stream = torch.cuda.current_stream(nwk_rows.device).cuda_stream
+    with torch.cuda.device(nwk_rows.device):
+        check_launch("zen_train_gathered", library().zen_train_gathered(
+            nwk_rows.data_ptr(), nkd_rows.data_ptr(), z_old.data_ptr(),
+            alpha_k.data_ptr(), n_k.data_ptr(), out.data_ptr(), t, k,
+            int(seed), int(row_offset), ctypes.c_float(beta),
             ctypes.c_float(w_beta), stream,
         ))
     return out

@@ -1,0 +1,240 @@
+"""LDA training entry point: one single-box ``TrainSession``.
+
+Takes the reference's flags and defaults (``repro/launch/train.py``), so
+one command line means the same run in both packages, plus ``--device``
+(default ``cuda``, never a silent fallback):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --single-box \\
+        --algorithm zen_pallas --topics 1000 --iters 50 \\
+        [--corpus path.libsvm | --synthetic-docs N --synthetic-words W
+         --synthetic-len L] [--checkpoint-dir DIR] [--ckpt DIR]
+        [--exclusion-start 30] [--rebuild-every 10] [--merge-every 10]
+        [--hyper-every 5] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --config run.json
+    PYTHONPATH=src python -m repro_torch.launch.train --list-algorithms
+
+It prints the reference's progress lines (``iter N  llh ...  ppl ...
+change ...``, ``finished at iteration N; final llh ...``).
+``--checkpoint-dir`` writes model checkpoints that either package's
+``serve_lda`` serves; ``--ckpt`` holds elastic training checkpoints
+(assignments; a rerun resumes from the newest). What is not ported yet
+exits non-zero with the ROADMAP item that waits for it: the mesh plan
+(run without ``--single-box``, or with ``--rows``/``--cols`` or
+``--host-devices``), ``--stream``, ``--metrics-out``, ``--autopilot``,
+``--quality-every`` and the unported backends.
+"""
+import argparse
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default=None,
+                    help="load a RunConfig JSON (overrides per-field flags)")
+    ap.add_argument("--dump-config", default=None, metavar="PATH",
+                    help="write the resolved RunConfig JSON and exit")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda runs the kernels; cpu their plain versions")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="data-parallel rows (mesh plan: not ported)")
+    ap.add_argument("--cols", type=int, default=None,
+                    help="model-parallel cols (mesh plan: not ported)")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="simulated host devices (mesh plan: not ported)")
+    ap.add_argument("--corpus", default=None, help="libsvm corpus path")
+    ap.add_argument("--topics", type=int, default=64)
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--algorithm", default="zen_cdf",
+                    help="any name from --list-algorithms")
+    ap.add_argument("--list-algorithms", action="store_true",
+                    help="print the registered sampler backends and exit")
+    ap.add_argument("--single-box", action="store_true",
+                    help="the single-box plan (the only one ported)")
+    ap.add_argument("--max-kd", type=int, default=None,
+                    help="sparse doc-row width (padded-sparse backends)")
+    ap.add_argument("--max-kw", type=int, default=None,
+                    help="sparse word-row width (padded-sparse backends)")
+    ap.add_argument("--delta-dtype", default="int32",
+                    choices=["int32", "int16", "int8"])
+    ap.add_argument("--exclusion-start", type=int, default=0)
+    ap.add_argument("--rebuild-every", type=int, default=0,
+                    help="exact count rebuild cadence (0 = never)")
+    ap.add_argument("--merge-every", type=int, default=0,
+                    help="duplicate-topic merge cadence (0 = never)")
+    ap.add_argument("--merge-threshold", type=float, default=0.05)
+    ap.add_argument("--ckpt", default=None,
+                    help="elastic training checkpoints (assignments)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="model checkpoints (N_wk/N_k + hyper) for serving")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="model-checkpoint cadence (0 = final only)")
+    ap.add_argument("--llh-every", type=int, default=10,
+                    help="eval cadence (llh/perplexity)")
+    ap.add_argument("--target-perplexity", type=float, default=None,
+                    help="stop once eval perplexity reaches this")
+    ap.add_argument("--quality-every", type=int, default=0)
+    ap.add_argument("--quality-top-n", type=int, default=10)
+    ap.add_argument("--npmi-window", type=int, default=10)
+    ap.add_argument("--l2r-docs", type=int, default=0)
+    ap.add_argument("--l2r-particles", type=int, default=20)
+    ap.add_argument("--hyper-every", type=int, default=0,
+                    help="Alg. 5 hyper-opt cadence: Minka fixed-point "
+                         "alpha + beta annealing (0 = off)")
+    ap.add_argument("--beta-anneal", type=float, default=1.0,
+                    help="beta *= this per hyper firing (1.0 = no anneal)")
+    ap.add_argument("--synthetic-docs", type=int, default=1000,
+                    help="synthetic corpus size (when --corpus is not given)")
+    ap.add_argument("--synthetic-words", type=int, default=2000)
+    ap.add_argument("--synthetic-len", type=int, default=80)
+    ap.add_argument("--metrics-out", default=None, metavar="PATH")
+    ap.add_argument("--autopilot", action="store_true")
+    ap.add_argument("--autopilot-every", type=int, default=0)
+    ap.add_argument("--stream", action="store_true")
+    ap.add_argument("--stream-source", default=None)
+    ap.add_argument("--window-docs", type=int, default=64)
+    ap.add_argument("--window-sweeps", type=int, default=2)
+    ap.add_argument("--decay", type=float, default=0.0)
+    ap.add_argument("--epochs", type=int, default=1)
+    ap.add_argument("--num-windows", type=int, default=8)
+    return ap
+
+
+def unported_flags(args) -> list:
+    """The flags given that ask for what the port has not reached yet,
+    each with the ROADMAP item that waits for it."""
+    mesh = "the mesh plan, ROADMAP queue 1 item 7"
+    found = [(flag, why) for flag, on, why in (
+        ("--rows/--cols", args.rows is not None or args.cols is not None,
+         mesh),
+        ("--host-devices", bool(args.host_devices), mesh),
+        ("--stream", args.stream or args.stream_source is not None,
+         "streaming, ROADMAP queue 1 item 6"),
+        ("--metrics-out", args.metrics_out is not None,
+         "telemetry, ROADMAP queue 1 item 5"),
+        ("--autopilot", args.autopilot,
+         "the autopilot, ROADMAP queue 1 item 5"),
+        ("--quality-every", args.quality_every > 0,
+         "quality evaluation, ROADMAP queue 1 item 5"),
+    ) if on]
+    if not args.config and not args.single_box:
+        found.append(("no --single-box", mesh + " (pass --single-box)"))
+    return [f"{flag} ({why})" for flag, why in found]
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from repro_torch import algorithms
+    from repro_torch.train.session import (
+        RunConfig,
+        TrainSession,
+        refuse_unported,
+    )
+
+    if args.list_algorithms:
+        for name, _backend, aliases in algorithms.describe():
+            alias_s = f" (aliases: {', '.join(aliases)})" if aliases else ""
+            print(f"{name:12s} single-box{alias_s}")
+        return 0
+
+    bad = unported_flags(args)
+    if bad:
+        print(f"train: not ported yet to the PyTorch port: "
+              f"{'; '.join(bad)}; use python -m repro.launch.train",
+              file=sys.stderr)
+        return 2
+
+    if args.config:
+        with open(args.config) as f:
+            cfg = RunConfig.from_json(f.read())
+    else:
+        if args.delta_dtype != "int32":
+            print("note: single-box plan ignores --delta-dtype")
+        cfg = RunConfig(
+            algorithm=args.algorithm,
+            max_kd=args.max_kd or 0,
+            max_kw=args.max_kw or 0,
+            delta_dtype=args.delta_dtype,
+            num_iterations=args.iters,
+            eval_every=args.llh_every,
+            target_perplexity=args.target_perplexity,
+            exclusion_start=args.exclusion_start,
+            rebuild_every=args.rebuild_every,
+            merge_every=args.merge_every,
+            merge_threshold=args.merge_threshold,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            train_checkpoint_dir=args.ckpt,
+            train_checkpoint_every=25 if args.ckpt else 0,
+            window_sweeps=args.window_sweeps,
+            autopilot_every=args.autopilot_every,
+            quality_top_n=args.quality_top_n,
+            quality_npmi_window=args.npmi_window,
+            quality_l2r_docs=args.l2r_docs,
+            quality_l2r_particles=args.l2r_particles,
+            hyper_every=args.hyper_every,
+            hyper_beta_anneal=args.beta_anneal,
+        )
+    try:
+        refuse_unported(cfg)
+    except ValueError as e:
+        print(f"train: {e}", file=sys.stderr)
+        return 2
+
+    if args.dump_config:
+        with open(args.dump_config, "w") as f:
+            f.write(cfg.to_json() + "\n")
+        print(f"wrote {args.dump_config}")
+        return 0
+
+    import torch
+
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import load_libsvm, synthetic_corpus
+
+    if args.corpus:
+        corpus = load_libsvm(args.corpus)
+    else:
+        corpus = synthetic_corpus(0, num_docs=args.synthetic_docs,
+                                  num_words=args.synthetic_words,
+                                  avg_doc_len=args.synthetic_len, zipf_a=1.2)
+    hyper = LDAHyperParams(num_topics=args.topics)
+
+    session = TrainSession(corpus, hyper, cfg, device=args.device)
+    dev = session.device
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"single-box  algorithm={cfg.algorithm}  "
+          f"tokens={corpus.num_tokens}  device={card}")
+    state = session.init(0)
+
+    t_last = [time.perf_counter()]
+
+    def cb(st, metrics):
+        if not metrics:
+            return
+        line = f"iter {int(st.iteration):4d}"
+        if "llh" in metrics:
+            line += (f"  llh {metrics['llh']:.1f}"
+                     f"  ppl {metrics['perplexity']:.1f}"
+                     f"  change {metrics['change_rate']:.3f}")
+        if "hyper" in metrics:
+            line += (f"  hyper a={metrics['hyper']['alpha']:.4f}"
+                     f" b={metrics['hyper']['beta']:.4f}")
+        now = time.perf_counter()
+        line += f"  ({now - t_last[0]:.3f}s on {card})"
+        t_last[0] = now
+        print(line, flush=True)
+
+    final = session.run(state=state, callback=cb)
+    print(f"finished at iteration {int(final.iteration)}; "
+          f"final llh {session.llh(final):.1f}")
+    if cfg.checkpoint_dir:
+        print(f"model checkpoint: {cfg.checkpoint_dir} "
+              f"(serve with: python -m repro_torch.launch.serve_lda "
+              f"--checkpoint-dir {cfg.checkpoint_dir})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,2 +1,2 @@
-"""Checkpoints in the reference's format (training itself is not ported
-yet)."""
+"""Training sessions, schedules and checkpoints in the reference's
+format."""

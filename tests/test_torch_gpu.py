@@ -125,3 +125,111 @@ def test_engine_serves_through_the_fused_kernel(cuda):
         ).infer_batch(docs)
         assert [int(np.argmax(th)) for th in thetas] == list(range(8))
     assert ops.launch_counts()["zen_fused_infer_sample"] > 0
+
+
+# -- training kernels (csrc/zen_train.cu) --------------------------------------
+
+def _train_inputs(dev, seed, t, k, w, d):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = torch.int32
+    word = torch.randint(0, w, (t,), generator=g, device=dev, dtype=i32)
+    doc = torch.randint(0, d, (t,), generator=g, device=dev, dtype=i32)
+    z = torch.randint(0, k, (t,), generator=g, device=dev, dtype=i32)
+    n_wk = torch.randint(0, 50, (w, k), generator=g, device=dev, dtype=i32)
+    n_kd = torch.randint(0, 9, (d, k), generator=g, device=dev, dtype=i32)
+    ones = torch.ones(t, dtype=i32, device=dev)
+    n_wk.index_put_((word.long(), z.long()), ones, accumulate=True)
+    n_kd.index_put_((doc.long(), z.long()), ones, accumulate=True)
+    return dict(n_wk=n_wk, n_kd=n_kd, word=word, doc=doc, z=z,
+                alpha=torch.rand(k, generator=g, device=dev) * 0.1,
+                n_k=n_wk.sum(0).to(torch.float32))
+
+
+@pytest.mark.parametrize("t,k,w,d", [(8192, 1000, 20000, 40),
+                                     (333, 37, 50, 3), (1, 5, 2, 1)])
+def test_training_kernels_match_plain_version_on_card(cuda, t, k, w, d):
+    from repro_torch.kernels.fused_gather import zen_fused_sample_plain
+
+    a = _train_inputs(cuda, t + k, t, k, w, d)
+    args = (a["n_wk"], a["n_kd"], a["word"], a["doc"], a["z"], a["alpha"],
+            a["n_k"], 12345)
+    kw = dict(beta=0.01, w_beta=w * 0.01)
+    before = ops.launch_counts()
+    fused = ops.zen_fused_sample(*args, **kw)
+    gathered = ops.zen_sample(
+        a["n_wk"][a["word"].long()].contiguous(),
+        a["n_kd"][a["doc"].long()].contiguous(), a["z"], a["alpha"],
+        a["n_k"], 12345, **kw)
+    plain = zen_fused_sample_plain(*args, **kw)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["zen_fused_sample"] == before["zen_fused_sample"] + 1
+    assert after["zen_sample"] == before["zen_sample"] + 1
+    assert torch.equal(fused, gathered)
+    assert int(fused.min()) >= 0 and int(fused.max()) < k
+    bad = (fused != plain).nonzero().flatten().tolist()
+    for i in bad:  # a mismatch must be a near-tie of the two scores
+        cand = torch.tensor([int(fused[i]), int(plain[i])], device=cuda)
+        hit = (cand == a["z"][i]).float()
+        wi, di = int(a["word"][i]), int(a["doc"][i])
+        nw = a["n_wk"][wi, cand].float() - hit
+        nd = a["n_kd"][di, cand].float() - hit
+        al = a["alpha"][cand]
+        p = (al * 0.01 + nw * al + nd * (nw + 0.01)) \
+            / (a["n_k"][cand] - hit + w * 0.01)
+        s = torch.log(torch.clamp_min(p, 1e-30)) \
+            + gumbel_noise(12345, i, cand)
+        assert abs(float(s[0] - s[1])) <= NEAR_TIE
+    assert len(bad) <= max(1, t // 10000)
+
+
+_OUT_OF_RANGE_DOC = """
+import torch
+from repro_torch.kernels import ops
+d = torch.device("cuda", 0)
+i32 = torch.int32
+n_wk = torch.ones((10, 16), dtype=i32, device=d)
+vec = torch.zeros(64, dtype=i32, device=d)
+doc = vec.clone()
+doc[7] = 2  # D
+try:
+    ops.zen_fused_sample(
+        n_wk, torch.ones((2, 16), dtype=i32, device=d), vec, doc, vec,
+        torch.full((16,), 0.1, device=d), n_wk.sum(0).float(), 5,
+        beta=0.01, w_beta=0.1)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", e)
+"""
+
+
+def test_out_of_range_doc_raises_in_training_kernel(cuda):
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run([sys.executable, "-c", _OUT_OF_RANGE_DOC],
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": src})
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("kernels,kernel", [("auto", "zen_fused_sample"),
+                                            ("off", "zen_sample")])
+def test_train_session_runs_through_the_training_kernels(cuda, kernels,
+                                                         kernel):
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import synthetic_lda_corpus
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus, _ = synthetic_lda_corpus(0, 200, 300, 10, 50)
+    sess = TrainSession(corpus, LDAHyperParams(num_topics=10, alpha=0.1),
+                        RunConfig(algorithm="zen_pallas", kernels=kernels),
+                        device=cuda)
+    st = sess.init(0)
+    llh0 = sess.llh(st)
+    ops.reset_launch_counts()
+    for _ in range(3):
+        st = sess.step(st)
+        st.check_invariants(sess.corpus)
+    counts = ops.launch_counts()
+    assert counts[kernel] == 3
+    assert all(v == 0 for name, v in counts.items() if name != kernel)
+    assert sess.llh(st) > llh0

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch`` imports JAX or
 the JAX package (not even its modules that do not import JAX), and the
-serving path runs in a process where ``jax`` never loads."""
+serving and training paths run in a process where ``jax`` never loads."""
 import ast
 import os
 import pathlib
@@ -32,6 +32,7 @@ def _forbidden(name: str) -> bool:
 def test_port_has_files():
     assert len(PY_FILES) >= 15
     assert (PORT / "kernels" / "csrc" / "zen_infer.cu").exists()
+    assert (PORT / "kernels" / "csrc" / "zen_train.cu").exists()
 
 
 @pytest.mark.parametrize("path", PY_FILES,
@@ -60,6 +61,17 @@ def test_serving_path_runs_without_jax_loaded():
         "    e = LDAEngine(m, LDAServeConfig(buckets=(8,), mode=mode, "
         "algorithm='zen_pallas'))\n"
         "    assert e.infer_batch([[0, 1, 2], [3, 4]]).shape == (2, 4)\n"
+        "import repro_torch.launch.train\n"
+        "from repro_torch.data.corpus import synthetic_corpus\n"
+        "from repro_torch.core.types import LDAHyperParams\n"
+        "from repro_torch.train.session import RunConfig, TrainSession\n"
+        "c = synthetic_corpus(0, num_docs=6, num_words=10, avg_doc_len=5)\n"
+        "for alg in ('zen', 'zen_pallas'):\n"
+        "    s = TrainSession(c, LDAHyperParams(num_topics=3), RunConfig("
+        "algorithm=alg, num_iterations=2, eval_every=1), device='cpu')\n"
+        "    st = s.run(0)\n"
+        "    st.check_invariants(s.corpus)\n"
+        "    assert st.iteration == 2 and s.perplexity(st) > 1\n"
         "loaded = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not loaded, loaded\n"

@@ -382,8 +382,19 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 
 
 def test_training_half_names_the_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        talg.get("zen_pallas").sweep(None, None, None, talg.SamplerKnobs())
+    """The training slice is ported: both backends train (a sweep returns
+    one topic in [0, K) per token), under the reference's names."""
+    from repro_torch.core.init import random_init
+    from repro_torch.core.types import Corpus
+
+    corpus = Corpus(word=torch.tensor([0, 1, 2, 1], dtype=torch.int32),
+                    doc=torch.tensor([0, 0, 1, 1], dtype=torch.int32),
+                    num_words=3, num_docs=2)
+    hyper = LDAHyperParams(num_topics=4)
+    state = random_init(as_key(0), corpus, hyper)
+    for name in ("zen", "zen_pallas"):
+        z = talg.get(name).sweep(state, corpus, hyper, talg.SamplerKnobs())
+        assert z.shape == (4,) and bool(((z >= 0) & (z < 4)).all())
     assert talg.registered() == ("zen", "zen_pallas")
     assert talg.get("zen_dense_kernel") is talg.get("zen_pallas")
 
