@@ -7,9 +7,9 @@ and check them.
 Phases, each printing one JSON line:
 
 1. device  — the card, and ``nvidia-smi`` name / power limit;
-2. build   — nvcc builds ``src/repro_torch/kernels/csrc/zen_infer.cu`` and
-   ``zen_train.cu`` for sm_90a, one nvcc each, in parallel (prints the
-   ``-Xptxas -v`` summary);
+2. build   — nvcc builds ``src/repro_torch/kernels/csrc/zen_infer.cu``,
+   ``zen_train.cu`` and ``sparse_row.cu`` for sm_90a, one nvcc each, in
+   parallel (prints the ``-Xptxas -v`` summary);
 3. kernels — both serving kernels at NYTIMES width (W = 101,636,
    K = 1000) on one full bucket sweep (32 slots x 512 = 16,384 tokens):
    the fused kernel must be bit-equal to the gathered one, and both may
@@ -46,9 +46,26 @@ Phases, each printing one JSON line:
    ``zen_pallas`` fused and ``zen_pallas`` gathered (``kernels="off"``):
    fused and gathered topics bit-identical after every iteration, each run
    launching only its own kernel (``zen`` none), and ``zen``'s per-token
-   llh within 1% of the fused run's.
+   llh within 1% of the fused run's;
+8. train_sparse — this slice's path at full width: ``TrainSession`` with
+   ``zen_sparse`` and the paper's sparse word initialisation (degree 0.1)
+   on the same NYTIMES corpus: 3 iterations, an eval at init and after
+   each; count invariants after every step, llh rising at every eval, and
+   launches of the sparse-row kernel only (> 0). Reports the row widths of
+   every sweep, seconds per step and the table build within it (timed
+   apart on the same state), peak memory, and one more step profiled;
+9. sparse_kernels — kernel 6 against its plain version on the first
+   1,048,576 tokens of that state, on the term-3 rows (J = max_kd) and on
+   SparseLDA's q rows (J = max_kw): topics equal with 0 mismatches, CUDA-
+   event times and the bytes bound;
+10. train_sparse_small — the train_small corpus and one set of initial
+   topics, 3 iterations each of ``zen_sparse``, ``sparselda``,
+   ``zen_hybrid``, ``lightlda`` (kernel) and ``lightlda`` with
+   ``kernels="off"`` (per-word alias tables) and ``zen``: invariants after
+   every step, each run's per-token llh within 8% of ``zen``'s, the kernel
+   runs launching only the sparse-row kernel and the other two none.
 
-Then it prints the ``{"kernels": [...]}`` line (all four kernels), the ``nvidia-smi`` line
+Then it prints the ``{"kernels": [...]}`` line (all five kernels), the ``nvidia-smi`` line
 and, last, ``{"ok": true, "device": {...}}``. It exits non-zero, before
 any result, when no CUDA device is present, when the repository's
 ``src/`` is missing, or when any check fails.
@@ -70,6 +87,8 @@ D_NYT, LEN_NYT = 299_752, 332  # NYTIMES documents, mean tokens per doc
 SLOTS, BUCKET = 32, 512
 N_DOCS = 256
 TRAIN_ITERS, SMALL_DOCS, SMALL_ITERS = 5, 4096, 3
+SPARSE_ITERS = 3  # train_sparse: iterations of zen_sparse at full width
+SPARSE_LLH_BAND = 0.08  # train_sparse_small: llh/token vs zen's
 KERNEL_TOKENS = 1 << 20  # training-kernel phase: first 1,048,576 tokens
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SFU_PER_SM_PER_CLK = 16  # special-function unit results per SM per clock
@@ -325,8 +344,8 @@ def main() -> int:
     t0 = time.perf_counter()
     log = _build.build()
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "ptxas" in ln and ("registers" in ln or "spill" in ln
-                                   or "Compiling" in ln)]
+             if ("ptxas" in ln and ("registers" in ln or "Compiling" in ln))
+             or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [str(src.relative_to(ROOT)) for src in _build.SOURCES],
           "ptxas": ptxas})
@@ -461,6 +480,29 @@ def sass_loop_stats(kernel: str):
     return {"loop_instructions": len(loop),
             "loop_mufu": sum("MUFU" in t for t in loop),
             "function_instructions": len(instr)}
+
+
+def res_usage(source: str, kernel: str):
+    """``cuobjdump -res-usage`` of ``kernel`` in the library built from
+    ``source``: registers, stack, shared and local (spill) bytes. None
+    when the tool or the function is missing."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = [_build.target(s) for s in _build.SOURCES if s.name == source][0]
+    try:
+        out = subprocess.run([tool, "-res-usage", str(lib)],
+                             capture_output=True, text=True,
+                             timeout=120).stdout
+    except OSError:
+        return None
+    lines = out.splitlines()
+    for i, line in enumerate(lines):
+        if "Function" in line and kernel in line and i + 1 < len(lines):
+            return dict(re.findall(r"(\w+):(\d+)", lines[i + 1]))
+    return None
 
 
 def synthetic_nytimes(num_docs: int):
@@ -666,7 +708,7 @@ def profile_step(sess, st):
     return out
 
 
-def device_summary(prof, wall_us: float):
+def device_summary(prof, wall_us: float, items: int = 8):
     """Device busy time, idle share and the largest device items of one
     profiled window. Only events that ran on the card count: an operator's
     host-side entry also carries its kernels' device time, and counting
@@ -683,7 +725,7 @@ def device_summary(prof, wall_us: float):
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us
             calls[ev.key] = calls.get(ev.key, 0) + ev.count
     busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:items]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "host_ms": (wall_us - busy_us) / 1e3,
             "device_idle_share": (1 - busy_us / wall_us) if busy_us
@@ -745,8 +787,8 @@ def phase_train_small(seed: int, dev, smi):
 
 
 def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
-    """The three training phases; returns the two training kernels' rows
-    and their launches on their paths."""
+    """The training phases, dense and padded-sparse; returns the three
+    training kernels' rows and their launches on their paths."""
     import torch
 
     from repro_torch.core.types import LDAHyperParams
@@ -769,11 +811,236 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
     rows = phase_train_kernels(sess, st, seed, props.multi_processor_count,
                                sm_clock_hz)
     fused_launches = phase_train(sess, st, smi)
+    corpus_dev = sess.corpus
     del sess, st
     torch.cuda.empty_cache()
     gathered_launches = phase_train_small(seed, dev, smi)
-    return rows, {"zen_fused_sample": fused_launches,
-                  "zen_sample": gathered_launches}
+    sparse_launches, sparse_row = phase_train_sparse(corpus_dev, seed, smi)
+    del corpus_dev
+    torch.cuda.empty_cache()
+    phase_train_sparse_small(seed, dev, smi)
+    return rows + [sparse_row], {"zen_fused_sample": fused_launches,
+                                 "zen_sample": gathered_launches,
+                                 "sparse_row_sample": sparse_launches}
+
+
+def phase_train_sparse(corpus, seed: int, smi):
+    """``zen_sparse`` at full NYTIMES width from the sparse word init;
+    returns the sparse-row kernel's launches on this path and its row of
+    the kernels table (from :func:`phase_sparse_kernels`)."""
+    import torch
+
+    from repro_torch import algorithms
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.core.zen_sparse import build_tables
+    from repro_torch.kernels import ops
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    sess = TrainSession(corpus, hyper, RunConfig(
+        algorithm="zen_sparse", init="sparse_word"), device=corpus.word.device)
+    t0 = time.perf_counter()
+    st = sess.init(seed)
+    st.check_invariants(sess.corpus)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    knobs = sess.cfg.knobs()
+
+    def tables_seconds(state, pads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tab = build_tables(state.n_wk, state.n_kd, state.n_k, sess.hyper,
+                           sess.corpus.num_words, pads.max_kw, pads.max_kd)
+        torch.cuda.synchronize()
+        del tab
+        return time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    evals = [sess.metrics(st)]
+    pads_by_sweep, step_s, table_s, eval_s = [], [], [], []
+    for _ in range(SPARSE_ITERS):
+        pads = algorithms.resolve_row_pads(st, knobs)
+        pads_by_sweep.append([pads.max_kw, pads.max_kd])
+        table_s.append(tables_seconds(st, pads))
+        t0 = time.perf_counter()
+        st = sess.step(st)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        st.check_invariants(sess.corpus)
+        t0 = time.perf_counter()
+        evals.append(sess.metrics(st))
+        eval_s.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    llh = [m["llh"] for m in evals]
+    emit({"phase": "train_sparse", "algorithm": "zen_sparse",
+          "init": "sparse_word", "tokens": sess.corpus.num_tokens,
+          "W": sess.corpus.num_words, "K": K_NYT, "init_seconds": t_init,
+          "row_pads_by_sweep": pads_by_sweep, "llh": llh,
+          "perplexity": [m["perplexity"] for m in evals],
+          "change_rate": [m["change_rate"] for m in evals[1:]],
+          "step_seconds": step_s, "table_build_seconds": table_s,
+          "eval_seconds": eval_s, "peak_device_gb": peak_gb,
+          "launches": counts, "card": smi})
+    check(all(b > a for a, b in zip(llh, llh[1:])),
+          f"train_sparse: predictive llh did not rise at every eval: {llh}")
+    check(counts["sparse_row_sample"] > 0
+          and all(v == 0 for n, v in counts.items()
+                  if n != "sparse_row_sample"),
+          f"train_sparse: expected sparse-row launches only, got {counts}")
+    emit({"phase": "train_sparse_profile",
+          **profile_sparse_step(sess, st)})
+    row = phase_sparse_kernels(sess, st, seed)
+    return counts["sparse_row_sample"], row
+
+
+def profile_sparse_step(sess, st):
+    """Device busy share and the largest device items of one more
+    ``zen_sparse`` step, after the path's counts were read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.step(st)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_summary(prof, wall_us, items=12)
+    kern = [v for k, v in out["top_device_ms"].items()
+            if "sparse_row_kernel" in k]
+    out["sparse_row_ms"] = kern[0] if kern else None
+    return out
+
+
+def phase_sparse_kernels(sess, st, seed: int):
+    """Kernel 6 against its plain version on the first KERNEL_TOKENS
+    tokens of the full-width zen_sparse state, on the term-3 rows and on
+    SparseLDA's q rows; returns the kernel's row of the kernels table."""
+    import torch
+
+    from repro_torch import algorithms
+    from repro_torch.core.baselines import sparselda_rows, sparselda_tables
+    from repro_torch.core.zen_sparse import _d_sparse, build_tables
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_row import sparse_row_sample_plain
+
+    c, h = sess.corpus, sess.hyper
+    t = KERNEL_TOKENS
+    pads = algorithms.resolve_row_pads(st, sess.cfg.knobs())
+    args = (st.n_wk, st.n_kd, st.n_k, h, c.num_words, pads.max_kw,
+            pads.max_kd)
+    word, doc, z = c.word[:t], c.doc[:t], st.topic[:t]
+    gen = torch.Generator(device=word.device).manual_seed(seed)
+    shapes = {}
+    tab = build_tables(*args)
+    d_vals, d_topics = _d_sparse(tab, word, doc, h.beta)
+    del tab
+    shapes["term3"] = (d_vals, d_topics)
+    sl = sparselda_tables(*args)
+    _, _, q_vals, wk_idx = sparselda_rows(sl, word, doc, z)
+    del sl
+    shapes["sparselda_q"] = (q_vals, wk_idx)
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, (vals, topics) in shapes.items():
+        mass = vals.sum(1)
+        tgt = torch.rand(t, generator=gen, device=word.device) * mass
+        tgt[:64] = mass[:64]  # a few targets on the row's mass
+        tgt[64:128] = 0.0
+
+        def kernel():
+            return ops.sparse_row_sample(vals, topics, tgt)
+
+        def plain():
+            return sparse_row_sample_plain(vals, topics, tgt)
+
+        out_k, out_p = kernel(), plain()
+        torch.cuda.synchronize()
+        mism = int((out_k != out_p).sum())
+        check(mism == 0, f"sparse_kernels {name}: {mism} kernel-vs-plain "
+              f"mismatches over {t} tokens")
+        ms_k = cuda_ms(kernel, reps=10)
+        ms_p = cuda_ms(plain, reps=2, warmup=1)
+        j = vals.shape[1]
+        # the function must read every weight (it counts over all J
+        # lanes), one target and one topic id per row, and write one
+        # topic; whole topic rows (T J 8 + T 8 bytes) it never needs
+        nbytes = t * j * 4 + t * 12
+        runs[name] = {"J": j, "ms": ms_k, "plain_ms": ms_p,
+                      "bytes": nbytes,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bytes_with_topic_rows": t * j * 8 + t * 8,
+                      "mismatches": mism}
+        emit({"phase": "sparse_kernels", "rows": name, "T": t, **runs[name]})
+    del shapes, d_vals, d_topics, q_vals, wk_idx
+    torch.cuda.empty_cache()
+    main = runs["term3"]
+    return {
+        "name": "sparse_row_sample", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sparse_row.cu",
+        "replaces": "src/repro/kernels/sparse_row.py:34", "launches": None,
+        "max_abs_err": 0.0, "mismatches": 0, "tokens": t,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "bytes": main["bytes"], "J": main["J"], "shapes": runs,
+        "res_usage": res_usage("sparse_row.cu", "sparse_row_kernel"),
+        "library_ms": None,
+    }
+
+
+def phase_train_sparse_small(seed: int, dev, smi):
+    """The padded-sparse backends and the dense ``zen`` from one set of
+    initial topics on the train_small corpus."""
+    import torch
+
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.kernels import ops
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus = synthetic_nytimes(SMALL_DOCS)
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    # (run, algorithm, kernels policy, launches sparse_row_sample?)
+    runs = (("zen", "zen", "auto", False),
+            ("zen_sparse", "zen_sparse", "auto", True),
+            ("sparselda", "sparselda", "auto", True),
+            ("zen_hybrid", "zen_hybrid", "auto", True),
+            ("lightlda", "lightlda", "auto", True),
+            ("lightlda_off", "lightlda", "off", False))
+    init_topics, llh = None, {}
+    for name, algorithm, kernels, kernel in runs:
+        sess = TrainSession(corpus, hyper, RunConfig(
+            algorithm=algorithm, kernels=kernels), device=dev)
+        if init_topics is None:
+            init_topics = sess.init(seed).topic.cpu().numpy()
+        st = sess.init(seed, init_topics=init_topics)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(SMALL_ITERS):
+            st = sess.step(st)
+            st.check_invariants(sess.corpus)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        llh[name] = sess.llh(st) / corpus.num_tokens
+        emit({"phase": "train_sparse_small", "run": name,
+              "algorithm": algorithm, "kernels": kernels,
+              "tokens": corpus.num_tokens, "seconds": secs,
+              "llh_per_token": llh[name], "launches": counts, "card": smi})
+        want = "sparse_row_sample" if kernel else None
+        check(all((v > 0) == (n == want) for n, v in counts.items()),
+              f"train_sparse_small {name}: expected launches of {want} "
+              f"only, got {counts}")
+        del sess, st
+        torch.cuda.empty_cache()
+    rel = {n: abs(v / llh["zen"] - 1) for n, v in llh.items()}
+    emit({"phase": "train_sparse_small_check", "llh_rel_to_zen": rel})
+    bad = {n: r for n, r in rel.items() if r >= SPARSE_LLH_BAND}
+    check(not bad, f"train_sparse_small: llh/token off zen's by >= "
+          f"{SPARSE_LLH_BAND:.0%}: {bad} ({llh})")
 
 
 def profile_serving(model, cfg, docs, seed: int):

@@ -4,9 +4,12 @@ from repro_torch.algorithms.base import (  # noqa: F401
     CellBackend,
     SamplerBackend,
     SamplerKnobs,
+    auto_pad,
     chunked_token_map,
+    fill_cell_row_pads,
     kernel_dispatch,
     knobs_from,
+    resolve_row_pads,
 )
 from repro_torch.algorithms.registry import (  # noqa: F401
     describe,
@@ -15,5 +18,11 @@ from repro_torch.algorithms.registry import (  # noqa: F401
     registered,
 )
 
+# importing a backend module registers it (order = registered() order,
+# the reference's)
 from repro_torch.algorithms import zen_dense  # noqa: F401,E402  zen
+from repro_torch.algorithms import zen_sparse  # noqa: F401,E402
+from repro_torch.algorithms import zen_hybrid  # noqa: F401,E402
+from repro_torch.algorithms import sparselda  # noqa: F401,E402
+from repro_torch.algorithms import lightlda  # noqa: F401,E402
 from repro_torch.algorithms import zen_pallas  # noqa: F401,E402

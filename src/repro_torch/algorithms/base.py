@@ -25,20 +25,31 @@ and serves a frozen model through
 
 The base class derives ``infer_sweep`` for every backend: the dense
 frozen-phi sweep (:func:`_dense_infer_sweep`), in lockstep with
-``core.inference.cgs_infer``. The padded-sparse knobs (``max_kw``,
-``max_kd``, row-pad resolution) belong to the padded-sparse slice.
+``core.inference.cgs_infer``.
+
+Capability flags let drivers adapt instead of naming backends:
+
+* ``needs_row_pads`` — the training plan resolves ``max_kw``/``max_kd``
+  (0 = auto from the counts, :func:`resolve_row_pads`) before every sweep;
+  these are the padded-sparse backends' row widths.
+* ``needs_doc_index`` — ``prepare`` returns a corpus-sized doc -> token
+  index that ``sweep`` requires.
+
+A backend declares the static per-cell workspace its ``cell_sweep`` uses
+through ``resolve_cell_knobs`` (auto widths become concrete,
+:func:`fill_cell_row_pads`).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.core.inference import chain_sweep, frozen_phi_rows
 from repro_torch.core.keys import fold_in, key_seed
-from repro_torch.core.sampler import DENSE_CHUNK_ELEMS, chunk_size
+from repro_torch.core.sampler import chunked_token_map  # noqa: F401
 
 # SamplerKnobs.kernels policy: "auto" = kernels when the tensors lie on
 # CUDA; "on"/"off" pick the fused or the gathered kernel there
@@ -118,6 +129,8 @@ class SamplerBackend:
 
     name: str = "?"
     native_infer: bool = False
+    needs_doc_index: bool = False
+    needs_row_pads: bool = False
 
     def prepare(self, corpus, hyper, knobs: SamplerKnobs) -> Any:
         """Per-run precompute; returns the aux threaded into ``sweep``."""
@@ -133,6 +146,13 @@ class SamplerBackend:
                    knobs: SamplerKnobs) -> torch.Tensor:
         raise NotImplementedError(
             f"backend {self.name!r} has no cell sweep")
+
+    def resolve_cell_knobs(self, knobs: SamplerKnobs,
+                           hyper) -> SamplerKnobs:
+        """The static per-cell workspace the backend uses: every knob that
+        sizes a ``cell_sweep`` workspace comes back concrete. The default
+        declares none."""
+        return knobs
 
     def prepare_infer(self, n_wk, n_k, hyper, knobs: SamplerKnobs,
                       num_words_total: Optional[int] = None) -> Any:
@@ -151,7 +171,9 @@ class SamplerBackend:
         )
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
-        return f"<{type(self).__name__} {self.name!r}>"
+        flags = [f for f in ("needs_doc_index", "needs_row_pads",
+                             "native_infer") if getattr(self, f)]
+        return f"<{type(self).__name__} {self.name!r} {' '.join(flags)}>"
 
 
 def _dense_infer_sweep(keys, words, mask, z_old, n_kd, n_wk, n_k, hyper,
@@ -170,6 +192,14 @@ class CellBackend(SamplerBackend):
     """Single-box sweep derived from the cell sweep: the whole corpus is
     one cell, every id is already local, every token is live."""
 
+    def resolve_cell_knobs(self, knobs: SamplerKnobs,
+                           hyper) -> SamplerKnobs:
+        """Padded-row backends share one workspace declaration: auto widths
+        become the static defaults, clamped to K (idempotent)."""
+        if self.needs_row_pads:
+            return fill_cell_row_pads(knobs, hyper.num_topics)
+        return knobs
+
     def sweep(self, state, corpus, hyper, knobs: SamplerKnobs, aux=None):
         seed = key_seed(fold_in(state.rng, state.iteration))
         return self.cell_sweep(
@@ -179,19 +209,38 @@ class CellBackend(SamplerBackend):
         )
 
 
-def chunked_token_map(chunk_fn: Callable[..., torch.Tensor],
-                      arrays: Sequence[torch.Tensor], token_chunk: int,
-                      num_topics: int,
-                      elems: int = DENSE_CHUNK_ELEMS) -> torch.Tensor:
-    """``chunk_fn(start, *chunks) -> (chunk,)`` over token chunks of the
-    (E,) ``arrays``, concatenated. The chunk is ``token_chunk`` when set
-    (E must divide evenly, as in the reference), else a size whose
-    (chunk, K) temporaries hold ``elems`` elements. ``start`` is the
-    chunk's first global token index: draws hash it, so the chunking
-    changes no draw."""
-    e = arrays[0].shape[0]
-    size = chunk_size(e, num_topics, token_chunk, elems)
-    out = torch.empty(e, dtype=torch.int32, device=arrays[0].device)
-    for s in range(0, e, size):
-        out[s:s + size] = chunk_fn(s, *(a[s:s + size] for a in arrays))
-    return out
+def auto_pad(n, multiple: int = 8) -> int:
+    """Round a max row nnz up to a lane-friendly multiple."""
+    m = int(n)
+    return max(multiple, ((m + multiple - 1) // multiple) * multiple)
+
+
+def resolve_row_pads(state, knobs: SamplerKnobs) -> SamplerKnobs:
+    """Fill ``max_kw``/``max_kd`` = 0 from the current counts (host-side);
+    explicit widths are kept."""
+    if knobs.max_kw and knobs.max_kd:
+        return knobs
+    from repro_torch.core.zen_sparse import max_row_nnz
+
+    max_kw = knobs.max_kw or auto_pad(max_row_nnz(state.n_wk))
+    max_kd = knobs.max_kd or auto_pad(max_row_nnz(state.n_kd))
+    return dataclasses.replace(knobs, max_kw=max_kw, max_kd=max_kd)
+
+
+# static row widths of a padded-sparse cell when nothing data-driven was
+# resolved: the paper's row-sparsity regime (K_d below K_w), clamped to K
+DEFAULT_CELL_MAX_KW = 128
+DEFAULT_CELL_MAX_KD = 64
+
+
+def fill_cell_row_pads(knobs: SamplerKnobs, num_topics: int,
+                       default_kw: int = DEFAULT_CELL_MAX_KW,
+                       default_kd: int = DEFAULT_CELL_MAX_KD
+                       ) -> SamplerKnobs:
+    """Concrete padded-row widths for a cell workspace: 0/auto becomes the
+    static default clamped to K; explicit widths are kept."""
+    return dataclasses.replace(
+        knobs,
+        max_kw=knobs.max_kw or min(default_kw, num_topics),
+        max_kd=knobs.max_kd or min(default_kd, num_topics),
+    )

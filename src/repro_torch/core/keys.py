@@ -24,7 +24,9 @@ words: a run key comes from :func:`as_key`, :func:`split` derives the
 init and state keys as the reference's ``jax.random.split`` does, and
 sweep ``i`` draws from the int31 :func:`key_seed` of ``fold_in(state
 key, i)``, hashed with the global token index (and topic). A training
-draw therefore depends only on (run key, iteration, token index).
+draw therefore depends only on (run key, iteration, token index). The
+padded-sparse samplers take several uniforms per token, one stream each
+(:func:`stream_uniforms`), where the reference splits its key.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.kernels.zen_sampler import (
     MASK32,
     _GOLD,
     golden_seed,
+    hash_bits,
     hash_uniform,
     mix32,
     u32,
@@ -109,3 +112,15 @@ def token_uniforms(keys: torch.Tensor, length: int) -> torch.Tensor:
     """Per-token U(0, 1] (B, L) float32 for inverse-CDF draws, on a hash
     row (1) the Gumbel noise (row 0) never uses."""
     return hash_uniform(token_seeds(keys, length), 1, 0)
+
+
+def stream_uniforms(seed: int, start: int, n: int, streams: int,
+                    device=None) -> torch.Tensor:
+    """(streams, n) float32 U[0, 1), as ``jax.random.uniform`` gives: entry
+    (s, i) is the top 24 bits of ``hash(seed, start + i, s)`` times
+    2^-24, so a draw depends on (sweep seed, global token index, stream)
+    only and no chunking changes it."""
+    rows = torch.arange(start, start + n, device=device)[None, :]
+    cols = torch.arange(streams, device=device)[:, None]
+    h = hash_bits(seed, rows, cols)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -16,7 +16,7 @@ decomposition are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -47,6 +47,24 @@ def chunk_size(num_tokens: int, num_topics: int,
     if token_chunk and token_chunk < num_tokens:
         return token_chunk
     return max(1, min(num_tokens, elems // max(1, num_topics)))
+
+
+def chunked_token_map(chunk_fn: Callable[..., torch.Tensor],
+                      arrays: Sequence[torch.Tensor], token_chunk: int,
+                      num_topics: int,
+                      elems: int = DENSE_CHUNK_ELEMS) -> torch.Tensor:
+    """``chunk_fn(start, *chunks) -> (chunk,)`` over token chunks of the
+    (E,) ``arrays``, concatenated. The chunk is ``token_chunk`` when set
+    (E must divide evenly, as in the reference), else a size whose
+    (chunk, K) temporaries hold ``elems`` elements. ``start`` is the
+    chunk's first global token index: draws hash it, so the chunking
+    changes no draw."""
+    e = arrays[0].shape[0]
+    size = chunk_size(e, num_topics, token_chunk, elems)
+    out = torch.empty(e, dtype=torch.int32, device=arrays[0].device)
+    for s in range(0, e, size):
+        out[s:s + size] = chunk_fn(s, *(a[s:s + size] for a in arrays))
+    return out
 
 
 def sample_categorical(probs: torch.Tensor, seed: int, rows: torch.Tensor,

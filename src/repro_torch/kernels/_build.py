@@ -22,6 +22,7 @@ _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = (
     _HERE / "csrc" / "zen_infer.cu",  # serving: queue-2 kernels 3 and 4
     _HERE / "csrc" / "zen_train.cu",  # training: queue-2 kernels 1 and 2
+    _HERE / "csrc" / "sparse_row.cu",  # padded-sparse rows: kernel 6
 )
 BUILD_DIR = _HERE / "build"
 
@@ -45,6 +46,7 @@ SIGNATURES = {
                            _P),
     "zen_train_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _F, _F, _P),
+    "sparse_row": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 _LIB: Optional[types.SimpleNamespace] = None

@@ -1,9 +1,10 @@
 """Public kernel wrappers: a CPU tensor runs the plain version, a CUDA
 tensor launches the hand-written kernel, any other device raises.
 
-Arguments mirror ``repro/kernels/ops.py``. ``bt``/``bk`` are accepted so
-that callers and configs carry over, but they change no draw: the CUDA
-kernels walk the real K with one warp per token and need no padding.
+Arguments mirror ``repro/kernels/ops.py``. ``bt``/``bk``/``bs`` are
+accepted so that callers and configs carry over, but they change no draw:
+the CUDA kernels walk the real K (or row width J) with one warp per token
+and need no padding.
 
 Each wrapper counts its kernel launches in a plain int
 (:func:`launch_counts`), so a run can show that its main path went
@@ -19,6 +20,10 @@ from repro_torch.kernels.fused_gather import (
     zen_fused_sample_cuda,
     zen_fused_sample_plain,
 )
+from repro_torch.kernels.sparse_row import (
+    sparse_row_sample_cuda,
+    sparse_row_sample_plain,
+)
 from repro_torch.kernels.zen_sampler import (
     zen_infer_sample_cuda,
     zen_infer_sample_plain,
@@ -31,6 +36,7 @@ _LAUNCHES: Dict[str, int] = {
     "zen_fused_sample": 0,
     "zen_infer_sample": 0,
     "zen_fused_infer_sample": 0,
+    "sparse_row_sample": 0,
 }
 
 
@@ -116,4 +122,17 @@ def zen_fused_infer_sample(n_wk, n_kd, word, slot, z_old, seeds, alpha_k,
         beta=beta, w_beta=w_beta,
     )
     _LAUNCHES["zen_fused_infer_sample"] += 1
+    return out
+
+
+def sparse_row_sample(vals, topics, targets, *, bt: int = 256,
+                      bs: int = 128):
+    """Whole-row sparse CDF inversion: the topic id at the lower-bound
+    position of ``targets[t]`` in the prefix sums of ``vals[t]``, clamped
+    to the last lane. (T, J) float32 weights, (T, J) int32 topic ids and
+    (T,) float32 targets in; (T,) int32 out."""
+    if _route(vals) == "cpu":
+        return sparse_row_sample_plain(vals, topics, targets)
+    out = sparse_row_sample_cuda(vals, topics, targets)
+    _LAUNCHES["sparse_row_sample"] += 1
     return out

@@ -1,9 +1,11 @@
-"""Plain oracles of the sampler kernels, mirroring ``repro/kernels/ref.py``:
-the whole (T, K) score matrix at once, with no chunking, written apart from
-the kernels' plain versions so that each can be held against the other."""
+"""Plain oracles of the kernels, mirroring ``repro/kernels/ref.py``:
+the whole (T, K) score (or (T, J) prefix) matrix at once, with no chunking,
+written apart from the kernels' plain versions so that each can be held
+against the other."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.zen_sampler import gumbel_noise
 
@@ -75,3 +77,34 @@ def zen_fused_sample_ref(n_wk, n_kd, word, doc, z_old, alpha_k, n_k, seed,
         n_wk[word.long()], n_kd[doc.long()], z_old, alpha_k, n_k, seed,
         beta=beta, w_beta=w_beta,
     )
+
+
+def sparse_row_prefix_ref(vals) -> torch.Tensor:
+    """The (T, J) prefix sums the sparse-row kernel compares, all strips at
+    once: each 32-lane strip scanned in the warp shuffle order, plus the
+    running sum of the earlier strips' lane 31."""
+    t, j = vals.shape
+    strips = -(-j // 32)
+    x = F.pad(vals.to(torch.float32), (0, strips * 32 - j)).reshape(
+        t, strips, 32)
+    lanes = torch.arange(32, device=vals.device)
+    for off in (1, 2, 4, 8, 16):
+        shifted = torch.zeros_like(x)
+        shifted[..., off:] = x[..., :32 - off]
+        x = torch.where(lanes >= off, x + shifted, x)
+    carries = [torch.zeros(t, dtype=torch.float32, device=vals.device)]
+    for i in range(strips - 1):
+        carries.append(carries[-1] + x[:, i, 31])
+    prefix = torch.stack(carries, 1)[:, :, None] + x
+    return prefix.reshape(t, strips * 32)[:, :j]
+
+
+def sparse_row_sample_ref(vals, topics, targets) -> torch.Tensor:
+    """Oracle of ``ops.sparse_row_sample``: count the prefix sums below the
+    target over the whole (T, J) matrix, clamp to J - 1, select the id."""
+    j = vals.shape[1]
+    prefix = sparse_row_prefix_ref(vals)
+    cnt = torch.sum(prefix < targets.to(torch.float32)[:, None], dim=1)
+    pos = torch.clamp_max(cnt, j - 1)
+    return torch.take_along_dim(topics.to(torch.int32), pos[:, None],
+                                dim=1)[:, 0]

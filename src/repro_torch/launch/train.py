@@ -17,11 +17,14 @@ It prints the reference's progress lines (``iter N  llh ...  ppl ...
 change ...``, ``finished at iteration N; final llh ...``).
 ``--checkpoint-dir`` writes model checkpoints that either package's
 ``serve_lda`` serves; ``--ckpt`` holds elastic training checkpoints
-(assignments; a rerun resumes from the newest). What is not ported yet
-exits non-zero with the ROADMAP item that waits for it: the mesh plan
+(assignments; a rerun resumes from the newest). ``--max-kw``/``--max-kd``
+fix the padded-sparse backends' row widths (default: resolved from the
+counts before every sweep); for those backends the widths the first
+sweep uses are printed as ``padded-row widths: ...``. What is not ported
+yet exits non-zero with the ROADMAP item that waits for it: the mesh plan
 (run without ``--single-box``, or with ``--rows``/``--cols`` or
 ``--host-devices``), ``--stream``, ``--metrics-out``, ``--autopilot``,
-``--quality-every`` and the unported backends.
+``--quality-every`` and the unported backends (``std``, ``zen_cdf``).
 """
 import argparse
 import sys
@@ -207,6 +210,13 @@ def main(argv=None) -> int:
     print(f"single-box  algorithm={cfg.algorithm}  "
           f"tokens={corpus.num_tokens}  device={card}")
     state = session.init(0)
+    if session.backend.needs_row_pads:
+        # the reference prints this on its mesh plan, whose widths are
+        # fixed when the step is built; the single box resolves them per
+        # sweep, so this is the first sweep's
+        pads = algorithms.resolve_row_pads(state, cfg.knobs())
+        print(f"padded-row widths: max_kw={pads.max_kw} "
+              f"max_kd={pads.max_kd}")
 
     t_last = [time.perf_counter()]
 
@@ -221,6 +231,9 @@ def main(argv=None) -> int:
         if "hyper" in metrics:
             line += (f"  hyper a={metrics['hyper']['alpha']:.4f}"
                      f" b={metrics['hyper']['beta']:.4f}")
+        if "row_pads" in metrics:
+            kw, kd = metrics["row_pads"]
+            line += f"  repad kw={kw} kd={kd}"
         now = time.perf_counter()
         line += f"  ({now - t_last[0]:.3f}s on {card})"
         t_last[0] = now

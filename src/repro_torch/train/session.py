@@ -11,10 +11,10 @@
   statistics, as the reference's single-box plan does them.
 * ``TrainSession`` — ``init() / step() / run() / llh() / perplexity() /
   metrics() / save_model() / merge_duplicates()``, with the reference's
-  schedule actions: ``exclusion_on``, ``rebuild``, ``hyper``, ``merge``,
-  ``eval``, ``model_checkpoint`` and ``train_checkpoint``; ``run()``
-  resumes from the newest elastic training checkpoint, the reference's
-  ``{"topic", "iteration"}`` tree included.
+  schedule actions: ``exclusion_on``, ``rebuild``, ``repad``, ``hyper``,
+  ``merge``, ``eval``, ``model_checkpoint`` and ``train_checkpoint``;
+  ``run()`` resumes from the newest elastic training checkpoint, the
+  reference's ``{"topic", "iteration"}`` tree included.
 
 Sessions and plans run on ``device`` (default ``cuda``) and raise rather
 than fall back when no card is present. The run key is an int seed or two
@@ -157,10 +157,6 @@ UNPORTED_FIELDS = {
 # reference backends the port has not registered yet -> ROADMAP item
 UNPORTED_ALGORITHMS = {
     "std": "ROADMAP queue 1 item 1 (what waits)",
-    "zen_sparse": "ROADMAP queue 1 item 3",
-    "sparselda": "ROADMAP queue 1 item 3",
-    "lightlda": "ROADMAP queue 1 item 3",
-    "zen_hybrid": "ROADMAP queue 1 item 3",
     "zen_cdf": "ROADMAP queue 1 item 4",
 }
 
@@ -225,8 +221,13 @@ class SingleBoxPlan:
         raise ValueError(f"unknown init {cfg.init!r}")
 
     def sweep(self, state: CGSState) -> torch.Tensor:
-        return self.backend.sweep(state, self.corpus, self.hyper,
-                                  self._knobs, self._aux)
+        knobs = self._knobs
+        if self.backend.needs_row_pads:
+            # auto pads (0) from the current counts before every sweep, so
+            # a row that grows is never truncated on the single box
+            knobs = algorithms.resolve_row_pads(state, knobs)
+        return self.backend.sweep(state, self.corpus, self.hyper, knobs,
+                                  self._aux)
 
     def step(self, state: CGSState) -> CGSState:
         c, h = self.corpus, self.hyper
@@ -270,6 +271,25 @@ class SingleBoxPlan:
             h.num_topics,
         )
         return dataclasses.replace(state, n_wk=n_wk, n_kd=n_kd, n_k=n_k)
+
+    def repad(self, state: CGSState) -> bool:
+        """Re-resolve padded-row capacities; the single box resolves them
+        before every sweep already, so nothing is ever rebuilt here."""
+        return False
+
+    @property
+    def row_pads(self) -> Tuple[int, int]:
+        """(max_kw, max_kd) in effect (0 = auto, resolved per sweep)."""
+        return (self._knobs.max_kw, self._knobs.max_kd)
+
+    def apply_row_pads(self, max_kw: int, max_kd: int) -> bool:
+        """Set explicit padded-row widths; True when they changed. Explicit
+        widths stick: the per-sweep resolution keeps nonzero values."""
+        if (self._knobs.max_kw, self._knobs.max_kd) == (max_kw, max_kd):
+            return False
+        self._knobs = dataclasses.replace(
+            self._knobs, max_kw=int(max_kw), max_kd=int(max_kd))
+        return True
 
     def set_hyper(self, hyper: LDAHyperParams) -> None:
         self.hyper = hyper
@@ -340,6 +360,11 @@ class TrainSession:
     def device(self) -> torch.device:
         return self.plan.device
 
+    @property
+    def row_pads(self) -> Tuple[int, int]:
+        """(max_kw, max_kd) currently in effect (0 = per-sweep auto)."""
+        return self.plan.row_pads
+
     # -- the session surface -----------------------------------------------
     def init(self, rng, init_topics=None) -> CGSState:
         """The initial state: ``rng`` is an int seed or two uint32 words
@@ -409,6 +434,18 @@ class TrainSession:
                 "rebuild", lambda ctx, st: self.plan.rebuild(st),
                 every=cfg.rebuild_every,
             ))
+            # the autopilot (not ported) would own the row widths instead
+            if (self.backend.needs_row_pads
+                    and not (cfg.max_kw and cfg.max_kd)
+                    and not cfg.autopilot):
+                def _repad(ctx, st):
+                    if self.plan.repad(st):
+                        ctx.metrics["row_pads"] = self.plan.row_pads
+                    return st
+
+                sched.add(ScheduledAction(
+                    "repad", _repad, every=cfg.rebuild_every,
+                ))
         if cfg.hyper_every > 0:
             sched.add(ScheduledAction(
                 "hyper", self._hyper_action, every=cfg.hyper_every,

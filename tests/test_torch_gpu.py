@@ -233,3 +233,61 @@ def test_train_session_runs_through_the_training_kernels(cuda, kernels,
     assert counts[kernel] == 3
     assert all(v == 0 for name, v in counts.items() if name != kernel)
     assert sess.llh(st) > llh0
+
+
+# -- the sparse-row kernel (csrc/sparse_row.cu) -------------------------------
+
+@pytest.mark.parametrize("j", [1, 5, 31, 32, 33, 128, 352, 1000])
+def test_sparse_row_kernel_bit_equal_to_plain_version_on_card(cuda, j):
+    from repro_torch.kernels.sparse_row import sparse_row_sample_plain
+
+    t = 4096
+    g = torch.Generator(device=cuda).manual_seed(j)
+    live = torch.randint(0, j + 1, (t, 1), generator=g, device=cuda)
+    lanes = torch.arange(j, device=cuda)[None, :]
+    vals = torch.rand((t, j), generator=g, device=cuda)
+    vals = torch.where(lanes < live, vals, 0.0)
+    topics = torch.sort(torch.randint(0, 1000, (t, j), generator=g,
+                                      device=cuda), dim=1).values
+    topics = torch.where(lanes < live, topics, 1000).to(torch.int32)
+    mass = vals.sum(1)
+    tgt = torch.rand(t, generator=g, device=cuda) * mass
+    tgt[::7] = mass[::7]  # on the row's mass
+    tgt[1::7] = 0.0
+    tgt[2::7] = mass[2::7] + 1.0  # above it
+    before = ops.launch_counts()["sparse_row_sample"]
+    got = ops.sparse_row_sample(vals, topics, tgt)
+    want = sparse_row_sample_plain(vals, topics, tgt)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sparse_row_sample"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("algorithm,kernels,launches", [
+    ("zen_sparse", "auto", True), ("sparselda", "auto", True),
+    ("zen_hybrid", "off", True), ("lightlda", "auto", True),
+    ("lightlda", "off", False)])
+def test_padded_sparse_backends_train_on_card(cuda, algorithm, kernels,
+                                              launches):
+    """zen_sparse, sparselda and zen_hybrid send every inversion through
+    the kernel whatever the policy; lightlda's policy picks the kernel or
+    the per-word alias tables."""
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import synthetic_lda_corpus
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus, _ = synthetic_lda_corpus(0, 200, 300, 10, 50)
+    sess = TrainSession(corpus, LDAHyperParams(num_topics=10, alpha=0.1),
+                        RunConfig(algorithm=algorithm, kernels=kernels),
+                        device=cuda)
+    st = sess.init(0)
+    llh0 = sess.llh(st)
+    ops.reset_launch_counts()
+    for _ in range(3):
+        st = sess.step(st)
+        st.check_invariants(sess.corpus)
+    counts = ops.launch_counts()
+    assert (counts["sparse_row_sample"] > 0) == launches, counts
+    assert all(v == 0 for name, v in counts.items()
+               if name != "sparse_row_sample")
+    assert sess.llh(st) > llh0

@@ -74,11 +74,17 @@ def test_mix32_and_golden_seed_bit_equal():
 
 
 def test_gumbel_noise_within_last_bits():
+    """torch's first CPU ``log`` on a large tensor in a process that has
+    run XLA computations can be off by ~4e-5 relative in one element (a
+    torch fault, not the port's; ROADMAP queue 3). A throwaway call of that
+    size takes it, and the port's noise is computed before the reference's
+    XLA ``gumbel_noise`` runs here."""
     s, r, c = _grid()
-    j = np.asarray(jzs.gumbel_noise(jnp.asarray(s), jnp.asarray(r),
-                                    jnp.asarray(c)))
+    torch.log(torch.linspace(0.5, 1.0, s.size * r.size * c.size))
     t = tzs.gumbel_noise(torch.from_numpy(s), torch.from_numpy(r),
                          torch.from_numpy(c)).numpy()
+    j = np.asarray(jzs.gumbel_noise(jnp.asarray(s), jnp.asarray(r),
+                                    jnp.asarray(c)))
     fin = np.isfinite(j)
     np.testing.assert_array_equal(np.isfinite(t), fin)
     np.testing.assert_array_equal(t[~fin], j[~fin])
@@ -191,7 +197,8 @@ def test_wrappers_route_by_device_and_count_only_launches():
     ops.zen_fused_infer_sample(*args, nk, beta=0.01, w_beta=0.05)
     assert ops.launch_counts() == {"zen_sample": 0, "zen_fused_sample": 0,
                                    "zen_infer_sample": 0,
-                                   "zen_fused_infer_sample": 0}
+                                   "zen_fused_infer_sample": 0,
+                                   "sparse_row_sample": 0}
     meta = [x.to("meta") for x in args]
     with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.zen_fused_infer_sample(*meta, nk.to("meta"), beta=0.01,

@@ -383,7 +383,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 
 def test_training_half_names_the_training_slice():
     """The training slice is ported: both backends train (a sweep returns
-    one topic in [0, K) per token), under the reference's names."""
+    one topic in [0, K) per token), under the reference's names; the
+    registry lists every ported backend in the reference's order."""
     from repro_torch.core.init import random_init
     from repro_torch.core.types import Corpus
 
@@ -395,7 +396,8 @@ def test_training_half_names_the_training_slice():
     for name in ("zen", "zen_pallas"):
         z = talg.get(name).sweep(state, corpus, hyper, talg.SamplerKnobs())
         assert z.shape == (4,) and bool(((z >= 0) & (z < 4)).all())
-    assert talg.registered() == ("zen", "zen_pallas")
+    assert talg.registered() == ("zen", "zen_sparse", "zen_hybrid",
+                                 "sparselda", "lightlda", "zen_pallas")
     assert talg.get("zen_dense_kernel") is talg.get("zen_pallas")
 
 

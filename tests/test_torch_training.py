@@ -437,7 +437,7 @@ def test_run_config_json_round_trips_between_packages():
     ("stream_source", "replay", "item 6"),
     ("metrics_out", "m.jsonl", "item 5"), ("autopilot", True, "item 5"),
     ("quality_every", 2, "item 5"), ("algorithm", "zen_cdf", "item 4"),
-    ("algorithm", "lightlda", "item 3")])
+    ("algorithm", "std", "item 1")])
 def test_unported_run_config_fields_are_refused(field, value, item):
     (_, _, _), (tc, _, th) = _corpus_state(12)
     cfg = RunConfig(**{field: value})
