@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
 
 1. device  — the card, and ``nvidia-smi`` name / power limit;
 2. build   — nvcc builds ``src/repro_torch/kernels/csrc/zen_infer.cu``,
-   ``zen_train.cu`` and ``sparse_row.cu`` for sm_90a, one nvcc each, in
-   parallel (prints the ``-Xptxas -v`` summary);
+   ``zen_train.cu``, ``sparse_row.cu``, ``cdf_search.cu`` and
+   ``topic_histogram.cu`` for sm_90a, one nvcc each, in parallel (prints
+   the ``-Xptxas -v`` summary);
 3. kernels — both serving kernels at NYTIMES width (W = 101,636,
    K = 1000) on one full bucket sweep (32 slots x 512 = 16,384 tokens):
    the fused kernel must be bit-equal to the gathered one, and both may
@@ -21,13 +22,14 @@ Phases, each printing one JSON line:
    ``FrozenLDAModel.from_checkpoint``, and 256 documents of Poisson(332)
    tokens served through ``LDAEngine`` with ``zen_pallas``: throughput mode
    on the fused kernel, throughput mode on the gathered kernel
-   (``kernels="off"``), then latency mode (RT-LDA). Every theta must be
+   (``kernels="off"``), latency mode (RT-LDA), then 64 documents through
+   ``zen_cdf``'s frozen CDF tables. Every theta must be
    finite and sum to 1, the top topic must match the planted one on at
    least 90% of single-topic documents, and latency-mode assignments must
    equal those of the same engine on the CPU for a sample of documents.
    Each run's launch counts are zeroed after its warm-up and read right
    after its serving window: a throughput run must launch its own kernel
-   and no other, and the latency run (RT-LDA has no kernel) none.
+   and no other, and the latency and zen_cdf runs (no kernel) none.
 5. train_kernels — both training kernels at NYTIMES width on the first
    1,048,576 tokens of the corpus below after init (the gathered rows are
    8.4 GB): fused bit-equal to gathered, each against its plain version
@@ -43,10 +45,11 @@ Phases, each printing one JSON line:
    then ``save_model`` read back bit-equal; one more step profiled;
 7. train_small — the same recipe at 4,096 documents (~1.36M tokens) and
    the same initial topics, 3 iterations of ``zen`` (plain torch, cdf),
-   ``zen_pallas`` fused and ``zen_pallas`` gathered (``kernels="off"``):
-   fused and gathered topics bit-identical after every iteration, each run
-   launching only its own kernel (``zen`` none), and ``zen``'s per-token
-   llh within 1% of the fused run's;
+   ``std``, ``zen_pallas`` fused and ``zen_pallas`` gathered
+   (``kernels="off"``): fused and gathered topics bit-identical after every
+   iteration, each run launching only its own kernel (``zen`` and ``std``
+   none), ``zen``'s per-token llh within 1% of the fused run's and
+   ``std``'s within 1% of ``zen``'s;
 8. train_sparse — this slice's path at full width: ``TrainSession`` with
    ``zen_sparse`` and the paper's sparse word initialisation (degree 0.1)
    on the same NYTIMES corpus: 3 iterations, an eval at init and after
@@ -58,17 +61,41 @@ Phases, each printing one JSON line:
    1,048,576 tokens of that state, on the term-3 rows (J = max_kd) and on
    SparseLDA's q rows (J = max_kw): topics equal with 0 mismatches, CUDA-
    event times and the bytes bound;
-10. train_sparse_small — the train_small corpus and one set of initial
+10. train_cdf — ``TrainSession`` with ``zen_cdf`` (``kernels="auto"``,
+   max_kd 64) on the same NYTIMES corpus from a random init: 3 iterations,
+   an eval at init and after each; count invariants after every step, llh
+   rising at every eval, and launches of the CDF row search (kernel 7)
+   only, two per token chunk. Reports seconds per step, peak memory and
+   one more step profiled;
+11. histogram — kernel 5 on that run's last step (inc = z_new != z_old):
+   doc rows in the corpus order (checked sorted), R = 299,752, and word
+   rows after a stable sort by word, R = 101,636. Both launches are the
+   phase's path; each result is bit-equal to the plain version and to
+   ``delta_counts``' d_kd / d_wk of the same step; CUDA-event times and
+   the bytes bound;
+12. cdf_kernels — kernel 7 on the first 1,048,576 tokens of the zen_cdf
+   state, on the path's term-2 targets of draw a and on targets uniform
+   over each word's row: bit-equal to its plain version (0 mismatches),
+   CUDA-event times of the kernel, the plain version and the
+   ``kernels="off"`` route (the ``w_cdf`` build and its ``log K`` search),
+   the bytes, operation and instruction-issue bounds;
+13. train_sparse_small — the train_small corpus and one set of initial
    topics, 3 iterations each of ``zen_sparse``, ``sparselda``,
    ``zen_hybrid``, ``lightlda`` (kernel) and ``lightlda`` with
-   ``kernels="off"`` (per-word alias tables) and ``zen``: invariants after
-   every step, each run's per-token llh within 8% of ``zen``'s, the kernel
-   runs launching only the sparse-row kernel and the other two none.
+   ``kernels="off"`` (per-word alias tables), ``zen_cdf`` (kernel 7) and
+   ``zen_cdf`` with ``kernels="off"``, and ``zen``: invariants after every
+   step, each run's per-token llh within 8% of ``zen``'s, every run
+   launching only its own kernel (``lightlda`` off, ``zen_cdf`` off and
+   ``zen`` none).
 
-Then it prints the ``{"kernels": [...]}`` line (all five kernels), the ``nvidia-smi`` line
-and, last, ``{"ok": true, "device": {...}}``. It exits non-zero, before
-any result, when no CUDA device is present, when the repository's
-``src/`` is missing, or when any check fails.
+The serving phase also serves 64 documents with ``zen_cdf`` (throughput
+mode on its frozen per-word CDFs: no kernel), and train_small also runs
+``std`` (Eq. 3 as written, plain torch) within 1% of ``zen``.
+
+Then it prints the ``{"kernels": [...]}`` line (all seven kernels), the
+``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
+non-zero, before any result, when no CUDA device is present, when the
+repository's ``src/`` is missing, or when any check fails.
 """
 from __future__ import annotations
 
@@ -89,6 +116,8 @@ N_DOCS = 256
 TRAIN_ITERS, SMALL_DOCS, SMALL_ITERS = 5, 4096, 3
 SPARSE_ITERS = 3  # train_sparse: iterations of zen_sparse at full width
 SPARSE_LLH_BAND = 0.08  # train_sparse_small: llh/token vs zen's
+CDF_ITERS, CDF_MAX_KD = 3, 64  # train_cdf: zen_cdf iterations, doc rows
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_TOKENS = 1 << 20  # training-kernel phase: first 1,048,576 tokens
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SFU_PER_SM_PER_CLK = 16  # special-function unit results per SM per clock
@@ -378,6 +407,9 @@ def main() -> int:
          docs[:64], topics[:64], "zen_infer_sample"),
         ("latency", LDAServeConfig(mode="latency", **base), docs, topics,
          None),
+        ("throughput_cdf", LDAServeConfig(**{**base,
+                                             "algorithm": "zen_cdf"}),
+         docs[:64], topics[:64], None),
     ]
     results, launches = {}, {}
     for name, cfg, ds, ts, kernel in runs:
@@ -427,18 +459,18 @@ def main() -> int:
     return 0
 
 
-def sass_loop_stats(kernel: str):
+def sass_loop_stats(kernel: str, source: str = "zen_train.cu"):
     """Instructions in the K loop of ``kernel`` (one (t, k) per lane per
-    pass: the loop is kept rolled), from ``cuobjdump -sass`` of the built
-    library: the span of the function's widest backward branch. None when
-    the tool or the pattern is missing."""
+    pass: the loop is kept rolled), from ``cuobjdump -sass`` of the library
+    built from ``source``: the span of the function's widest backward
+    branch. None when the tool or the pattern is missing."""
     import re
 
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = [_build.target(s) for s in _build.SOURCES
-           if s.name == "zen_train.cu"][0]
+           if s.name == source][0]
     try:
         out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                              text=True, timeout=120).stdout
@@ -745,6 +777,7 @@ def phase_train_small(seed: int, dev, smi):
     corpus = synthetic_nytimes(SMALL_DOCS)
     hyper = LDAHyperParams(num_topics=K_NYT)
     runs = (("zen", "zen", "auto", None),
+            ("std", "std", "auto", None),
             ("fused", "zen_pallas", "auto", "zen_fused_sample"),
             ("gathered", "zen_pallas", "off", "zen_sample"))
     topics, llh, counts_by = {}, {}, {}
@@ -779,16 +812,19 @@ def phase_train_small(seed: int, dev, smi):
     check(same, "train_small: fused and gathered runs drew different "
           "topics")
     rel = abs(llh["zen"] / llh["fused"] - 1)
+    rel_std = abs(llh["std"] / llh["zen"] - 1)
     emit({"phase": "train_small_check", "fused_equals_gathered": True,
-          "zen_vs_fused_llh_rel": rel})
+          "zen_vs_fused_llh_rel": rel, "std_vs_zen_llh_rel": rel_std})
     check(rel < 0.01, f"train_small: zen llh/token {llh['zen']} vs fused "
           f"{llh['fused']} differ by {rel:.4f} (>= 1%)")
+    check(rel_std < 0.01, f"train_small: std llh/token {llh['std']} vs zen "
+          f"{llh['zen']} differ by {rel_std:.4f} (>= 1%)")
     return counts_by["gathered"]["zen_sample"]
 
 
 def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
-    """The training phases, dense and padded-sparse; returns the three
-    training kernels' rows and their launches on their paths."""
+    """The training phases, dense, padded-sparse and CDF; returns the five
+    training-side kernels' rows and their launches on their paths."""
     import torch
 
     from repro_torch.core.types import LDAHyperParams
@@ -816,12 +852,15 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
     torch.cuda.empty_cache()
     gathered_launches = phase_train_small(seed, dev, smi)
     sparse_launches, sparse_row = phase_train_sparse(corpus_dev, seed, smi)
+    torch.cuda.empty_cache()
+    cdf_rows, cdf_launches = phase_train_cdf(
+        corpus_dev, seed, smi, props.multi_processor_count, sm_clock_hz)
     del corpus_dev
     torch.cuda.empty_cache()
     phase_train_sparse_small(seed, dev, smi)
-    return rows + [sparse_row], {"zen_fused_sample": fused_launches,
-                                 "zen_sample": gathered_launches,
-                                 "sparse_row_sample": sparse_launches}
+    return rows + [sparse_row] + cdf_rows, {
+        "zen_fused_sample": fused_launches, "zen_sample": gathered_launches,
+        "sparse_row_sample": sparse_launches, **cdf_launches}
 
 
 def phase_train_sparse(corpus, seed: int, smi):
@@ -890,14 +929,15 @@ def phase_train_sparse(corpus, seed: int, smi):
                   if n != "sparse_row_sample"),
           f"train_sparse: expected sparse-row launches only, got {counts}")
     emit({"phase": "train_sparse_profile",
-          **profile_sparse_step(sess, st)})
+          **profile_path_step(sess, st, "sparse_row_kernel")})
     row = phase_sparse_kernels(sess, st, seed)
     return counts["sparse_row_sample"], row
 
 
-def profile_sparse_step(sess, st):
-    """Device busy share and the largest device items of one more
-    ``zen_sparse`` step, after the path's counts were read."""
+def profile_path_step(sess, st, kernel: str):
+    """Device busy share and the largest device items of one more training
+    step, after the path's counts were read; ``kernel_ms`` is the named
+    kernel's [ms, launches]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -909,9 +949,8 @@ def profile_sparse_step(sess, st):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = device_summary(prof, wall_us, items=12)
-    kern = [v for k, v in out["top_device_ms"].items()
-            if "sparse_row_kernel" in k]
-    out["sparse_row_ms"] = kern[0] if kern else None
+    kern = [v for k, v in out["top_device_ms"].items() if kernel in k]
+    out["kernel_ms"] = kern[0] if kern else None
     return out
 
 
@@ -960,6 +999,7 @@ def phase_sparse_kernels(sess, st, seed: int):
         out_k, out_p = kernel(), plain()
         torch.cuda.synchronize()
         mism = int((out_k != out_p).sum())
+        err = float((out_k.long() - out_p.long()).abs().max())
         check(mism == 0, f"sparse_kernels {name}: {mism} kernel-vs-plain "
               f"mismatches over {t} tokens")
         ms_k = cuda_ms(kernel, reps=10)
@@ -973,7 +1013,7 @@ def phase_sparse_kernels(sess, st, seed: int):
                       "bytes": nbytes,
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                       "bytes_with_topic_rows": t * j * 8 + t * 8,
-                      "mismatches": mism}
+                      "mismatches": mism, "max_abs_err": err}
         emit({"phase": "sparse_kernels", "rows": name, "T": t, **runs[name]})
     del shapes, d_vals, d_topics, q_vals, wk_idx
     torch.cuda.empty_cache()
@@ -982,7 +1022,9 @@ def phase_sparse_kernels(sess, st, seed: int):
         "name": "sparse_row_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sparse_row.cu",
         "replaces": "src/repro/kernels/sparse_row.py:34", "launches": None,
-        "max_abs_err": 0.0, "mismatches": 0, "tokens": t,
+        "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
+        "mismatches": sum(r["mismatches"] for r in runs.values()),
+        "tokens": t,
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": "bytes",
         "bytes": main["bytes"], "J": main["J"], "shapes": runs,
@@ -991,9 +1033,270 @@ def phase_sparse_kernels(sess, st, seed: int):
     }
 
 
+def phase_train_cdf(corpus, seed: int, smi, sm_count: int,
+                    sm_clock_hz: float):
+    """``zen_cdf`` at full NYTIMES width from a random init; then kernel 5
+    on its last step and kernel 7 on its state. Returns the two kernels'
+    rows of the kernels table and their launches on their paths."""
+    import torch
+
+    from repro_torch.algorithms.zen_cdf import CDF_CHUNK_ELEMS
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.kernels import ops
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    sess = TrainSession(corpus, hyper, RunConfig(
+        algorithm="zen_cdf", max_kd=CDF_MAX_KD), device=corpus.word.device)
+    t0 = time.perf_counter()
+    st = sess.init(seed)
+    st.check_invariants(sess.corpus)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tokens = sess.corpus.num_tokens
+    chunk = CDF_CHUNK_ELEMS // CDF_MAX_KD
+    chunks = -(-tokens // chunk)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    evals = [sess.metrics(st)]
+    step_s, eval_s = [], []
+    for _ in range(CDF_ITERS):
+        prev = st
+        t0 = time.perf_counter()
+        st = sess.step(st)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        st.check_invariants(sess.corpus)
+        t0 = time.perf_counter()
+        evals.append(sess.metrics(st))
+        eval_s.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    llh = [m["llh"] for m in evals]
+    emit({"phase": "train_cdf", "algorithm": "zen_cdf", "init": "random",
+          "max_kd": CDF_MAX_KD, "tokens": tokens,
+          "W": sess.corpus.num_words, "K": K_NYT, "init_seconds": t_init,
+          "token_chunk": chunk, "chunks_per_sweep": chunks, "llh": llh,
+          "perplexity": [m["perplexity"] for m in evals],
+          "change_rate": [m["change_rate"] for m in evals[1:]],
+          "step_seconds": step_s, "eval_seconds": eval_s,
+          "peak_device_gb": peak_gb, "launches": counts, "card": smi})
+    check(all(b > a for a, b in zip(llh, llh[1:])),
+          f"train_cdf: predictive llh did not rise at every eval: {llh}")
+    want = 2 * chunks * CDF_ITERS
+    check(counts["cdf_row_search"] == want
+          and all(v == 0 for n, v in counts.items()
+                  if n != "cdf_row_search"),
+          f"train_cdf: expected {want} CDF-search launches (two per token "
+          f"chunk) only, got {counts}")
+    emit({"phase": "train_cdf_profile",
+          **profile_path_step(sess, st, "cdf_search_kernel")})
+    hist_row, hist_launches = phase_histogram(sess, prev, st)
+    del prev
+    torch.cuda.empty_cache()
+    cdf_row = phase_cdf_kernels(sess, st, seed, sm_count, sm_clock_hz)
+    return [cdf_row, hist_row], {"cdf_row_search": counts["cdf_row_search"],
+                                 "topic_histogram": hist_launches}
+
+
+def phase_histogram(sess, prev, st):
+    """Kernel 5 on one full-width step (``prev`` -> ``st``): doc rows in
+    corpus order and word rows after a stable sort by word, each equal to
+    its plain version and to ``delta_counts``; returns (the kernel's row of
+    the kernels table, its launches on this path)."""
+    import torch
+
+    from repro_torch.core.counts import delta_counts
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.topic_histogram import topic_histogram_plain
+
+    c, k = sess.corpus, K_NYT
+    t = c.num_tokens
+    zo, zn = prev.topic, st.topic
+    inc = (zn != zo).to(torch.int32)
+    check(bool((c.doc[1:] >= c.doc[:-1]).all()),
+          "histogram: the corpus tokens are not in doc order")
+    order = torch.sort(c.word, stable=True).indices
+    sides = {
+        "doc": (c.doc, zo, zn, inc, c.num_docs),
+        "word": (c.word[order], zo[order], zn[order], inc[order],
+                 c.num_words),
+    }
+    del order
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = {name: ops.topic_histogram(*a[:4], a[4], k)
+            for name, a in sides.items()}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["topic_histogram"] == 2
+          and all(v == 0 for n, v in counts.items()
+                  if n != "topic_histogram"),
+          f"histogram: expected 2 histogram launches only, got {counts}")
+    d_wk, d_kd, _ = delta_counts(c.word, c.doc, zo, zn, c.num_words,
+                                 c.num_docs, k)
+    check(bool(torch.equal(outs["doc"], d_kd)),
+          "histogram: doc side differs from delta_counts' d_kd")
+    check(bool(torch.equal(outs["word"], d_wk)),
+          "histogram: word side differs from delta_counts' d_wk")
+    del d_wk, d_kd
+    runs = {}
+    for name, a in sides.items():
+        diff = outs[name] - topic_histogram_plain(*a[:4], a[4], k)
+        mism, err = int((diff != 0).sum()), float(diff.abs().max())
+        check(mism == 0, f"histogram {name}: {mism} kernel-vs-plain "
+              f"mismatches over ({a[4]}, {k})")
+        del diff
+        torch.cuda.empty_cache()
+        ms_k = cuda_ms(lambda: ops.topic_histogram(*a[:4], a[4], k), reps=5)
+        ms_p = cuda_ms(lambda: topic_histogram_plain(*a[:4], a[4], k),
+                       reps=3, warmup=1)
+        # the (R, K) output written once, four int32 ids per token read once
+        nbytes = a[4] * k * 4 + t * 16
+        runs[name] = {"R": a[4], "ms": ms_k, "plain_ms": ms_p,
+                      "bytes": nbytes,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "changed_tokens": int(inc.sum()),
+                      "mismatches": mism, "max_abs_err": err}
+        emit({"phase": "histogram", "rows": name, "T": t, "K": k,
+              "equals_plain": True, "equals_delta_counts": True,
+              **runs[name]})
+    del outs, sides
+    torch.cuda.empty_cache()
+    main = runs["doc"]
+    return ({
+        "name": "topic_histogram", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topic_histogram.cu",
+        "replaces": "src/repro/kernels/topic_histogram.py:31",
+        "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
+        "mismatches": sum(r["mismatches"] for r in runs.values()),
+        "tokens": t, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "bytes": main["bytes"], "R": main["R"], "shapes": runs,
+        "res_usage": res_usage("topic_histogram.cu", "hist_kernel"),
+        # two accumulating index_put_ calls: the plain version itself
+        "library_ms": main["plain_ms"],
+    }, counts["topic_histogram"])
+
+
+def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
+                      sm_clock_hz: float):
+    """Kernel 7 against its plain version on the first KERNEL_TOKENS tokens
+    of the full-width zen_cdf state: on the path's term-2 targets of draw a
+    (tokens whose draw takes another term search target 0) and on targets
+    uniform over each word's row; times beside the ``kernels="off"`` route
+    and the bounds. Returns the kernel's row of the kernels table."""
+    import torch
+
+    from repro_torch.algorithms import zen_cdf as zc
+    from repro_torch.core.keys import fold_in, key_seed, stream_uniforms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cdf_search import cdf_row_search_plain
+
+    c, h = sess.corpus, sess.hyper
+    t, k = KERNEL_TOKENS, K_NYT
+    word, doc = c.word[:t], c.doc[:t]
+    tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
+                              CDF_MAX_KD, use_kernel=True)
+    _, d_cdf = zc.doc_rows(tab, word, doc, st.n_wk, h)
+    m1 = tab.g_cdf[-1]
+    m12 = m1 + tab.m2_all[word.long()]
+    sweep_seed = key_seed(fold_in(st.rng, st.iteration))
+    u = stream_uniforms(sweep_seed, 0, t, zc.CDF_STREAMS,
+                        device=word.device)[0] * (m12 + d_cdf[:, -1])
+    del d_cdf
+    term1 = (u >= m1) & (u < m12)
+    gen = torch.Generator(device=word.device).manual_seed(seed)
+    targets = {
+        "path": torch.where(term1, torch.clamp_min(u - m1, 0.0), 0.0),
+        "uniform": torch.rand(t, generator=gen, device=word.device)
+        * (m12 - m1),
+    }
+    term = tab.terms.t4
+    w_cdf = torch.cumsum(st.n_wk.to(torch.float32) * term[None, :], dim=-1)
+    w_cdf_ms = cuda_ms(lambda: torch.cumsum(
+        st.n_wk.to(torch.float32) * term[None, :], dim=-1), reps=3)
+    loop = sass_loop_stats("cdf_search_kernel", "cdf_search.cu")
+    issue_rate = sm_count * INSTR_PER_SM_PER_CLK * sm_clock_hz
+    runs = {}
+    for name, tgt in targets.items():
+        def kernel():
+            return ops.cdf_row_search(st.n_wk, word, term, tgt)
+
+        def plain():
+            return cdf_row_search_plain(st.n_wk, word, term, tgt)
+
+        def off():
+            return zc._bsearch_gather(w_cdf, word, tgt)
+
+        out_k, out_p, out_o = kernel(), plain(), off()
+        torch.cuda.synchronize()
+        mism = int((out_k != out_p).sum())
+        err = float((out_k.long() - out_p.long()).abs().max())
+        check(mism == 0, f"cdf_kernels {name}: {mism} kernel-vs-plain "
+              f"mismatches over {t} tokens")
+        ms_k = cuda_ms(kernel, reps=10)
+        ms_p = cuda_ms(plain, reps=2, warmup=1)
+        ms_o = cuda_ms(off, reps=10)
+        # what this data needs: a token with target <= 0 reads nothing; the
+        # others the row's counts up to the answer (all K when clamped)
+        live = tgt > 0
+        need = torch.where(live, out_k.long() + 1, 0)
+        row_need = torch.zeros(st.n_wk.shape[0], dtype=torch.int64,
+                               device=word.device).scatter_reduce_(
+            0, word.long(), need, reduce="amax")
+        nbytes = int(row_need.sum()) * 4 + k * 4 + t * 12
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # a multiply, an add and a compare per needed element, float32
+        flops = 3 * int(need.sum())
+        flops_ms = flops / FP32_FLOPS * 1e3
+        strips = int(torch.where(live, out_k.long() // 32 + 1, 0).sum())
+        issue_ms = (strips * 32 * loop["loop_instructions"] / issue_rate
+                    * 1e3 if loop else None)
+        runs[name] = {
+            "ms": ms_k, "plain_ms": ms_p, "off_route_search_ms": ms_o,
+            "off_route_matches": float((out_o == out_k).float().mean()),
+            "bytes": nbytes, "bytes_ms": bytes_ms,
+            "bytes_no_reuse": int(need.sum()) * 4 + k * 4 + t * 12,
+            # whole rows of the distinct words, as if no walk stopped early
+            "bytes_whole_rows": int(torch.unique(word).numel()) * k * 4
+            + k * 4 + t * 12,
+            "flops": flops, "flops_ms": flops_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "strips_walked": strips, "issue_bound_ms": issue_ms,
+            "searching_tokens": int(live.sum()), "mismatches": mism,
+            "max_abs_err": err,
+        }
+        emit({"phase": "cdf_kernels", "targets": name, "T": t, "K": k,
+              "w_cdf_build_ms": w_cdf_ms, "sass": loop, **runs[name]})
+    del w_cdf, tab, targets
+    torch.cuda.empty_cache()
+    main = runs["path"]
+    return {
+        "name": "cdf_row_search", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cdf_search.cu",
+        "replaces": "src/repro/kernels/cdf_search.py:36", "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
+        "mismatches": sum(r["mismatches"] for r in runs.values()),
+        "tokens": t,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "bytes": main["bytes"], "issue_bound_ms": main["issue_bound_ms"],
+        "off_route_ms": main["off_route_search_ms"],
+        "w_cdf_build_ms": w_cdf_ms, "shapes": runs, "sass": loop,
+        "res_usage": res_usage("cdf_search.cu", "cdf_search_kernel"),
+        # no one PyTorch call computes it
+        "library_ms": None,
+    }
+
+
 def phase_train_sparse_small(seed: int, dev, smi):
-    """The padded-sparse backends and the dense ``zen`` from one set of
-    initial topics on the train_small corpus."""
+    """The padded-sparse backends, ``zen_cdf`` on and off its kernel and
+    the dense ``zen`` from one set of initial topics on the train_small
+    corpus."""
     import torch
 
     from repro_torch.core.types import LDAHyperParams
@@ -1002,13 +1305,16 @@ def phase_train_sparse_small(seed: int, dev, smi):
 
     corpus = synthetic_nytimes(SMALL_DOCS)
     hyper = LDAHyperParams(num_topics=K_NYT)
-    # (run, algorithm, kernels policy, launches sparse_row_sample?)
-    runs = (("zen", "zen", "auto", False),
-            ("zen_sparse", "zen_sparse", "auto", True),
-            ("sparselda", "sparselda", "auto", True),
-            ("zen_hybrid", "zen_hybrid", "auto", True),
-            ("lightlda", "lightlda", "auto", True),
-            ("lightlda_off", "lightlda", "off", False))
+    # (run, algorithm, kernels policy, the one kernel it launches)
+    sparse = "sparse_row_sample"
+    runs = (("zen", "zen", "auto", None),
+            ("zen_sparse", "zen_sparse", "auto", sparse),
+            ("sparselda", "sparselda", "auto", sparse),
+            ("zen_hybrid", "zen_hybrid", "auto", sparse),
+            ("lightlda", "lightlda", "auto", sparse),
+            ("lightlda_off", "lightlda", "off", None),
+            ("zen_cdf", "zen_cdf", "auto", "cdf_row_search"),
+            ("zen_cdf_off", "zen_cdf", "off", None))
     init_topics, llh = None, {}
     for name, algorithm, kernels, kernel in runs:
         sess = TrainSession(corpus, hyper, RunConfig(
@@ -1030,9 +1336,8 @@ def phase_train_sparse_small(seed: int, dev, smi):
               "algorithm": algorithm, "kernels": kernels,
               "tokens": corpus.num_tokens, "seconds": secs,
               "llh_per_token": llh[name], "launches": counts, "card": smi})
-        want = "sparse_row_sample" if kernel else None
-        check(all((v > 0) == (n == want) for n, v in counts.items()),
-              f"train_sparse_small {name}: expected launches of {want} "
+        check(all((v > 0) == (n == kernel) for n, v in counts.items()),
+              f"train_sparse_small {name}: expected launches of {kernel} "
               f"only, got {counts}")
         del sess, st
         torch.cuda.empty_cache()

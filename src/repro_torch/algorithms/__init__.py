@@ -20,9 +20,10 @@ from repro_torch.algorithms.registry import (  # noqa: F401
 
 # importing a backend module registers it (order = registered() order,
 # the reference's)
-from repro_torch.algorithms import zen_dense  # noqa: F401,E402  zen
+from repro_torch.algorithms import zen_dense  # noqa: F401,E402  zen, std
 from repro_torch.algorithms import zen_sparse  # noqa: F401,E402
 from repro_torch.algorithms import zen_hybrid  # noqa: F401,E402
 from repro_torch.algorithms import sparselda  # noqa: F401,E402
 from repro_torch.algorithms import lightlda  # noqa: F401,E402
+from repro_torch.algorithms import zen_cdf  # noqa: F401,E402
 from repro_torch.algorithms import zen_pallas  # noqa: F401,E402

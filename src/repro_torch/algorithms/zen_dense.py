@@ -1,11 +1,13 @@
-"""``zen`` (+ ``zen_dense`` alias): the dense three-term backend, in plain
-torch (the reference has no kernel for it either).
+"""Dense (T, K) backends in plain torch (the reference has no kernel for
+them either): ``zen`` (+ ``zen_dense`` alias), the three-term
+decomposition, and ``std``, Eq. 3 as written.
 
 Per-token dense (T, K) probabilities with exact ¬dw self-exclusion,
 sampled by inverse CDF or Gumbel-max. The single-box ``sweep`` is the
 oracle sweep ``core.sampler.cgs_sweep_stale``, as in the reference;
-``cell_sweep`` is the per-cell form (``zen_dense_cell``). It serves
-through the default dense frozen-phi sweep. ``std`` is not ported yet.
+``zen``'s ``cell_sweep`` is the per-cell form (``zen_dense_cell``); ``std``
+is single-box only, as in the reference. Both serve through the default
+dense frozen-phi sweep.
 """
 from __future__ import annotations
 
@@ -13,11 +15,20 @@ import torch
 
 from repro_torch.algorithms.base import (
     CellBackend,
+    SamplerBackend,
     SamplerKnobs,
     chunked_token_map,
 )
 from repro_torch.algorithms.registry import register
 from repro_torch.core.sampler import cgs_sweep_stale, sample_categorical
+
+
+def _searchsorted_rows(cdf: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """Row-wise lower bound: cdf (T, N) ascending, targets (T,) -> (T,)
+    int32, clamped to N - 1."""
+    return torch.clamp_max(torch.sum(cdf < targets[:, None], dim=-1),
+                           cdf.shape[-1] - 1).to(torch.int32)
 
 
 def zen_dense_cell(seed: int, word_l, doc_l, z_old, mask, n_wk_l, n_kd_l,
@@ -62,4 +73,15 @@ class ZenDense(CellBackend):
         return zen_dense_cell(
             seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
             num_words_pad, knobs.sampling_method, knobs.token_chunk,
+        )
+
+
+@register("std")
+class StdDense(SamplerBackend):
+    """Textbook (non-decomposed) Eq. 3 conditional — dense, single-box."""
+
+    def sweep(self, state, corpus, hyper, knobs: SamplerKnobs, aux=None):
+        return cgs_sweep_stale(
+            state, corpus, hyper, method=knobs.sampling_method,
+            decomposition="std", token_chunk=knobs.chunk_or_none(),
         )

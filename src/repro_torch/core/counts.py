@@ -9,6 +9,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.topic_histogram import topic_histogram_plain
+
 
 def _ones(ids: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is None:
@@ -59,26 +61,18 @@ def delta_counts(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Delta aggregation (paper §5.2): (d_wk, d_kd, d_k) int32 with
     ``new_counts = old_counts + delta``; tokens whose topic did not change
-    (or that ``mask`` marks padded) contribute exactly zero."""
+    (or that ``mask`` marks padded) contribute exactly zero. The two
+    (rows, K) deltas are kernel 5's plain version; d_k is d_wk's column
+    sum (exact in int32)."""
     changed = old_topic != new_topic
     if mask is not None:
         changed = changed & mask
     inc = changed.to(torch.int32)
-    dec = -inc
-    dev = word.device
-    w, d = word.long(), doc.long()
-    zn, zo = new_topic.long(), old_topic.long()
-
-    def delta(shape, rows):
-        out = torch.zeros(shape, dtype=torch.int32, device=dev)
-        new_idx = (zn,) if rows is None else (rows, zn)
-        old_idx = (zo,) if rows is None else (rows, zo)
-        out.index_put_(new_idx, inc, accumulate=True)
-        return out.index_put_(old_idx, dec, accumulate=True)
-
-    return (delta((num_words, num_topics), w),
-            delta((num_docs, num_topics), d),
-            delta((num_topics,), None))
+    d_wk = topic_histogram_plain(word, old_topic, new_topic, inc,
+                                 num_words, num_topics)
+    d_kd = topic_histogram_plain(doc, old_topic, new_topic, inc,
+                                 num_docs, num_topics)
+    return d_wk, d_kd, d_wk.sum(0, dtype=torch.int32)
 
 
 def word_frequencies(word: torch.Tensor, num_words: int,

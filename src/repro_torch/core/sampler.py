@@ -1,5 +1,4 @@
-"""Dense CGS sweep against iteration-start counts (``repro/core/sampler.py``,
-``decomposition="zen"``).
+"""Dense CGS sweeps (``repro/core/sampler.py``).
 
 ``cgs_sweep_stale`` is the paper's production semantics: every token is
 sampled against the counts frozen at the start of the iteration, with its
@@ -11,8 +10,17 @@ the internal chunk size changes a draw.
 
 Sampling methods: inverse CDF (``cdf``: one uniform per token) and
 Gumbel-max (``gumbel``: noise per (token, topic), the coordinates of the
-``zen_pallas`` kernels). ``cgs_sweep_serial`` and the ``std``
-decomposition are not ported yet.
+``zen_pallas`` kernels). Decompositions: ``zen`` (gDense + wSparse +
+dSparse, in the reference's op order) and ``std`` (Eq. 3 as written, the
+``std`` backend); the two are the same conditional up to float rounding.
+
+``cgs_sweep_serial`` is the true sequential chain (paper Alg. 1): each
+token is resampled against counts that already hold every earlier token's
+new topic. It is the oracle of the tests, at test sizes only (a Python
+loop over tokens); token ``i`` of sweep ``n`` draws from the uniform at
+(``key_seed(fold_in(state.rng, n))``, ``i``), as the stale sweep's does,
+unless the caller passes the (E,) ``uniforms`` (a test feeds the
+reference's).
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from repro_torch.core import counts as counts_lib
-from repro_torch.core.decompositions import precompute_zen_terms
+from repro_torch.core.decompositions import precompute_zen_terms, std_probs
 from repro_torch.core.keys import fold_in, key_seed
 from repro_torch.core.types import CGSState, Corpus, LDAHyperParams
 from repro_torch.kernels.zen_sampler import gumbel_noise, hash_uniform
@@ -84,11 +92,15 @@ def sample_categorical(probs: torch.Tensor, seed: int, rows: torch.Tensor,
     raise ValueError(f"unknown sampling method {method!r}")
 
 
-def _zen_rows(n_wk, n_kd, n_k, word, doc, topic, hyper: LDAHyperParams,
-              num_words: int, alpha_k: torch.Tensor,
-              exclude_self: bool) -> torch.Tensor:
-    """Eq. 3 conditional (T, K) of the tokens (word, doc, topic), in the
-    reference's op order: (α·β + N_wk·α + N_kd·(N_wk+β)) · 1/(N_k+Wβ)."""
+def _probs_rows(n_wk, n_kd, n_k, word, doc, topic, hyper: LDAHyperParams,
+                num_words: int, alpha_k: torch.Tensor, exclude_self: bool,
+                decomposition: str) -> torch.Tensor:
+    """Eq. 3 conditional (T, K) of the tokens (word, doc, topic): ``zen``
+    in the reference's op order, (α·β + N_wk·α + N_kd·(N_wk+β)) ·
+    1/(N_k+Wβ); ``std`` as written, (N_wk+β)/(N_k+Wβ)·(N_kd+α_k)."""
+    if decomposition not in ("zen", "std"):
+        raise ValueError(f"unknown decomposition {decomposition!r}: "
+                         f"expected 'zen' or 'std'")
     nw_i, nd_i = n_wk[word.long()], n_kd[doc.long()]
     if exclude_self:
         cols = torch.arange(n_k.shape[0], device=n_k.device)
@@ -97,6 +109,8 @@ def _zen_rows(n_wk, n_kd, n_k, word, doc, topic, hyper: LDAHyperParams,
         nk = n_k[None, :] - onehot
     else:
         nk = n_k[None, :]
+    if decomposition == "std":
+        return std_probs(nw_i, nd_i, nk, alpha_k, hyper.beta, num_words)
     w_beta = num_words * hyper.beta
     t1 = 1.0 / (nk.to(torch.float32) + w_beta)
     a = alpha_k[None, :]
@@ -109,13 +123,10 @@ def conditional_probs(state: CGSState, corpus: Corpus,
                       hyper: LDAHyperParams, exclude_self: bool = True,
                       decomposition: str = "zen") -> torch.Tensor:
     """Eq. 3 conditional for every token, (E, K), unnormalised."""
-    if decomposition != "zen":
-        raise ValueError(f"decomposition {decomposition!r} is not ported "
-                         f"yet (only 'zen')")
     terms = precompute_zen_terms(state.n_k, hyper, corpus.num_words)
-    return _zen_rows(state.n_wk, state.n_kd, state.n_k, corpus.word,
-                     corpus.doc, state.topic, hyper, corpus.num_words,
-                     terms.alpha_k, exclude_self)
+    return _probs_rows(state.n_wk, state.n_kd, state.n_k, corpus.word,
+                       corpus.doc, state.topic, hyper, corpus.num_words,
+                       terms.alpha_k, exclude_self, decomposition)
 
 
 def cgs_sweep_stale(state: CGSState, corpus: Corpus, hyper: LDAHyperParams,
@@ -124,9 +135,6 @@ def cgs_sweep_stale(state: CGSState, corpus: Corpus, hyper: LDAHyperParams,
                     token_chunk: Optional[int] = None) -> torch.Tensor:
     """New topics (E,) int32, every token against iteration-start counts.
     Sweep ``n`` draws from ``key_seed(fold_in(state.rng, n))``."""
-    if decomposition != "zen":
-        raise ValueError(f"decomposition {decomposition!r} is not ported "
-                         f"yet (only 'zen')")
     seed = key_seed(fold_in(state.rng, state.iteration))
     e = corpus.num_tokens
     terms = precompute_zen_terms(state.n_k, hyper, corpus.num_words)
@@ -135,12 +143,53 @@ def cgs_sweep_stale(state: CGSState, corpus: Corpus, hyper: LDAHyperParams,
     out = torch.empty(e, dtype=torch.int32, device=dev)
     for s in range(0, e, size):
         sl = slice(s, s + size)
-        probs = _zen_rows(state.n_wk, state.n_kd, state.n_k, corpus.word[sl],
-                          corpus.doc[sl], state.topic[sl], hyper,
-                          corpus.num_words, terms.alpha_k, exclude_self)
+        probs = _probs_rows(state.n_wk, state.n_kd, state.n_k,
+                            corpus.word[sl], corpus.doc[sl], state.topic[sl],
+                            hyper, corpus.num_words, terms.alpha_k,
+                            exclude_self, decomposition)
         rows = torch.arange(s, s + probs.shape[0], device=dev)
         out[sl] = sample_categorical(probs, seed, rows, method)
     return out
+
+
+def cgs_sweep_serial(state: CGSState, corpus: Corpus,
+                     hyper: LDAHyperParams,
+                     uniforms: Optional[torch.Tensor] = None) -> CGSState:
+    """True sequential collapsed Gibbs sweep (paper Alg. 1), O(E K): token
+    by token, remove its topic from the counts, draw from Eq. 3 by inverse
+    CDF on uniform ``uniforms[i]`` (default: the sweep's counter-based
+    stream), add the new topic back. Returns the next state."""
+    dev = state.topic.device
+    if uniforms is None:
+        seed = key_seed(fold_in(state.rng, state.iteration))
+        uniforms = hash_uniform(
+            seed, torch.arange(corpus.num_tokens, device=dev), 0)
+    n_wk, n_kd, n_k = state.n_wk.clone(), state.n_kd.clone(), \
+        state.n_k.clone()
+    topics = state.topic.clone()
+    w_beta = corpus.num_words * hyper.beta
+    k_max = hyper.num_topics - 1
+    for i in range(corpus.num_tokens):
+        w, d, z_old = int(corpus.word[i]), int(corpus.doc[i]), \
+            int(topics[i])
+        n_wk[w, z_old] -= 1
+        n_kd[d, z_old] -= 1
+        n_k[z_old] -= 1
+        alpha_k = hyper.alpha_k(n_k)
+        p = ((n_wk[w].to(torch.float32) + hyper.beta)
+             / (n_k.to(torch.float32) + w_beta)
+             * (n_kd[d].to(torch.float32) + alpha_k))
+        cdf = torch.cumsum(p, dim=0)
+        z_new = min(int((cdf < uniforms[i] * cdf[-1]).sum()), k_max)
+        n_wk[w, z_new] += 1
+        n_kd[d, z_new] += 1
+        n_k[z_new] += 1
+        topics[i] = z_new
+    return CGSState(
+        topic=topics, prev_topic=state.topic, n_wk=n_wk, n_kd=n_kd,
+        n_k=n_k, rng=state.rng, iteration=state.iteration + 1,
+        stale_iters=state.stale_iters, same_count=state.same_count,
+    )
 
 
 def gibbs_iteration(state: CGSState, corpus: Corpus, hyper: LDAHyperParams,

@@ -23,6 +23,8 @@ SOURCES = (
     _HERE / "csrc" / "zen_infer.cu",  # serving: queue-2 kernels 3 and 4
     _HERE / "csrc" / "zen_train.cu",  # training: queue-2 kernels 1 and 2
     _HERE / "csrc" / "sparse_row.cu",  # padded-sparse rows: kernel 6
+    _HERE / "csrc" / "cdf_search.cu",  # zen_cdf's CDF row search: kernel 7
+    _HERE / "csrc" / "topic_histogram.cu",  # delta histogram: kernel 5
 )
 BUILD_DIR = _HERE / "build"
 
@@ -47,6 +49,8 @@ SIGNATURES = {
     "zen_train_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _F, _F, _P),
     "sparse_row": (_P, _P, _P, _P, _I, _I, _P),
+    "cdf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "topic_histogram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _LIB: Optional[types.SimpleNamespace] = None

@@ -3,8 +3,8 @@ tensor launches the hand-written kernel, any other device raises.
 
 Arguments mirror ``repro/kernels/ops.py``. ``bt``/``bk``/``bs`` are
 accepted so that callers and configs carry over, but they change no draw:
-the CUDA kernels walk the real K (or row width J) with one warp per token
-and need no padding.
+the CUDA kernels walk the real K (or row width J) with one warp (or, for
+the histogram, one thread) per token and need no padding.
 
 Each wrapper counts its kernel launches in a plain int
 (:func:`launch_counts`), so a run can show that its main path went
@@ -14,6 +14,10 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.cdf_search import (
+    cdf_row_search_cuda,
+    cdf_row_search_plain,
+)
 from repro_torch.kernels.fused_gather import (
     zen_fused_infer_sample_cuda,
     zen_fused_infer_sample_plain,
@@ -23,6 +27,10 @@ from repro_torch.kernels.fused_gather import (
 from repro_torch.kernels.sparse_row import (
     sparse_row_sample_cuda,
     sparse_row_sample_plain,
+)
+from repro_torch.kernels.topic_histogram import (
+    topic_histogram_cuda,
+    topic_histogram_plain,
 )
 from repro_torch.kernels.zen_sampler import (
     zen_infer_sample_cuda,
@@ -37,6 +45,8 @@ _LAUNCHES: Dict[str, int] = {
     "zen_infer_sample": 0,
     "zen_fused_infer_sample": 0,
     "sparse_row_sample": 0,
+    "cdf_row_search": 0,
+    "topic_histogram": 0,
 }
 
 
@@ -135,4 +145,31 @@ def sparse_row_sample(vals, topics, targets, *, bt: int = 256,
         return sparse_row_sample_plain(vals, topics, targets)
     out = sparse_row_sample_cuda(vals, topics, targets)
     _LAUNCHES["sparse_row_sample"] += 1
+    return out
+
+
+def cdf_row_search(counts, rows, term, targets, *, bt: int = 256,
+                   bk: int = 512):
+    """Gather + CDF lower-bound search: ``min(#{k : prefix(counts[rows[t]]
+    * term)[k] < targets[t]}, K - 1)`` per token, the count rows read in
+    place. (R, K) int32 counts, (T,) int32 rows, (K,) float32 term and (T,)
+    float32 targets in; (T,) int32 out."""
+    if _route(counts) == "cpu":
+        return cdf_row_search_plain(counts, rows, term, targets)
+    out = cdf_row_search_cuda(counts, rows, term, targets)
+    _LAUNCHES["cdf_row_search"] += 1
+    return out
+
+
+def topic_histogram(rows_sorted, z_old, z_new, inc, num_rows: int,
+                    num_topics: int, *, bt: int = 256, bk: int = 512):
+    """Signed delta histogram (num_rows, num_topics) int32: ``+inc[t]`` at
+    (rows[t], z_new[t]) and ``-inc[t]`` at (rows[t], z_old[t]). Rows need
+    not be sorted (the reference's must be); (T,) int32 ids and inc in."""
+    if _route(rows_sorted) == "cpu":
+        return topic_histogram_plain(rows_sorted, z_old, z_new, inc,
+                                     num_rows, num_topics)
+    out = topic_histogram_cuda(rows_sorted, z_old, z_new, inc, num_rows,
+                               num_topics)
+    _LAUNCHES["topic_histogram"] += 1
     return out

@@ -108,3 +108,30 @@ def sparse_row_sample_ref(vals, topics, targets) -> torch.Tensor:
     pos = torch.clamp_max(cnt, j - 1)
     return torch.take_along_dim(topics.to(torch.int32), pos[:, None],
                                 dim=1)[:, 0]
+
+
+def cdf_row_search_ref(counts, rows, term, targets) -> torch.Tensor:
+    """Oracle of ``ops.cdf_row_search``: the whole (T, K) matrix of
+    kernel-order prefix sums of the gathered rows times the term, the
+    count of those below the target, clamped to K - 1. It counts over the
+    whole row; the kernel stops once its carry reaches the target, which
+    changes no count for non-negative terms."""
+    k = counts.shape[1]
+    vals = counts[rows.long()].to(torch.float32) \
+        * term.to(torch.float32)[None, :]
+    prefix = sparse_row_prefix_ref(vals)
+    cnt = torch.sum(prefix < targets.to(torch.float32)[:, None], dim=1)
+    return torch.clamp_max(cnt, k - 1).to(torch.int32)
+
+
+def topic_histogram_ref(rows, z_old, z_new, inc, num_rows: int,
+                        num_topics: int) -> torch.Tensor:
+    """Oracle of ``ops.topic_histogram``: signed one-hot rows (T, K)
+    summed into their rows by ``index_add_``."""
+    cols = torch.arange(num_topics, device=rows.device)[None, :]
+    delta = ((cols == z_new.long()[:, None]).to(torch.int32)
+             - (cols == z_old.long()[:, None]).to(torch.int32)) \
+        * inc.to(torch.int32)[:, None]
+    out = torch.zeros((num_rows, num_topics), dtype=torch.int32,
+                      device=rows.device)
+    return out.index_add_(0, rows.long(), delta)

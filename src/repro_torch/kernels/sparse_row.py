@@ -36,24 +36,33 @@ def strip_scan(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def strip_count(vals: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """(n,) int64: how many prefix sums of each row of ``vals`` (n, J)
+    lie below its target, the prefix sums added strip by strip in the
+    warp kernels' order. For non-negative weights this is also the count
+    of kernel 7's walk, which stops once the carry reaches the target."""
+    n, j = vals.shape
+    lane = torch.arange(WARP, device=vals.device)
+    tgt = targets.to(torch.float32)[:, None]
+    carry = torch.zeros_like(tgt)
+    cnt = torch.zeros(n, dtype=torch.int64, device=vals.device)
+    for j0 in range(0, j, WARP):
+        strip = vals[:, j0:j0 + WARP].to(torch.float32)
+        width = strip.shape[1]
+        x = strip_scan(F.pad(strip, (0, WARP - width)))
+        cnt += (((carry + x) < tgt) & (lane < width)).sum(1)
+        carry = carry + x[:, WARP - 1:]
+    return cnt
+
+
 def sparse_row_sample_plain(vals: torch.Tensor, topics: torch.Tensor,
                             targets: torch.Tensor) -> torch.Tensor:
     """Plain-torch version of the kernel, strip by strip; (T,) int32."""
     t, j = vals.shape
     out = torch.empty(t, dtype=torch.int32, device=vals.device)
-    lane = torch.arange(WARP, device=vals.device)
     for s in range(0, t, PLAIN_ROWS):
-        v = vals[s:s + PLAIN_ROWS].to(torch.float32)
-        tgt = targets[s:s + PLAIN_ROWS].to(torch.float32)[:, None]
-        carry = torch.zeros_like(tgt)
-        cnt = torch.zeros(v.shape[0], dtype=torch.int64, device=v.device)
-        for j0 in range(0, j, WARP):
-            strip = v[:, j0:j0 + WARP]
-            width = strip.shape[1]
-            x = strip_scan(F.pad(strip, (0, WARP - width)))
-            c = carry + x
-            cnt += ((c < tgt) & (lane < width)).sum(1)
-            carry = carry + x[:, WARP - 1:]
+        cnt = strip_count(vals[s:s + PLAIN_ROWS],
+                          targets[s:s + PLAIN_ROWS])
         pos = torch.clamp_max(cnt, j - 1)
         out[s:s + PLAIN_ROWS] = topics[s:s + PLAIN_ROWS].gather(
             1, pos[:, None])[:, 0].to(torch.int32)

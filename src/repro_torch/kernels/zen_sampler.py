@@ -155,6 +155,13 @@ def check_seed(seed: int, row_offset: int, num_tokens: int) -> None:
                          f"{row_offset + num_tokens}) exceed int31")
 
 
+def check_ids(ids: torch.Tensor, bound: int, name: str = "rows") -> None:
+    """Raise unless every id lies in ``[0, bound)``: a plain version's
+    indexing would wrap a negative id silently (the kernels trap)."""
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= bound):
+        raise IndexError(f"{name} outside [0, {bound})")
+
+
 def check_cuda_args(named, dtypes) -> None:
     """Raise unless every tensor lies on one CUDA device, is contiguous and
     has the dtype the kernel reads."""

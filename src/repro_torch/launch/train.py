@@ -20,11 +20,13 @@ change ...``, ``finished at iteration N; final llh ...``).
 (assignments; a rerun resumes from the newest). ``--max-kw``/``--max-kd``
 fix the padded-sparse backends' row widths (default: resolved from the
 counts before every sweep); for those backends the widths the first
-sweep uses are printed as ``padded-row widths: ...``. What is not ported
-yet exits non-zero with the ROADMAP item that waits for it: the mesh plan
-(run without ``--single-box``, or with ``--rows``/``--cols`` or
-``--host-devices``), ``--stream``, ``--metrics-out``, ``--autopilot``,
-``--quality-every`` and the unported backends (``std``, ``zen_cdf``).
+sweep uses are printed as ``padded-row widths: ...``. ``--max-kd`` is also
+``zen_cdf``'s sparse doc-row width (default 64, clamped to K). Every
+backend of the reference is ported; the default is ``zen_cdf``, as there.
+What is not ported yet exits non-zero with the ROADMAP item that waits
+for it: the mesh plan (run without ``--single-box``, or with
+``--rows``/``--cols`` or ``--host-devices``), ``--stream``,
+``--metrics-out``, ``--autopilot`` and ``--quality-every``.
 """
 import argparse
 import sys
@@ -55,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--single-box", action="store_true",
                     help="the single-box plan (the only one ported)")
     ap.add_argument("--max-kd", type=int, default=None,
-                    help="sparse doc-row width (padded-sparse backends)")
+                    help="sparse doc-row width (padded-sparse backends, "
+                         "zen_cdf)")
     ap.add_argument("--max-kw", type=int, default=None,
                     help="sparse word-row width (padded-sparse backends)")
     ap.add_argument("--delta-dtype", default="int32",

@@ -154,11 +154,6 @@ UNPORTED_FIELDS = {
     "quality_every": (lambda v: v > 0,
                       "quality evaluation, ROADMAP queue 1 item 5"),
 }
-# reference backends the port has not registered yet -> ROADMAP item
-UNPORTED_ALGORITHMS = {
-    "std": "ROADMAP queue 1 item 1 (what waits)",
-    "zen_cdf": "ROADMAP queue 1 item 4",
-}
 
 
 def refuse_unported(cfg: RunConfig) -> None:
@@ -170,8 +165,7 @@ def refuse_unported(cfg: RunConfig) -> None:
     try:
         algorithms.get(cfg.algorithm)
     except ValueError:
-        why = UNPORTED_ALGORITHMS.get(cfg.algorithm, "no such backend")
-        bad.append(f"algorithm={cfg.algorithm!r} ({why}; ported: "
+        bad.append(f"algorithm={cfg.algorithm!r} (no such backend; ported: "
                    f"{', '.join(algorithms.registered())})")
     if bad:
         raise ValueError("RunConfig asks for what is not ported to the "

@@ -291,3 +291,160 @@ def test_padded_sparse_backends_train_on_card(cuda, algorithm, kernels,
     assert all(v == 0 for name, v in counts.items()
                if name != "sparse_row_sample")
     assert sess.llh(st) > llh0
+
+
+# -- the CDF row search (csrc/cdf_search.cu) ----------------------------------
+
+@pytest.mark.parametrize("t,k,r", [(4096, 1000, 5000), (333, 37, 50),
+                                   (1, 5, 2), (2048, 32, 7), (999, 33, 9)])
+def test_cdf_search_kernel_bit_equal_to_plain_version_on_card(cuda, t, k, r):
+    from repro_torch.kernels.cdf_search import cdf_row_search_plain
+    from repro_torch.kernels.ref import cdf_row_search_ref
+
+    g = torch.Generator(device=cuda).manual_seed(t + k)
+    counts = torch.randint(0, 50, (r, k), generator=g, device=cuda,
+                           dtype=torch.int32)
+    counts[0] = 0  # a zero-mass row
+    rows = torch.randint(0, r, (t,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    term = torch.rand(k, generator=g, device=cuda) + 1e-3
+    mass = (counts[rows.long()].float() * term).sum(1)
+    tgt = torch.rand(t, generator=g, device=cuda) * mass * 1.1
+    tgt[::7] = mass[::7]  # on the row's mass
+    tgt[1::7] = 0.0
+    before = ops.launch_counts()["cdf_row_search"]
+    got = ops.cdf_row_search(counts, rows, term, tgt)
+    want = cdf_row_search_plain(counts, rows, term, tgt)
+    oracle = cdf_row_search_ref(counts, rows, term, tgt)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cdf_row_search"] == before + 1
+    assert torch.equal(got, want)
+    # the oracle counts the whole row; for a non-negative term that is the
+    # same count
+    assert torch.equal(got, oracle)
+    assert int(got.min()) >= 0 and int(got.max()) < k
+
+
+_OUT_OF_RANGE_ROW = """
+import torch
+from repro_torch.kernels import ops
+d = torch.device("cuda", 0)
+counts = torch.ones((10, 16), dtype=torch.int32, device=d)
+rows = torch.zeros(64, dtype=torch.int32, device=d)
+rows[9] = {row}
+try:
+    ops.cdf_row_search(counts, rows, torch.ones(16, device=d),
+                       torch.full((64,), 3.0, device=d))
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", e)
+"""
+
+
+@pytest.mark.parametrize("row", [10, -1])
+def test_out_of_range_row_raises_in_cdf_search(cuda, row):
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run(
+        [sys.executable, "-c", _OUT_OF_RANGE_ROW.format(row=row)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": src})
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+
+
+# -- the topic histogram (csrc/topic_histogram.cu) ----------------------------
+
+@pytest.mark.parametrize("t,r,k,sort", [(100000, 3000, 1000, True),
+                                        (100000, 3000, 1000, False),
+                                        (33, 5, 9, True), (1, 1, 1, True),
+                                        (5000, 1, 7, False)])
+def test_topic_histogram_kernel_bit_equal_on_card(cuda, t, r, k, sort):
+    from repro_torch.kernels.ref import topic_histogram_ref
+    from repro_torch.kernels.topic_histogram import topic_histogram_plain
+
+    g = torch.Generator(device=cuda).manual_seed(t + r + k)
+    i32 = torch.int32
+    rows = torch.randint(0, r, (t,), generator=g, device=cuda, dtype=i32)
+    if sort:
+        rows = torch.sort(rows).values
+    zo = torch.randint(0, k, (t,), generator=g, device=cuda, dtype=i32)
+    zn = torch.randint(0, k, (t,), generator=g, device=cuda, dtype=i32)
+    inc = torch.randint(0, 2, (t,), generator=g, device=cuda, dtype=i32)
+    inc[::11] = 3  # any int32 weight
+    before = ops.launch_counts()["topic_histogram"]
+    got = ops.topic_histogram(rows, zo, zn, inc, r, k)
+    want = topic_histogram_plain(rows, zo, zn, inc, r, k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["topic_histogram"] == before + 1
+    assert torch.equal(got, want)
+    if t * k <= 10**6:
+        assert torch.equal(got, topic_histogram_ref(rows, zo, zn, inc, r, k))
+    assert int(got.sum(1).abs().max()) == 0
+
+
+_OUT_OF_RANGE_HIST = """
+import torch
+from repro_torch.kernels import ops
+d = torch.device("cuda", 0)
+v = torch.zeros(64, dtype=torch.int32, device=d)
+rows, zo = v.clone(), v.clone()
+{which}[3] = {value}
+try:
+    ops.topic_histogram(rows, zo, v, v + 1, 4, 8)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", e)
+"""
+
+
+@pytest.mark.parametrize("which,value", [("rows", 4), ("zo", 8),
+                                         ("zo", -1)])
+def test_out_of_range_id_raises_in_topic_histogram(cuda, which, value):
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _OUT_OF_RANGE_HIST.format(which=which, value=value)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": src})
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+
+
+# -- zen_cdf on the card ---------------------------------------------------
+
+@pytest.mark.parametrize("kernels,launches", [("auto", True),
+                                              ("off", False)])
+def test_zen_cdf_session_on_card_launches_only_kernel_7(cuda, kernels,
+                                                        launches):
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import synthetic_lda_corpus
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus, _ = synthetic_lda_corpus(0, 200, 300, 10, 50)
+    sess = TrainSession(corpus, LDAHyperParams(num_topics=10, alpha=0.1),
+                        RunConfig(algorithm="zen_cdf", kernels=kernels),
+                        device=cuda)
+    st = sess.init(0)
+    llh0 = sess.llh(st)
+    ops.reset_launch_counts()
+    for _ in range(3):
+        st = sess.step(st)
+        st.check_invariants(sess.corpus)
+    counts = ops.launch_counts()
+    # one token chunk per sweep: two searches (draws a and b) each
+    assert counts["cdf_row_search"] == (6 if launches else 0), counts
+    assert all(v == 0 for name, v in counts.items()
+               if name != "cdf_row_search")
+    assert sess.llh(st) > llh0
+
+
+def test_engine_serves_zen_cdf_on_card(cuda):
+    from repro_torch.serving import FrozenLDAModel, LDAEngine, LDAServeConfig
+
+    n_wk = (np.eye(8, dtype=np.int32) * 80).repeat(10, 0)
+    model = FrozenLDAModel.from_numpy(n_wk, n_wk.sum(0), {"num_topics": 8},
+                                      device=cuda)
+    docs = [np.arange(t * 10, t * 10 + 9) for t in range(8)]
+    ops.reset_launch_counts()
+    thetas = LDAEngine(model, LDAServeConfig(
+        buckets=(16,), algorithm="zen_cdf")).infer_batch(docs)
+    assert [int(np.argmax(th)) for th in thetas] == list(range(8))
+    assert all(v == 0 for v in ops.launch_counts().values())

@@ -34,6 +34,8 @@ def test_port_has_files():
     assert (PORT / "kernels" / "csrc" / "zen_infer.cu").exists()
     assert (PORT / "kernels" / "csrc" / "zen_train.cu").exists()
     assert (PORT / "kernels" / "csrc" / "sparse_row.cu").exists()
+    assert (PORT / "kernels" / "csrc" / "cdf_search.cu").exists()
+    assert (PORT / "kernels" / "csrc" / "topic_histogram.cu").exists()
 
 
 @pytest.mark.parametrize("path", PY_FILES,
@@ -67,8 +69,8 @@ def test_serving_path_runs_without_jax_loaded():
         "from repro_torch.core.types import LDAHyperParams\n"
         "from repro_torch.train.session import RunConfig, TrainSession\n"
         "c = synthetic_corpus(0, num_docs=6, num_words=10, avg_doc_len=5)\n"
-        "for alg in ('zen', 'zen_pallas', 'zen_sparse', 'sparselda', "
-        "'zen_hybrid', 'lightlda'):\n"
+        "for alg in ('zen', 'std', 'zen_pallas', 'zen_sparse', 'sparselda', "
+        "'zen_hybrid', 'lightlda', 'zen_cdf'):\n"
         "    s = TrainSession(c, LDAHyperParams(num_topics=3), RunConfig("
         "algorithm=alg, num_iterations=2, eval_every=1), device='cpu')\n"
         "    st = s.run(0)\n"

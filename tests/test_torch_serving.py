@@ -396,8 +396,11 @@ def test_training_half_names_the_training_slice():
     for name in ("zen", "zen_pallas"):
         z = talg.get(name).sweep(state, corpus, hyper, talg.SamplerKnobs())
         assert z.shape == (4,) and bool(((z >= 0) & (z < 4)).all())
-    assert talg.registered() == ("zen", "zen_sparse", "zen_hybrid",
-                                 "sparselda", "lightlda", "zen_pallas")
+    # every backend of the reference is ported, in its registry order
+    assert talg.registered() == ("zen", "std", "zen_sparse", "zen_hybrid",
+                                 "sparselda", "lightlda", "zen_cdf",
+                                 "zen_pallas")
+    assert talg.registered() == jalg.registered()
     assert talg.get("zen_dense_kernel") is talg.get("zen_pallas")
 
 

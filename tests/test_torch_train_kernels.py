@@ -250,9 +250,10 @@ def test_build_covers_both_sources_in_parallel_targets():
     """Each source builds into a library of its own (so nvcc runs once
     per source, all at once), and every launcher is exported by one."""
     names = [s.name for s in _build.SOURCES]
-    assert names == ["zen_infer.cu", "zen_train.cu", "sparse_row.cu"]
+    assert names == ["zen_infer.cu", "zen_train.cu", "sparse_row.cu",
+                     "cdf_search.cu", "topic_histogram.cu"]
     targets = {_build.target(s) for s in _build.SOURCES}
-    assert len(targets) == 3
+    assert len(targets) == 5
     texts = [s.read_text() for s in _build.SOURCES]
     for fn in _build.SIGNATURES:
         assert sum(f'extern "C" int {fn}(' in t for t in texts) == 1, fn
