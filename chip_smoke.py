@@ -32,10 +32,18 @@ Phases, each printing one JSON line:
    and no other, and the latency and zen_cdf runs (no kernel) none.
 5. train_kernels — both training kernels at NYTIMES width on the first
    1,048,576 tokens of the corpus below after init (the gathered rows are
-   8.4 GB): fused bit-equal to gathered, each against its plain version
-   with mismatches only at near-ties on at most 1e-4 of tokens; CUDA-event
-   times, the bytes, the logf and the instruction counts per (t, k) read
-   from ``cuobjdump -sass``, and the bounds;
+   8.4 GB): fused bit-equal to gathered, each bit-equal to its plain
+   version (0 mismatches); CUDA-event times, the bytes, the MUFU and hash
+   operations, the fast loop's instructions per (t, k) read from
+   ``cuobjdump -sass``, the share of (t, k) scored exactly (the kernel's
+   stats output), and the bounds. Then the adversarial grid
+   (``ADVERSARIAL``: +inf noise, the forced top bucket, equal-count rows
+   with exact ties, p at the 1e-30 clamp, K = 37, 36 and 10,000, inputs
+   outside the estimate's premise, and K = 14,464, 16,384 and 16,385
+   about where the per-topic table moves from shared to global memory),
+   each at 0 mismatches with fused == gathered; the estimate's margin
+   premises checked by exhaustion; and the fused kernel timed on both
+   sides of that placement boundary (K = 14,464 and 14,592);
 6. train   — ``TrainSession`` with ``zen_pallas`` (``kernels="auto"``) on
    the corpus ``launch.train --topics 1000 --synthetic-docs 299752
    --synthetic-words 101636 --synthetic-len 332`` builds (~99.5M tokens):
@@ -122,6 +130,8 @@ KERNEL_TOKENS = 1 << 20  # training-kernel phase: first 1,048,576 tokens
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SFU_PER_SM_PER_CLK = 16  # special-function unit results per SM per clock
 INSTR_PER_SM_PER_CLK = 4 * 32  # 4 warp schedulers x 32 lanes
+INT_PER_SM_PER_CLK = 64  # 32-bit integer operations per SM per clock
+HASH_INT_OPS = 9  # integer operations of the counter hash per (t, k)
 NEAR_TIE = 1e-4
 
 
@@ -459,11 +469,11 @@ def main() -> int:
     return 0
 
 
-def sass_loop_stats(kernel: str, source: str = "zen_train.cu"):
-    """Instructions in the K loop of ``kernel`` (one (t, k) per lane per
-    pass: the loop is kept rolled), from ``cuobjdump -sass`` of the library
-    built from ``source``: the span of the function's widest backward
-    branch. None when the tool or the pattern is missing."""
+def sass_function(kernel: str, source: str):
+    """``(address, instruction)`` pairs of the first function whose
+    mangled name holds ``kernel``, from ``cuobjdump -sass`` of the library
+    built from ``source``, and the branch targets of each branch (label or
+    address resolved). None when the tool or the function is missing."""
     import re
 
     from repro_torch.kernels import _build
@@ -494,16 +504,33 @@ def sass_loop_stats(kernel: str, source: str = "zen_train.cu"):
                 labels[name] = addr
             pending = []
             instr.append((addr, m.group(2)))
-    best = None
+    branches = []  # (address, target, instruction)
     for addr, text in instr:
-        if "BRA" not in text.split():
+        if "BRA" not in text.split() and "CALL.REL.NOINC" not in text:
             continue
-        m = re.search(r"\(\s*(\.L_x_\d+)\s*\)|BRA\s+(0x[0-9a-f]+)", text)
+        m = re.search(r"\(\s*(\.L_x_\d+)\s*\)|(?:BRA|NOINC)\s+(?:!?P\d+,\s*)?"
+                      r"(0x[0-9a-f]+)", text)
         if not m:
             continue
         target = labels.get(m.group(1)) if m.group(1) else int(m.group(2),
                                                                16)
-        if target is not None and target < addr and (
+        if target is not None:
+            branches.append((addr, target, text))
+    return instr, branches
+
+
+def sass_loop_stats(kernel: str, source: str = "zen_train.cu"):
+    """Instructions in the K loop of ``kernel`` (one (t, k) per lane per
+    pass: the loop is kept rolled), from ``cuobjdump -sass`` of the library
+    built from ``source``: the span of the function's widest backward
+    branch. None when the tool or the pattern is missing."""
+    parsed = sass_function(kernel, source)
+    if parsed is None:
+        return None
+    instr, branches = parsed
+    best = None
+    for addr, target, text in branches:
+        if "BRA" in text.split() and target < addr and (
                 best is None or addr - target > best[1] - best[0]):
             best = (target, addr)
     if best is None:
@@ -511,6 +538,60 @@ def sass_loop_stats(kernel: str, source: str = "zen_train.cu"):
     loop = [t for a, t in instr if best[0] <= a <= best[1]]
     return {"loop_instructions": len(loop),
             "loop_mufu": sum("MUFU" in t for t in loop),
+            "function_instructions": len(instr)}
+
+
+def fast_loop_stats(kernel: str, topics_per_pass: int,
+                    source: str = "zen_train.cu"):
+    """The verified training sampler's fast loop in ``kernel``'s SASS: the
+    smallest backward-branch loop that holds the estimate's MUFU.LG2 (3
+    per topic); its instructions less those that a forward branch skips
+    over an exact-path CALL (the rare top-bucket block), per pass and per
+    (t, k); and the out-of-line exact_score's length (the CALL target up to
+    its RET), which each exact topic costs. None when the tool or the
+    pattern is missing."""
+    parsed = sass_function(kernel, source)
+    if parsed is None:
+        return None
+    instr, branches = parsed
+    addrs = [a for a, _ in instr]
+
+    def span(lo, hi):  # instructions with lo <= address <= hi
+        return [(a, t) for a, t in instr if lo <= a <= hi]
+
+    loops = [(target, addr) for addr, target, text in branches
+             if "BRA" in text.split() and target < addr
+             and sum("MUFU.LG2" in t for _, t in span(target, addr))
+             >= 3 * topics_per_pass]
+    if not loops:
+        return None
+    lo, hi = min(loops, key=lambda l: l[1] - l[0])
+    body = span(lo, hi)
+    skipped = set()
+    for addr, target, text in branches:
+        if "BRA" in text.split() and lo <= addr < target <= hi:
+            region = [a for a, t in body if addr < a < target]
+            if any("CALL" in t for a, t in body if a in region):
+                skipped.update(region)
+    fast = len(body) - len(skipped)
+    calls = [target for addr, target, text in branches
+             if "CALL.REL.NOINC" in text and lo <= addr <= hi]
+    exact = None
+    if calls:
+        start = addrs.index(calls[0]) if calls[0] in addrs else None
+        if start is not None:
+            n = 0
+            for _, t in instr[start:]:
+                n += 1
+                if any(w.startswith("RET") for w in t.split()):
+                    break
+            exact = n
+    return {"loop_instructions": len(body),
+            "fast_loop_instructions": fast,
+            "topics_per_pass": topics_per_pass,
+            "fast_instructions_per_tk": fast / topics_per_pass,
+            "loop_mufu": sum("MUFU" in t for _, t in body),
+            "exact_score_instructions": exact,
             "function_instructions": len(instr)}
 
 
@@ -544,6 +625,179 @@ def synthetic_nytimes(num_docs: int):
 
     return synthetic_corpus(0, num_docs=num_docs, num_words=W_NYT,
                             avg_doc_len=LEN_NYT, zipf_a=1.2)
+
+
+# The training kernels' adversarial grid: (name, seed, T, K, W, D, counts,
+# pinned {token: topic}). The pins are the plain version's own draws at
+# hash coordinates chosen for them (tests/test_torch_train_kernels.py
+# holds them against the JAX package's hash and oracle):
+# - inf_noise: (seed 1857, row 118, topic 230) has m = 2^24 - 1, noise
+#   +inf: that topic wins whatever its probability;
+# - *_tie: rows of equal counts, where the noise alone decides, and rows
+#   whose two largest noises are equal (m 2j, 2j + 1 round to one u), so
+#   the exact scores tie and the lower topic must win: in the forced top
+#   bucket (seed 88, row 642: 26 and 336), in two lanes' candidates (seed
+#   2, row 760: 147 and 808) and in one lane, which sends the token to the
+#   exact loop (seed 458, row 104: 254 and 893);
+# - p_clamp: alpha_k from 1e-33 to 1e-23 and empty counts, so p lies on
+#   both sides of the 1e-30 clamp;
+# - odd_k (K = 37, one topic per lane), k_36 (a partial 128-topic pass),
+#   k_10000 (the K = 10,000 configuration), premise_off (one N_k + W b
+#   above 2^100: the block samples with the exact loop alone);
+# - k_14464 (the largest table that fits in an H100's shared memory),
+#   k_16384 and k_16385 (tables the launcher puts in global memory, with
+#   4 and 1 topics per lane).
+ADVERSARIAL = (
+    ("inf_noise", 1857, 4096, 256, 40, 6, "random", {118: 230}),
+    ("top_bucket_tie", 88, 1024, 1000, 8, 4, "equal", {642: 26}),
+    ("candidates_tie", 2, 1024, 1000, 8, 4, "equal", {760: 147}),
+    ("same_lane_tie", 458, 1024, 1000, 8, 4, "equal", {104: 254}),
+    ("p_clamp", 7, 4096, 1000, 100, 10, "clamp", {}),
+    ("odd_k", 11, 4096, 37, 50, 3, "random", {}),
+    ("k_36", 12, 4096, 36, 50, 3, "random", {}),
+    ("k_10000", 13, 4096, 10000, 3000, 20, "random", {}),
+    ("premise_off", 14, 4096, 1000, 100, 10, "premise_off", {}),
+    ("k_14464", 16, 512, 14464, 60, 8, "random", {}),
+    ("k_16384", 17, 512, 16384, 60, 8, "random", {}),
+    ("k_16385", 18, 512, 16385, 60, 8, "random", {}),
+)
+
+
+def adversarial_case(spec, dev):
+    """The inputs of one :data:`ADVERSARIAL` case on ``dev``."""
+    import torch
+
+    name, seed, t, k, w, d, kind, _ = spec
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = torch.int32
+    word = torch.randint(0, w, (t,), generator=g, device=dev, dtype=i32)
+    doc = torch.randint(0, d, (t,), generator=g, device=dev, dtype=i32)
+    if kind == "equal":  # z_old = 0 is none of the pinned topics
+        return dict(n_wk=torch.full((w, k), 5, dtype=i32, device=dev),
+                    n_kd=torch.full((d, k), 2, dtype=i32, device=dev),
+                    word=word, doc=doc,
+                    z=torch.zeros(t, dtype=i32, device=dev),
+                    alpha=torch.full((k,), 0.05, device=dev),
+                    n_k=torch.full((k,), 1000.0, device=dev), seed=seed)
+    z = torch.randint(0, k, (t,), generator=g, device=dev, dtype=i32)
+    if kind == "clamp":
+        n_wk = torch.zeros((w, k), dtype=i32, device=dev)
+        n_kd = torch.zeros((d, k), dtype=i32, device=dev)
+    else:
+        n_wk = torch.randint(0, 40, (w, k), generator=g, device=dev,
+                             dtype=i32)
+        n_kd = torch.randint(0, 8, (d, k), generator=g, device=dev,
+                             dtype=i32)
+    ones = torch.ones(t, dtype=i32, device=dev)
+    n_wk.index_put_((word.long(), z.long()), ones, accumulate=True)
+    n_kd.index_put_((doc.long(), z.long()), ones, accumulate=True)
+    if kind == "clamp":
+        alpha = 10.0 ** (torch.rand(k, generator=g, device=dev) * 10 - 33)
+        n_k = torch.full((k,), 1000.0, device=dev)
+    else:
+        alpha = torch.rand(k, generator=g, device=dev) * 0.2 + 0.001
+        n_k = n_wk.sum(0).to(torch.float32)
+    if kind == "premise_off":
+        n_k[5] = 1e35
+    return dict(n_wk=n_wk, n_kd=n_kd, word=word, doc=doc, z=z, alpha=alpha,
+                n_k=n_k, seed=seed)
+
+
+def adversarial_check(spec, dev):
+    """Both training kernels on one :data:`ADVERSARIAL` case against the
+    plain version: 0 mismatches, fused == gathered, the pinned draws.
+    Direct launches with the stats output, outside the launch counts.
+    Returns the case's summary, with where the launcher put the table."""
+    import torch
+
+    from repro_torch.kernels.fused_gather import (
+        zen_fused_sample_cuda,
+        zen_fused_sample_plain,
+    )
+    from repro_torch.kernels.zen_sampler import (
+        train_global_table_entries,
+        zen_sample_cuda,
+    )
+
+    name, _, t, k, w, _, _, pins = spec
+    a = adversarial_case(spec, dev)
+    args = (a["n_wk"], a["n_kd"], a["word"], a["doc"], a["z"], a["alpha"],
+            a["n_k"], a["seed"])
+    kw = dict(beta=0.01, w_beta=w * 0.01)
+    plain = zen_fused_sample_plain(*args, **kw)
+    rows = (a["n_wk"][a["word"].long()].contiguous(),
+            a["n_kd"][a["doc"].long()].contiguous())
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    fused = zen_fused_sample_cuda(*args, stats=stats, **kw)
+    gathered = zen_sample_cuda(*rows, a["z"], a["alpha"], a["n_k"],
+                               a["seed"], **kw)
+    torch.cuda.synchronize()
+    mism = int((fused != plain).sum())
+    check(bool(torch.equal(fused, gathered)),
+          f"adversarial {name}: fused != gathered")
+    check(mism == 0, f"adversarial {name}: {mism} kernel-vs-plain "
+          "mismatches")
+    exact, cands, exact_loop = stats.tolist()
+    # premise_off: every token takes the exact loop; elsewhere the exact
+    # chain runs for a few topics of some tokens
+    check(exact_loop == t if name == "premise_off" else
+          exact_loop < t and exact + cands < t * k,
+          f"adversarial {name}: exact work {stats.tolist()}")
+    for tok, topic in pins.items():
+        check(int(plain[tok]) == topic,
+              f"adversarial {name}: token {tok} drew {int(plain[tok])}, "
+              f"pinned {topic}")
+    table = "global" if train_global_table_entries(k, dev) else "shared"
+    return {"case": name, "T": t, "K": k, "table": table,
+            "stats": stats.tolist(),
+            "pins": {str(tok): topic for tok, topic in pins.items()},
+            "mismatches": mism}
+
+
+def margin_premises(dev):
+    """The fast estimate's margin premises by exhaustion on the card:
+    E1 over every float in [1e-30, FLT_MAX], E2 over every m below the
+    forced bucket (and below other widths, for the record)."""
+    from repro_torch.kernels.zen_sampler import fast_score_errors
+
+    r = fast_score_errors(dev)
+    noise = r["noise_err"]
+    below = {f"2^{j}": float(noise[:(1 << 24) - (1 << j)].max())
+             for j in range(8, 15)}
+    e2 = float(noise[:r["top_bucket"]].max())
+    slack = 2.0 ** -14
+    out = {"margin": r["margin"], "top_bucket": r["top_bucket"],
+           "E1_log": r["log_err"], "E2_noise": e2, "slack": slack,
+           "sum": r["log_err"] + e2 + slack,
+           "E2_below_top_minus": below}
+    check(out["sum"] <= r["margin"],
+          f"margin premise broken: E1 + E2 + 2^-14 = {out['sum']} > "
+          f"{r['margin']}")
+    return out
+
+
+def placement_boundary_ms(dev):
+    """The fused kernel on both sides of the table's placement boundary
+    (T = 65,536): K = 14,464, the largest table an H100 block keeps in
+    shared memory, and K = 14,592, the smallest it reads from global
+    memory through L1; ms per 10^9 (t, k) and where the table went."""
+    from repro_torch.kernels.fused_gather import zen_fused_sample_cuda
+    from repro_torch.kernels.zen_sampler import train_global_table_entries
+
+    out = {}
+    for k in (14464, 14592):
+        a = adversarial_case(("boundary", 15, 1 << 16, k, 3000, 20,
+                              "random", {}), dev)
+        args = (a["n_wk"], a["n_kd"], a["word"], a["doc"], a["z"],
+                a["alpha"], a["n_k"], a["seed"])
+        ms = cuda_ms(lambda: zen_fused_sample_cuda(*args, beta=0.01,
+                                                   w_beta=30.0), reps=5)
+        out[str(k)] = {
+            "table": ("global" if train_global_table_entries(k, dev)
+                      else "shared"),
+            "ms": ms, "ms_per_1e9_tk": ms * 1e9 / ((1 << 16) * k)}
+        del a, args
+    return out
 
 
 def phase_train_kernels(sess, st, seed: int, sm_count: int,
@@ -602,6 +856,18 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
           f"training kernel-vs-plain mismatches that are no near-tie: {gaps}")
     check(len(gaps) <= NEAR_TIE * t,
           f"training: {len(gaps)} kernel-vs-plain mismatches over {t}")
+    # the verified design is exact: no near-tie may differ either
+    check(not gaps, f"training: {len(gaps)} kernel-vs-plain mismatches")
+
+    # the exact work these inputs need, from the kernels' stats output
+    # (direct launches, outside the launch counts): topics scored exactly
+    # in the pass or as z_old, rescored candidates, exact-loop tokens
+    from repro_torch.kernels.fused_gather import zen_fused_sample_cuda
+    stats = torch.zeros(3, dtype=torch.int64, device=st.n_wk.device)
+    check(bool(torch.equal(zen_fused_sample_cuda(
+        st.n_wk, st.n_kd, word, doc, z, alpha, n_k, kseed, beta=beta,
+        w_beta=w_beta, stats=stats), out_f)), "training: stats run differs")
+    forced, cands, fallback = stats.tolist()
 
     ms_f = cuda_ms(fused, reps=5, warmup=1)
     ms_g = cuda_ms(gathered, reps=5, warmup=1)
@@ -612,18 +878,40 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
     vec = 2 * k * 4  # alpha_k and n_k
     bytes_f = (uniq_w + uniq_d) * k * 4 + vec + t * 3 * 4 + t * 4
     bytes_g = 2 * t * k * 4 + vec + t * 4 + t * 4
-    logf = 3 * t * k
-    sfu_ms = logf / (sm_count * SFU_PER_SM_PER_CLK * sm_clock_hz) * 1e3
-    sass = {name: sass_loop_stats(kern) for name, kern in (
-        ("zen_fused_sample", "zen_train_fused_kernel"),
-        ("zen_sample", "zen_train_gathered_kernel"))}
+    # the operations any exact draw needs: the hash of every (t, k) for
+    # its noise. This design's estimate adds three MUFU lg2 per (t, k),
+    # its own floor (design_mufu_ms), and the exact chains a few per token
+    # (issue bound below)
+    hash_ms = (HASH_INT_OPS * t * k
+               / (sm_count * INT_PER_SM_PER_CLK * sm_clock_hz) * 1e3)
+    mufu = 3 * t * k
+    sfu_ms = mufu / (sm_count * SFU_PER_SM_PER_CLK * sm_clock_hz) * 1e3
+    topics_per_pass = 4 if k % 4 == 0 else 1
+    # the instantiation the launcher takes: the table in shared memory
+    # unless the library asks for global scratch
+    from repro_torch.kernels.zen_sampler import train_global_table_entries
+    in_shared = train_global_table_entries(k, st.n_wk.device) == 0
+    inst = f"ILi{topics_per_pass}ELb{int(in_shared)}EE"
+    sass = {name: fast_loop_stats(kern + inst, topics_per_pass) for name,
+            kern in (("zen_fused_sample", "zen_train_fused_kernel"),
+                     ("zen_sample", "zen_train_gathered_kernel"))}
+    exact_share = (forced + cands + fallback * k) / (t * k)
 
     def row(name, replaces, ms, nbytes):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         loop = sass[name]
-        issue_ms = (t * k * loop["loop_instructions"]
-                    / (sm_count * INSTR_PER_SM_PER_CLK * sm_clock_hz) * 1e3
-                    if loop else None)
+        issue_ms = None
+        if loop and loop["exact_score_instructions"]:
+            # warp instructions: the fast loop over every pass, one exact
+            # chain per exactly scored topic (the candidates of a token
+            # share one divergent pass, so this overcounts) and ceil(K/32)
+            # per exact-loop token
+            warp_instr = (t * -(-k // (32 * topics_per_pass))
+                          * loop["fast_loop_instructions"]
+                          + (forced + cands + fallback * -(-k // 32))
+                          * loop["exact_score_instructions"])
+            issue_ms = (warp_instr * 32 / (sm_count * INSTR_PER_SM_PER_CLK
+                                           * sm_clock_hz) * 1e3)
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/zen_train.cu",
@@ -631,10 +919,13 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
             "max_abs_err": max(gaps, default=0.0), "mismatches": len(gaps),
             "near_tie_gaps": gaps, "tokens": t,
             "ms": ms, "plain_ms": ms_p,
-            "bound_ms": max(bytes_ms, sfu_ms),
-            "bound_by": "bytes" if bytes_ms >= sfu_ms else "operations",
-            "bytes": nbytes, "bytes_ms": bytes_ms,
-            "logf": logf, "logf_ms": sfu_ms, "sass": loop,
+            "bound_ms": max(bytes_ms, hash_ms),
+            "bound_by": "bytes" if bytes_ms >= hash_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "hash_ms": hash_ms,
+            "mufu_lg2": mufu, "design_mufu_ms": sfu_ms,
+            "sass": loop, "exact_share": exact_share,
+            "exact_work": {"forced": forced, "candidates": cands,
+                           "exact_loop_tokens": fallback},
             "issue_bound_ms": issue_ms, "library_ms": None,
         }
 
@@ -648,8 +939,18 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
           "unique_words": uniq_w, "unique_docs": uniq_d,
           "fused_equals_gathered": True, "mismatches_vs_plain": len(gaps),
           "ms": {"fused": ms_f, "gathered": ms_g, "plain": ms_p},
-          "sass": sass})
+          "sass": sass, "exact_share": exact_share,
+          "exact_work": {"forced": forced, "candidates": cands,
+                         "exact_loop_tokens": fallback}})
     del nwk_rows, nkd_rows
+    torch.cuda.empty_cache()
+    dev = st.n_wk.device
+    grid = [adversarial_check(spec, dev) for spec in ADVERSARIAL]
+    check(any(case["table"] == "global" for case in grid),
+          "adversarial grid: no case put the table in global memory")
+    emit({"phase": "train_kernels_adversarial", "cases": grid,
+          "margin": margin_premises(dev),
+          "placement_boundary": placement_boundary_ms(dev)})
     torch.cuda.empty_cache()
     return rows
 

@@ -45,9 +45,14 @@ SIGNATURES = {
     "zen_infer_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _F, _P),
     "zen_train_gathered": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                           _P),
+                           _P, _P, _P),
     "zen_train_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _F, _F, _P),
+                        _I, _F, _F, _P, _P, _P),
+    # where the training table goes: the global scratch a launch needs
+    "zen_train_global_table": (_I, _P),
+    # the training estimate's margin and its exhaustive check (test-only)
+    "zen_train_constants": (_P, _P),
+    "zen_train_fast_error": (_P, _I, _I, _P, _P),
     "sparse_row": (_P, _P, _P, _P, _I, _I, _P),
     "cdf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "topic_histogram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),

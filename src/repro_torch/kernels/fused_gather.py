@@ -22,6 +22,7 @@ from repro_torch.kernels.zen_sampler import (
     check_seed,
     infer_argmax_rows,
     train_argmax_rows,
+    train_launch_extras,
 )
 
 
@@ -100,10 +101,12 @@ def zen_fused_sample_plain(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
 
 def zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
                           seed: int, *, beta: float, w_beta: float,
-                          row_offset: int = 0) -> torch.Tensor:
+                          row_offset: int = 0,
+                          stats=None) -> torch.Tensor:
     """Launch ``zen_train_fused`` on the current stream; no sync. A word
     or doc id outside its matrix aborts the kernel, and the caller's next
-    synchronize raises."""
+    synchronize raises. ``stats``: see
+    :func:`repro_torch.kernels.zen_sampler.train_launch_extras`."""
     from repro_torch.kernels._build import check_launch, library
 
     i32, f32 = torch.int32, torch.float32
@@ -122,6 +125,7 @@ def zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
         )
     check_seed(seed, row_offset, t)
     out = torch.empty(t, dtype=i32, device=n_wk.device)
+    scratch, extras = train_launch_extras(k, n_wk.device, stats)
     stream = torch.cuda.current_stream(n_wk.device).cuda_stream
     with torch.cuda.device(n_wk.device):
         check_launch("zen_train_fused", library().zen_train_fused(
@@ -129,6 +133,6 @@ def zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
             doc.data_ptr(), z_old.data_ptr(), alpha_k.data_ptr(),
             n_k.data_ptr(), out.data_ptr(), t, k, w, d, int(seed),
             int(row_offset), ctypes.c_float(beta), ctypes.c_float(w_beta),
-            stream,
+            *extras, stream,
         ))
     return out

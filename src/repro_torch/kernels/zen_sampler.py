@@ -211,10 +211,70 @@ def zen_infer_sample_cuda(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k,
     return out
 
 
+def train_global_table_entries(k: int, device) -> int:
+    """The float4 entries of global scratch a training launch at ``k``
+    topics needs on ``device``: 0 where the kernel keeps its per-topic
+    table in shared memory (the library's rule: wherever the table fits in
+    what a block can opt into, K <= 14,464 on an H100)."""
+    from repro_torch.kernels._build import library
+
+    entries = ctypes.c_longlong()
+    with torch.cuda.device(device):
+        err = library().zen_train_global_table(int(k),
+                                               ctypes.addressof(entries))
+    if err:
+        raise RuntimeError(f"zen_train_global_table: cudaError {err}")
+    return entries.value
+
+
+def train_launch_extras(k: int, device, stats):
+    """The training launchers' trailing arguments, after the scratch the
+    caller keeps until the launch: the global table's scratch (None where
+    the table goes in shared memory) and the optional stats pointer (an
+    int64 CUDA tensor of 3 that accumulates the topics scored exactly in
+    the pass or as z_old, the rescored candidates and the tokens sampled
+    by the exact loop; for tests and measurements: the path passes none).
+    """
+    if stats is not None:
+        check_cuda_args([("stats", stats)], [torch.int64])
+        if stats.shape != (3,) or stats.device != torch.device(device):
+            raise ValueError("stats must be 3 int64 on the kernel's device")
+    entries = train_global_table_entries(k, device)
+    scratch = (torch.empty((entries, 4), dtype=torch.float32, device=device)
+               if entries else None)
+    return scratch, (None if scratch is None else scratch.data_ptr(),
+                     None if stats is None else stats.data_ptr())
+
+
+def fast_score_errors(device) -> dict:
+    """The training estimate's margin premises, measured by exhaustion on
+    the card with the kernel's own estimate functions (test-only launch):
+    ``noise_err`` (2^24 float64, one per m) and ``log_err``, the largest
+    |ln2 lg2(x) - logf(x)| over every float x in [1e-30, FLT_MAX]."""
+    from repro_torch.kernels._build import check_launch, library
+
+    lib = library()
+    margin, top = ctypes.c_float(), ctypes.c_int()
+    lib.zen_train_constants(ctypes.addressof(margin),
+                            ctypes.addressof(top))
+    noise = torch.empty(1 << 24, dtype=torch.float64, device=device)
+    worst = torch.zeros(1, dtype=torch.int64, device=device)
+    lo = int(torch.tensor(1e-30, dtype=torch.float32).view(torch.int32))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        check_launch("zen_train_fast_error", lib.zen_train_fast_error(
+            noise.data_ptr(), lo, 0x7F7FFFFF, worst.data_ptr(), stream))
+    torch.cuda.synchronize(device)
+    return {"margin": margin.value, "top_bucket": top.value,
+            "noise_err": noise,
+            "log_err": float(worst.cpu().view(torch.float64)[0])}
+
+
 def zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
-                    beta: float, w_beta: float,
-                    row_offset: int = 0) -> torch.Tensor:
-    """Launch ``zen_train_gathered`` on the current stream; no sync."""
+                    beta: float, w_beta: float, row_offset: int = 0,
+                    stats=None) -> torch.Tensor:
+    """Launch ``zen_train_gathered`` on the current stream; no sync.
+    ``stats``: see :func:`train_launch_extras`."""
     from repro_torch.kernels._build import check_launch, library
 
     i32, f32 = torch.int32, torch.float32
@@ -233,12 +293,13 @@ def zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
         )
     check_seed(seed, row_offset, t)
     out = torch.empty(t, dtype=i32, device=nwk_rows.device)
+    scratch, extras = train_launch_extras(k, nwk_rows.device, stats)
     stream = torch.cuda.current_stream(nwk_rows.device).cuda_stream
     with torch.cuda.device(nwk_rows.device):
         check_launch("zen_train_gathered", library().zen_train_gathered(
             nwk_rows.data_ptr(), nkd_rows.data_ptr(), z_old.data_ptr(),
             alpha_k.data_ptr(), n_k.data_ptr(), out.data_ptr(), t, k,
             int(seed), int(row_offset), ctypes.c_float(beta),
-            ctypes.c_float(w_beta), stream,
+            ctypes.c_float(w_beta), *extras, stream,
         ))
     return out

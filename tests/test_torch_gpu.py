@@ -235,6 +235,40 @@ def test_train_session_runs_through_the_training_kernels(cuda, kernels,
     assert sess.llh(st) > llh0
 
 
+# The adversarial grid of the training kernels is chip_smoke.py's own
+# (ADVERSARIAL): +inf noise, the forced top bucket, equal-count rows with
+# exact ties, p at the 1e-30 clamp, K = 37, 36 and 10,000, inputs outside
+# the fast estimate's premise, and K = 14,464 / 16,384 / 16,385 about the
+# table's move from shared to global memory.
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the repo's root; stdlib-only at import)
+
+
+@pytest.mark.parametrize("spec", chip_smoke.ADVERSARIAL,
+                         ids=[spec[0] for spec in chip_smoke.ADVERSARIAL])
+def test_training_kernels_adversarial_grid_on_card(cuda, spec):
+    """0 mismatches against the plain version, fused == gathered and the
+    pinned draws (chip_smoke's check: a failure raises SystemExit); the
+    launcher keeps the table in shared memory up to K = 14,464 and reads
+    it from global memory at K = 16,384 and 16,385."""
+    out = chip_smoke.adversarial_check(spec, cuda)
+    assert out["mismatches"] == 0 and len(out["stats"]) == 3
+    assert out["table"] == ("global" if spec[3] >= 16384 else "shared")
+
+
+def test_fast_estimate_margin_premises_by_exhaustion(cuda):
+    """E1 = max |ln2 lg2(x) - logf(x)| over every float x in [1e-30,
+    FLT_MAX], E2 = max |noise estimate - noise| over every m below the
+    forced bucket, both by the kernel's own estimate functions: E1 + E2 +
+    2^-14 (the analytic roundings) within the margin (chip_smoke's
+    check)."""
+    out = chip_smoke.margin_premises(cuda)
+    assert out["margin"] == 2.0 ** -8
+    assert out["top_bucket"] == (1 << 24) - (1 << 12)
+    assert 0.0 < out["E1_log"] and 0.0 < out["E2_noise"]
+    assert out["sum"] <= out["margin"]
+
+
 # -- the sparse-row kernel (csrc/sparse_row.cu) -------------------------------
 
 @pytest.mark.parametrize("j", [1, 5, 31, 32, 33, 128, 352, 1000])

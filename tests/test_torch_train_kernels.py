@@ -15,7 +15,13 @@ package, on the CPU.
   (per-token seed 161537, K=200, bk=128: every such token draws 226).
 * Fused == gathered == the port's own oracle, bit for bit; chunking and
   the noise-row offset change no draw.
+* The hash coordinates that chip_smoke.py's adversarial grid uses (+inf
+  noise, the forced top bucket, exact ties) give the reference's bits, and
+  the plain version draws the reference oracle's topic there.
 """
+import pathlib
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -23,6 +29,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import zen_sampler as jzs
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import fused_gather as tfg
 from repro_torch.kernels import zen_sampler as tzs
@@ -246,6 +253,22 @@ def test_training_cuda_launchers_validate_before_launch():
         tzs.check_seed(0, 2**31 - 4, 8)
 
 
+def test_training_launch_extras_validate_before_launch(monkeypatch):
+    """The stats output is checked before any launch, and the global
+    table's scratch is allocated only where the library puts the table in
+    global memory (its count of float4 entries, 0 for shared memory)."""
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tzs.train_launch_extras(8, cpu, torch.zeros(3, dtype=torch.int64))
+    monkeypatch.setattr(tzs, "train_global_table_entries", lambda k, d: 0)
+    assert tzs.train_launch_extras(1000, cpu, None) == (None, (None, None))
+    monkeypatch.setattr(tzs, "train_global_table_entries",
+                        lambda k, d: -(-k // 128) * 128)
+    scratch, (ptr, stats) = tzs.train_launch_extras(16385, cpu, None)
+    assert scratch.shape == (16512, 4) and ptr == scratch.data_ptr()
+    assert stats is None
+
+
 def test_build_covers_both_sources_in_parallel_targets():
     """Each source builds into a library of its own (so nvcc runs once
     per source, all at once), and every launcher is exported by one."""
@@ -260,3 +283,81 @@ def test_build_covers_both_sources_in_parallel_targets():
     train = texts[1]
     assert "#pragma unroll 1" in train and "__trap()" in train
     assert "size_t" in train
+
+
+# -- the hash coordinates of chip_smoke.py's adversarial grid ----------------
+# The verified CUDA sampler scores exactly the topics whose hash lands in
+# the top bucket m >= 2^24 - 2^12 (m = h >> 8), m = 2^24 - 1 among them
+# (noise +inf), and must keep the lower topic on exact ties. These pins tie
+# the grid's coordinates to the JAX package's hash and oracle.
+TOP_BUCKET = (1 << 24) - (1 << 12)
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the repo's root; stdlib-only at import)
+
+PINNED_SPECS = [spec for spec in chip_smoke.ADVERSARIAL if spec[7]]
+
+
+def _reference_bits(seed, row, col):
+    """The reference's hash of (seed, row, col): hash_uniform's own
+    construction, as uint32."""
+    return int(jzs._mix(jnp.uint32(seed) ^ (jnp.uint32(row)
+                                            * jnp.uint32(jzs._GOLD))
+                        ^ jzs._mix(jnp.uint32(col))))
+
+
+@pytest.mark.parametrize("seed,row,col,m", [
+    (1857, 118, 230, (1 << 24) - 1),  # +inf noise
+    (1857, 4, 104, 16776472),  # the forced top bucket
+    (88, 642, 26, 16776797), (88, 642, 336, 16776797),  # tie in the bucket
+    (2, 760, 147, 16719178), (2, 760, 808, 16719178),  # tie, two lanes
+    (458, 104, 254, 16762413), (458, 104, 893, 16762413),  # tie, one lane
+])
+def test_pinned_hash_coordinates_match_reference(seed, row, col, m):
+    port = int(tzs.hash_bits(seed, row, col))
+    assert port == _reference_bits(seed, row, col)
+    assert port >> 8 == m
+    assert (m >= TOP_BUCKET) == (seed in (1857, 88))
+    u_port = tzs.hash_uniform(seed, row, col).numpy()
+    u_ref = np.asarray(jzs.hash_uniform(jnp.int32(seed), jnp.int32(row),
+                                        jnp.int32(col)))
+    assert u_port.view(np.uint32) == u_ref.view(np.uint32)
+    g = float(tzs.gumbel_noise(seed, row, torch.tensor(col)))
+    assert (g == np.inf) == (m == (1 << 24) - 1)
+
+
+def test_pinned_ties_share_one_uniform():
+    """m = 16776797 twice, or m = 2j and 2j + 1 rounding to one u: the
+    pinned pairs have equal noise, so equal counts give exact-score ties."""
+    for seed, row, a, b in ((88, 642, 26, 336), (2, 760, 147, 808),
+                            (458, 104, 254, 893)):
+        g = tzs.gumbel_noise(seed, row, torch.tensor([a, b]))
+        assert float(g[0]) == float(g[1])
+
+
+@pytest.mark.parametrize("spec", PINNED_SPECS,
+                         ids=[spec[0] for spec in PINNED_SPECS])
+def test_plain_version_and_reference_oracle_draw_the_pinned_topics(spec):
+    """train_argmax_rows (through zen_sample_plain) and the reference's
+    ref.zen_sample_ref draw the pinned topic on chip_smoke.py's inputs:
+    the +inf winner and the lower topic of each exact tie. Elsewhere they
+    may differ only at near-ties (torch's and XLA's CPU log)."""
+    name, seed, t, k, w, _, _, pins = spec
+    a = chip_smoke.adversarial_case(spec, torch.device("cpu"))
+    rows = (a["n_wk"][a["word"].long()], a["n_kd"][a["doc"].long()])
+    kw = dict(beta=0.01, w_beta=w * 0.01)
+    port = tzs.zen_sample_plain(*rows, a["z"], a["alpha"], a["n_k"], seed,
+                                **kw).numpy()
+    j_ref = np.asarray(jref.zen_sample_ref(
+        *(jnp.asarray(x.numpy()) for x in rows + (a["z"], a["alpha"],
+                                                  a["n_k"])),
+        jnp.int32(seed), **kw))
+    for tok, topic in pins.items():
+        assert port[tok] == topic and j_ref[tok] == topic, (name, tok)
+    scores = _port_scores({"n_wk": a["n_wk"].numpy(),
+                           "n_kd": a["n_kd"].numpy(),
+                           "word": a["word"].numpy(),
+                           "doc": a["doc"].numpy(), "z": a["z"].numpy(),
+                           "ak": a["alpha"].numpy(),
+                           "nk": a["n_k"].numpy()}, seed, w * 0.01)
+    ties, padded = classify_mismatches(port, j_ref, scores, k)
+    assert not padded and len(ties) <= max(1, t // 1000)
