@@ -49,20 +49,25 @@ Phases, each printing one JSON line:
    --synthetic-words 101636 --synthetic-len 332`` builds (~99.5M tokens):
    random init, 5 iterations with an eval at init and after each one;
    count invariants after every step, predictive llh rising at every eval,
-   change rate in (0, 1), exactly 5 fused launches and no gathered one,
-   then ``save_model`` read back bit-equal; one more step profiled;
+   change rate in (0, 1), the llh and change-rate lists equal to
+   ``RECORD`` (no redesign may change a draw), exactly 5 fused launches
+   and 10 of kernel 5 (the delta merge: word and doc rows per step) and
+   no other, then ``save_model`` read back bit-equal; one more step
+   profiled;
 7. train_small — the same recipe at 4,096 documents (~1.36M tokens) and
    the same initial topics, 3 iterations of ``zen`` (plain torch, cdf),
    ``std``, ``zen_pallas`` fused and ``zen_pallas`` gathered
    (``kernels="off"``): fused and gathered topics bit-identical after every
    iteration, each run launching only its own kernel (``zen`` and ``std``
-   none), ``zen``'s per-token llh within 1% of the fused run's and
-   ``std``'s within 1% of ``zen``'s;
+   none) and, under ``kernels="auto"``, kernel 5 twice per step, the fused
+   run's per-token llh equal to ``TRAIN_SMALL_LLH``, ``zen``'s within 1%
+   of it and ``std``'s within 1% of ``zen``'s;
 8. train_sparse — this slice's path at full width: ``TrainSession`` with
    ``zen_sparse`` and the paper's sparse word initialisation (degree 0.1)
    on the same NYTIMES corpus: 3 iterations, an eval at init and after
-   each; count invariants after every step, llh rising at every eval, and
-   launches of the sparse-row kernel only (> 0). Reports the row widths of
+   each; count invariants after every step, llh rising at every eval, the
+   lists equal to ``RECORD``, and launches of the sparse-row kernel (> 0)
+   and of kernel 5 (2 per step) only. Reports the row widths of
    every sweep, seconds per step and the table build within it (timed
    apart on the same state), peak memory, and one more step profiled;
 9. sparse_kernels — kernel 6 against its plain version on the first
@@ -72,21 +77,26 @@ Phases, each printing one JSON line:
 10. train_cdf — ``TrainSession`` with ``zen_cdf`` (``kernels="auto"``,
    max_kd 64) on the same NYTIMES corpus from a random init: 3 iterations,
    an eval at init and after each; count invariants after every step, llh
-   rising at every eval, and launches of the CDF row search (kernel 7)
-   only, two per token chunk. Reports seconds per step, peak memory and
-   one more step profiled;
-11. histogram — kernel 5 on that run's last step (inc = z_new != z_old):
-   doc rows in the corpus order (checked sorted), R = 299,752, and word
-   rows after a stable sort by word, R = 101,636. Both launches are the
-   phase's path; each result is bit-equal to the plain version and to
-   ``delta_counts``' d_kd / d_wk of the same step; CUDA-event times and
-   the bytes bound;
+   rising at every eval, the lists equal to ``RECORD``, and launches of
+   the CDF row search (kernel 7, two per token chunk) and of kernel 5 (2
+   per step) only. Reports seconds per step, peak memory and one more
+   step profiled;
+11. histogram — kernel 5 on that run's last step as the delta merge of
+   every backend runs it under ``kernels="auto"``: doc rows in the corpus
+   order (checked sorted), R = 299,752, and word rows along the session's
+   word-major walk, R = 101,636. ``delta_counts`` on the kernel equals
+   ``delta_counts`` under ``kernels="off"`` (the plain version), and each
+   side is bit-equal to the plain version, also walked without its order;
+   CUDA-event times of the kernel, the plain version (two ``index_put_``)
+   and both ``delta_counts`` routes, the bytes bound, the SASS loop and
+   ``-res-usage`` figures;
 12. cdf_kernels — kernel 7 on the first 1,048,576 tokens of the zen_cdf
    state, on the path's term-2 targets of draw a and on targets uniform
    over each word's row: bit-equal to its plain version (0 mismatches),
    CUDA-event times of the kernel, the plain version and the
    ``kernels="off"`` route (the ``w_cdf`` build and its ``log K`` search),
-   the bytes, operation and instruction-issue bounds;
+   the bytes, operation and instruction-issue bounds, the SASS loop and
+   ``-res-usage`` figures;
 13. train_sparse_small — the train_small corpus and one set of initial
    topics, 3 iterations each of ``zen_sparse``, ``sparselda``,
    ``zen_hybrid``, ``lightlda`` (kernel) and ``lightlda`` with
@@ -94,7 +104,7 @@ Phases, each printing one JSON line:
    ``zen_cdf`` with ``kernels="off"``, and ``zen``: invariants after every
    step, each run's per-token llh within 8% of ``zen``'s, every run
    launching only its own kernel (``lightlda`` off, ``zen_cdf`` off and
-   ``zen`` none).
+   ``zen`` none) and, under ``kernels="auto"``, kernel 5 twice per step.
 
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
@@ -133,6 +143,39 @@ INSTR_PER_SM_PER_CLK = 4 * 32  # 4 warp schedulers x 32 lanes
 INT_PER_SM_PER_CLK = 64  # 32-bit integer operations per SM per clock
 HASH_INT_OPS = 9  # integer operations of the counter hash per (t, k)
 NEAR_TIE = 1e-4
+# kernel 5 (csrc/topic_histogram.cu) and kernel 7 (csrc/cdf_search.cu)
+# as the profiler names their device functions
+HIST_KERNELS = ("hist_sorted_kernel", "zero_cut_rows_kernel",
+                "zero_fill_kernel")
+CDF_KERNELS = ("cdf_compact_kernel", "cdf_walk_kernel")
+CDF_STRIPS = 4  # strips per pass of the walk's loop (kStrips)
+# The training phases' records, as this script measured them before
+# kernels 5 and 7 were redesigned (NVIDIA H100 80GB HBM3, 700 W; equal in
+# four runs of that tree): no kernel redesign may change them, since every
+# draw is counter-based and every count an integer
+RECORD = {
+    "train": {
+        "llh": [-553201183.023535, -552858789.5727848, -552430974.6499592,
+                -551982301.1272973, -551533959.0934076,
+                -551100162.7035435],
+        "change_rate": [0.9989971068767338, 0.9942934639652927,
+                        0.9886557953084262, 0.9828150417487752,
+                        0.977131860126165],
+    },
+    "train_sparse": {
+        "llh": [-551683197.7157105, -550211639.0543504, -548992734.4532295,
+                -547991388.1614581],
+        "change_rate": [0.9941575079234416, 0.9755162955561146,
+                        0.9533872665494625],
+    },
+    "train_cdf": {
+        "llh": [-553201183.023535, -552490201.228704, -551752980.2351285,
+                -551185658.4481958],
+        "change_rate": [0.9983710900516083, 0.9782291959193491,
+                        0.9693572627624099],
+    },
+}
+TRAIN_SMALL_LLH = -5.84568195283306  # fused and gathered, per token
 
 
 def emit(obj) -> None:
@@ -144,6 +187,20 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def check_record(phase: str, llh, change_rate) -> None:
+    """The phase's llh and change-rate lists must equal :data:`RECORD`."""
+    want = RECORD[phase]
+    check(llh == want["llh"] and change_rate == want["change_rate"],
+          f"{phase}: llh {llh} / change rate {change_rate} differ from "
+          f"the record {want}")
+
+
+def check_launches(phase: str, counts, want) -> None:
+    """``counts`` must be ``want`` (kernel -> launches) and 0 elsewhere."""
+    got = {n: v for n, v in counts.items() if v or n in want}
+    check(got == want, f"{phase}: expected launches {want}, got {counts}")
+
+
 def nvidia_smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -153,8 +210,11 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs, by CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 2, gate: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs, by CUDA events. With
+    ``gate`` the card first sleeps ~15 ms, so that all ``reps`` launches
+    are queued before the first event: a call shorter than its host-side
+    launch cost is then timed back to back, not at the host's pace."""
     import torch
 
     for _ in range(warmup):
@@ -162,6 +222,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if gate:
+        torch.cuda._sleep(30_000_000)  # clock cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -519,19 +581,29 @@ def sass_function(kernel: str, source: str):
     return instr, branches
 
 
-def sass_loop_stats(kernel: str, source: str = "zen_train.cu"):
-    """Instructions in the K loop of ``kernel`` (one (t, k) per lane per
-    pass: the loop is kept rolled), from ``cuobjdump -sass`` of the library
-    built from ``source``: the span of the function's widest backward
-    branch. None when the tool or the pattern is missing."""
+def sass_loop_stats(kernel: str, source: str = "zen_train.cu",
+                    holding: str = None):
+    """Instructions in a loop of ``kernel``, from ``cuobjdump -sass`` of
+    the library built from ``source``: the span of the function's widest
+    backward branch (the K loop, kept rolled, of one (t, k) per lane per
+    pass), or with ``holding`` the narrowest one whose span holds that
+    opcode (an inner loop). None when the tool or the pattern is
+    missing."""
     parsed = sass_function(kernel, source)
     if parsed is None:
         return None
     instr, branches = parsed
     best = None
     for addr, target, text in branches:
-        if "BRA" in text.split() and target < addr and (
-                best is None or addr - target > best[1] - best[0]):
+        if "BRA" not in text.split() or target >= addr:
+            continue
+        if holding is not None:
+            if not any(holding in t for a, t in instr
+                       if target <= a <= addr):
+                continue
+            if best is None or addr - target < best[1] - best[0]:
+                best = (target, addr)
+        elif best is None or addr - target > best[1] - best[0]:
             best = (target, addr)
     if best is None:
         return None
@@ -957,7 +1029,7 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
 
 def phase_train(sess, st, smi):
     """Five iterations of the full NYTIMES run, evaluated at init and
-    after each step; returns the fused-kernel launch count."""
+    after each step; returns the run's launch counts."""
     import torch
 
     from repro_torch.kernels import ops
@@ -991,10 +1063,11 @@ def phase_train(sess, st, smi):
           f"train: predictive llh did not rise at every eval: {llh}")
     check(all(0 < m["change_rate"] < 1 for m in evals[1:]),
           "train: change rate outside (0, 1)")
-    check(counts["zen_fused_sample"] == TRAIN_ITERS
-          and all(v == 0 for n, v in counts.items()
-                  if n != "zen_fused_sample"),
-          f"train: expected {TRAIN_ITERS} fused launches only, got {counts}")
+    # one fused sweep per step, and the delta merge's kernel 5 twice (word
+    # and doc rows)
+    check_launches("train", counts, {"zen_fused_sample": TRAIN_ITERS,
+                                     "topic_histogram": 2 * TRAIN_ITERS})
+    check_record("train", llh, [m["change_rate"] for m in evals[1:]])
 
     ckpt = ROOT / "build" / "chip_smoke_train_model"
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1013,7 +1086,7 @@ def phase_train(sess, st, smi):
     emit({"phase": "train_checkpoint", "seconds": t_ckpt,
           "n_wk_bytes": int(n_wk.nbytes)})
     emit({"phase": "train_profile", **profile_step(sess, st)})
-    return counts["zen_fused_sample"]
+    return counts
 
 
 def profile_step(sess, st):
@@ -1033,7 +1106,8 @@ def profile_step(sess, st):
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        out[name] = device_summary(prof, wall_us)
+        out[name] = device_summary(prof, wall_us,
+                                   groups={"delta_merge": HIST_KERNELS})
     fused = [v for k, v in out["step"]["top_device_ms"].items()
              if "zen_train_fused_kernel" in k]
     out["kernel_ms_per_launch"] = fused[0][0] / fused[0][1] if fused \
@@ -1041,11 +1115,12 @@ def profile_step(sess, st):
     return out
 
 
-def device_summary(prof, wall_us: float, items: int = 8):
+def device_summary(prof, wall_us: float, items: int = 8, groups=None):
     """Device busy time, idle share and the largest device items of one
-    profiled window. Only events that ran on the card count: an operator's
-    host-side entry also carries its kernels' device time, and counting
-    both would count that time twice."""
+    profiled window; ``groups`` (name -> kernel function names) sums each
+    group's [ms, launches]. Only events that ran on the card count: an
+    operator's host-side entry also carries its kernels' device time, and
+    counting both would count that time twice."""
     from torch.autograd import DeviceType
 
     by_name, calls = {}, {}
@@ -1059,16 +1134,25 @@ def device_summary(prof, wall_us: float, items: int = 8):
             calls[ev.key] = calls.get(ev.key, 0) + ev.count
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:items]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "host_ms": (wall_us - busy_us) / 1e3,
-            "device_idle_share": (1 - busy_us / wall_us) if busy_us
-            else None,
-            "top_device_ms": {k[:80]: [v / 1e3, calls[k]] for k, v in top}}
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "host_ms": (wall_us - busy_us) / 1e3,
+           "device_idle_share": (1 - busy_us / wall_us) if busy_us
+           else None,
+           "top_device_ms": {k[:80]: [v / 1e3, calls[k]] for k, v in top}}
+    if groups:
+        out["groups_ms"] = {}
+        for name, fns in groups.items():
+            keys = [k for k in by_name
+                    if any(f"::{f}(" in k for f in fns)]
+            out["groups_ms"][name] = [sum(by_name[k] for k in keys) / 1e3,
+                                      sum(calls[k] for k in keys)]
+    return out
 
 
 def phase_train_small(seed: int, dev, smi):
     """zen, zen_pallas fused and zen_pallas gathered from the same initial
-    topics; returns the gathered run's launch count."""
+    topics; returns the gathered run's launch count. Under "auto" each
+    step's delta merge also launches kernel 5 twice."""
     import torch
 
     from repro_torch.core.types import LDAHyperParams
@@ -1103,15 +1187,19 @@ def phase_train_small(seed: int, dev, smi):
               "kernels": kernels, "tokens": corpus.num_tokens,
               "seconds": secs, "llh_per_token": llh[name],
               "launches": counts, "card": smi})
-        check(all((v > 0) == (n == kernel) for n, v in counts.items()),
-              f"train_small {name}: expected launches of {kernel} only, "
-              f"got {counts}")
+        want = {} if kernel is None else {kernel: counts[kernel] or -1}
+        if kernels == "auto":
+            want["topic_histogram"] = 2 * SMALL_ITERS
+        check_launches(f"train_small {name}", counts, want)
         del sess, st
         torch.cuda.empty_cache()
     same = all(torch.equal(a, b) for a, b in zip(topics["fused"],
                                                  topics["gathered"]))
     check(same, "train_small: fused and gathered runs drew different "
           "topics")
+    check(llh["fused"] == TRAIN_SMALL_LLH,
+          f"train_small: llh/token {llh['fused']} differs from the record "
+          f"{TRAIN_SMALL_LLH}")
     rel = abs(llh["zen"] / llh["fused"] - 1)
     rel_std = abs(llh["std"] / llh["zen"] - 1)
     emit({"phase": "train_small_check", "fused_equals_gathered": True,
@@ -1147,27 +1235,37 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
           "init_seconds": time.perf_counter() - t0})
     rows = phase_train_kernels(sess, st, seed, props.multi_processor_count,
                                sm_clock_hz)
-    fused_launches = phase_train(sess, st, smi)
+    train_counts = phase_train(sess, st, smi)
     corpus_dev = sess.corpus
     del sess, st
     torch.cuda.empty_cache()
     gathered_launches = phase_train_small(seed, dev, smi)
-    sparse_launches, sparse_row = phase_train_sparse(corpus_dev, seed, smi)
+    sparse_counts, sparse_row = phase_train_sparse(corpus_dev, seed, smi)
     torch.cuda.empty_cache()
-    cdf_rows, cdf_launches = phase_train_cdf(
+    cdf_rows, cdf_counts = phase_train_cdf(
         corpus_dev, seed, smi, props.multi_processor_count, sm_clock_hz)
     del corpus_dev
     torch.cuda.empty_cache()
     phase_train_sparse_small(seed, dev, smi)
+    # kernel 5's launches on the delta merge of each full-width path
+    merge = {"train": train_counts["topic_histogram"],
+             "train_sparse": sparse_counts["topic_histogram"],
+             "train_cdf": cdf_counts["topic_histogram"]}
+    for row in cdf_rows:
+        if row["name"] == "topic_histogram":
+            row["launches_by_path"] = merge
     return rows + [sparse_row] + cdf_rows, {
-        "zen_fused_sample": fused_launches, "zen_sample": gathered_launches,
-        "sparse_row_sample": sparse_launches, **cdf_launches}
+        "zen_fused_sample": train_counts["zen_fused_sample"],
+        "zen_sample": gathered_launches,
+        "sparse_row_sample": sparse_counts["sparse_row_sample"],
+        "cdf_row_search": cdf_counts["cdf_row_search"],
+        "topic_histogram": train_counts["topic_histogram"]}
 
 
 def phase_train_sparse(corpus, seed: int, smi):
     """``zen_sparse`` at full NYTIMES width from the sparse word init;
-    returns the sparse-row kernel's launches on this path and its row of
-    the kernels table (from :func:`phase_sparse_kernels`)."""
+    returns the run's launch counts and the sparse-row kernel's row of the
+    kernels table (from :func:`phase_sparse_kernels`)."""
     import torch
 
     from repro_torch import algorithms
@@ -1225,20 +1323,23 @@ def phase_train_sparse(corpus, seed: int, smi):
           "launches": counts, "card": smi})
     check(all(b > a for a, b in zip(llh, llh[1:])),
           f"train_sparse: predictive llh did not rise at every eval: {llh}")
-    check(counts["sparse_row_sample"] > 0
-          and all(v == 0 for n, v in counts.items()
-                  if n != "sparse_row_sample"),
-          f"train_sparse: expected sparse-row launches only, got {counts}")
+    check(counts["sparse_row_sample"] > 0,
+          f"train_sparse: no sparse-row launch: {counts}")
+    check_launches("train_sparse", counts, {
+        "sparse_row_sample": counts["sparse_row_sample"],
+        "topic_histogram": 2 * SPARSE_ITERS})
+    check_record("train_sparse", llh, [m["change_rate"] for m in evals[1:]])
     emit({"phase": "train_sparse_profile",
-          **profile_path_step(sess, st, "sparse_row_kernel")})
+          **profile_path_step(sess, st, ("sparse_row_kernel",))})
     row = phase_sparse_kernels(sess, st, seed)
-    return counts["sparse_row_sample"], row
+    return counts, row
 
 
-def profile_path_step(sess, st, kernel: str):
+def profile_path_step(sess, st, kernels):
     """Device busy share and the largest device items of one more training
-    step, after the path's counts were read; ``kernel_ms`` is the named
-    kernel's [ms, launches]."""
+    step, after the path's counts were read; ``groups_ms`` holds the path's
+    kernel (``kernels``: its device functions) and the delta merge's
+    kernel 5, each [ms, launches]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1249,10 +1350,8 @@ def profile_path_step(sess, st, kernel: str):
         sess.step(st)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    out = device_summary(prof, wall_us, items=12)
-    kern = [v for k, v in out["top_device_ms"].items() if kernel in k]
-    out["kernel_ms"] = kern[0] if kern else None
-    return out
+    return device_summary(prof, wall_us, items=12, groups={
+        "path_kernel": kernels, "delta_merge": HIST_KERNELS})
 
 
 def phase_sparse_kernels(sess, st, seed: int):
@@ -1338,7 +1437,7 @@ def phase_train_cdf(corpus, seed: int, smi, sm_count: int,
                     sm_clock_hz: float):
     """``zen_cdf`` at full NYTIMES width from a random init; then kernel 5
     on its last step and kernel 7 on its state. Returns the two kernels'
-    rows of the kernels table and their launches on their paths."""
+    rows of the kernels table and the run's launch counts."""
     import torch
 
     from repro_torch.algorithms.zen_cdf import CDF_CHUNK_ELEMS
@@ -1385,27 +1484,28 @@ def phase_train_cdf(corpus, seed: int, smi, sm_count: int,
           "peak_device_gb": peak_gb, "launches": counts, "card": smi})
     check(all(b > a for a, b in zip(llh, llh[1:])),
           f"train_cdf: predictive llh did not rise at every eval: {llh}")
-    want = 2 * chunks * CDF_ITERS
-    check(counts["cdf_row_search"] == want
-          and all(v == 0 for n, v in counts.items()
-                  if n != "cdf_row_search"),
-          f"train_cdf: expected {want} CDF-search launches (two per token "
-          f"chunk) only, got {counts}")
+    # two CDF searches per token chunk, two histograms per step
+    check_launches("train_cdf", counts, {
+        "cdf_row_search": 2 * chunks * CDF_ITERS,
+        "topic_histogram": 2 * CDF_ITERS})
+    check_record("train_cdf", llh, [m["change_rate"] for m in evals[1:]])
     emit({"phase": "train_cdf_profile",
-          **profile_path_step(sess, st, "cdf_search_kernel")})
-    hist_row, hist_launches = phase_histogram(sess, prev, st)
+          **profile_path_step(sess, st, CDF_KERNELS)})
+    hist_row = phase_histogram(sess, prev, st)
     del prev
     torch.cuda.empty_cache()
     cdf_row = phase_cdf_kernels(sess, st, seed, sm_count, sm_clock_hz)
-    return [cdf_row, hist_row], {"cdf_row_search": counts["cdf_row_search"],
-                                 "topic_histogram": hist_launches}
+    return [cdf_row, hist_row], counts
 
 
 def phase_histogram(sess, prev, st):
-    """Kernel 5 on one full-width step (``prev`` -> ``st``): doc rows in
-    corpus order and word rows after a stable sort by word, each equal to
-    its plain version and to ``delta_counts``; returns (the kernel's row of
-    the kernels table, its launches on this path)."""
+    """Kernel 5 on one full-width step (``prev`` -> ``st``) as the delta
+    merge runs it: doc rows in corpus order and word rows along the plan's
+    word-major walk, every token weighted once. Each side is bit-equal to
+    the plain version, and ``delta_counts`` on the kernel route to
+    ``delta_counts`` under ``kernels="off"`` (the plain version), so the
+    check is not circular. CUDA-event times of both routes and the bytes
+    bound. Returns the kernel's row of the kernels table."""
     import torch
 
     from repro_torch.core.counts import delta_counts
@@ -1415,58 +1515,58 @@ def phase_histogram(sess, prev, st):
     c, k = sess.corpus, K_NYT
     t = c.num_tokens
     zo, zn = prev.topic, st.topic
-    inc = (zn != zo).to(torch.int32)
-    check(bool((c.doc[1:] >= c.doc[:-1]).all()),
+    orders = sess.plan.row_orders()
+    check(orders[1].order is None,
           "histogram: the corpus tokens are not in doc order")
-    order = torch.sort(c.word, stable=True).indices
-    sides = {
-        "doc": (c.doc, zo, zn, inc, c.num_docs),
-        "word": (c.word[order], zo[order], zn[order], inc[order],
-                 c.num_words),
-    }
-    del order
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    outs = {name: ops.topic_histogram(*a[:4], a[4], k)
-            for name, a in sides.items()}
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    check(counts["topic_histogram"] == 2
-          and all(v == 0 for n, v in counts.items()
-                  if n != "topic_histogram"),
-          f"histogram: expected 2 histogram launches only, got {counts}")
-    d_wk, d_kd, _ = delta_counts(c.word, c.doc, zo, zn, c.num_words,
-                                 c.num_docs, k)
-    check(bool(torch.equal(outs["doc"], d_kd)),
-          "histogram: doc side differs from delta_counts' d_kd")
-    check(bool(torch.equal(outs["word"], d_wk)),
-          "histogram: word side differs from delta_counts' d_wk")
-    del d_wk, d_kd
+    args = (c.word, c.doc, zo, zn, c.num_words, c.num_docs, k)
+
+    def merge(use_kernel):
+        return delta_counts(*args, use_kernel=use_kernel,
+                            orders=orders if use_kernel else None)
+
+    on, off = merge(True), merge(False)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(on, off)),
+          "histogram: delta_counts on kernel 5 differs from kernels=off")
+    del on, off
+    torch.cuda.empty_cache()
+    merge_ms = cuda_ms(lambda: merge(True), reps=5, gate=True)
+    merge_off_ms = cuda_ms(lambda: merge(False), reps=3, warmup=1)
+    emit({"phase": "histogram_merge", "T": t, "K": k,
+          "equals_kernels_off": True, "delta_counts_ms": merge_ms,
+          "delta_counts_off_ms": merge_off_ms})
+    sides = {"doc": (c.doc, c.num_docs, orders[1]),
+             "word": (c.word, c.num_words, orders[0])}
     runs = {}
-    for name, a in sides.items():
-        diff = outs[name] - topic_histogram_plain(*a[:4], a[4], k)
+    for name, (rows, r, order) in sides.items():
+        def kernel(order=order):
+            return ops.topic_histogram(rows, zo, zn, None, r, k, order=order)
+
+        def plain():
+            return topic_histogram_plain(rows, zo, zn, None, r, k)
+
+        diff = kernel() - plain()
         mism, err = int((diff != 0).sum()), float(diff.abs().max())
         check(mism == 0, f"histogram {name}: {mism} kernel-vs-plain "
-              f"mismatches over ({a[4]}, {k})")
+              f"mismatches over ({r}, {k})")
         del diff
         torch.cuda.empty_cache()
-        ms_k = cuda_ms(lambda: ops.topic_histogram(*a[:4], a[4], k), reps=5)
-        ms_p = cuda_ms(lambda: topic_histogram_plain(*a[:4], a[4], k),
-                       reps=3, warmup=1)
-        # the (R, K) output written once, four int32 ids per token read once
-        nbytes = a[4] * k * 4 + t * 16
-        runs[name] = {"R": a[4], "ms": ms_k, "plain_ms": ms_p,
+        ms_k = cuda_ms(kernel, reps=5, gate=True)
+        ms_p = cuda_ms(plain, reps=3, warmup=1)
+        # the (R, K) output written once, three int32 ids per token read
+        # once (the walk is the design's own)
+        nbytes = r * k * 4 + t * 12
+        runs[name] = {"R": r, "ms": ms_k, "plain_ms": ms_p,
                       "bytes": nbytes,
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "changed_tokens": int(inc.sum()),
+                      "walk": "tokens" if order.order is None
+                      else "word-major permutation",
                       "mismatches": mism, "max_abs_err": err}
         emit({"phase": "histogram", "rows": name, "T": t, "K": k,
-              "equals_plain": True, "equals_delta_counts": True,
+              "changed_tokens": int((zn != zo).sum()), "equals_plain": True,
               **runs[name]})
-    del outs, sides
     torch.cuda.empty_cache()
     main = runs["doc"]
-    return ({
+    return {
         "name": "topic_histogram", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topic_histogram.cu",
         "replaces": "src/repro/kernels/topic_histogram.py:31",
@@ -1476,10 +1576,14 @@ def phase_histogram(sess, prev, st):
         "tokens": t, "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": "bytes",
         "bytes": main["bytes"], "R": main["R"], "shapes": runs,
-        "res_usage": res_usage("topic_histogram.cu", "hist_kernel"),
-        # two accumulating index_put_ calls: the plain version itself
+        "delta_counts_ms": merge_ms, "delta_counts_off_ms": merge_off_ms,
+        "sass": sass_loop_stats("hist_sorted_kernel", "topic_histogram.cu",
+                                holding="ATOMS"),
+        "res_usage": {f: res_usage("topic_histogram.cu", f)
+                      for f in HIST_KERNELS},
+        # two accumulating index_put_ calls (the plain version itself)
         "library_ms": main["plain_ms"],
-    }, counts["topic_histogram"])
+    }
 
 
 def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
@@ -1519,7 +1623,9 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
     w_cdf = torch.cumsum(st.n_wk.to(torch.float32) * term[None, :], dim=-1)
     w_cdf_ms = cuda_ms(lambda: torch.cumsum(
         st.n_wk.to(torch.float32) * term[None, :], dim=-1), reps=3)
-    loop = sass_loop_stats("cdf_search_kernel", "cdf_search.cu")
+    # the walk's strip loop: CDF_STRIPS strips per pass, unrolled
+    loop = sass_loop_stats("cdf_walk_kernel", "cdf_search.cu",
+                           holding="SHFL.UP")
     issue_rate = sm_count * INSTR_PER_SM_PER_CLK * sm_clock_hz
     runs = {}
     for name, tgt in targets.items():
@@ -1538,7 +1644,8 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
         err = float((out_k.long() - out_p.long()).abs().max())
         check(mism == 0, f"cdf_kernels {name}: {mism} kernel-vs-plain "
               f"mismatches over {t} tokens")
-        ms_k = cuda_ms(kernel, reps=10)
+        ms_k = cuda_ms(kernel, reps=10, gate=True)
+        ms_host = cuda_ms(kernel, reps=10)  # at the host's launch pace
         ms_p = cuda_ms(plain, reps=2, warmup=1)
         ms_o = cuda_ms(off, reps=10)
         # what this data needs: a token with target <= 0 reads nothing; the
@@ -1554,10 +1661,11 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
         flops = 3 * int(need.sum())
         flops_ms = flops / FP32_FLOPS * 1e3
         strips = int(torch.where(live, out_k.long() // 32 + 1, 0).sum())
-        issue_ms = (strips * 32 * loop["loop_instructions"] / issue_rate
-                    * 1e3 if loop else None)
+        issue_ms = (strips * 32 * loop["loop_instructions"] / CDF_STRIPS
+                    / issue_rate * 1e3 if loop else None)
         runs[name] = {
-            "ms": ms_k, "plain_ms": ms_p, "off_route_search_ms": ms_o,
+            "ms": ms_k, "ms_host_paced": ms_host, "plain_ms": ms_p,
+            "off_route_search_ms": ms_o,
             "off_route_matches": float((out_o == out_k).float().mean()),
             "bytes": nbytes, "bytes_ms": bytes_ms,
             "bytes_no_reuse": int(need.sum()) * 4 + k * 4 + t * 12,
@@ -1588,7 +1696,8 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
         "bytes": main["bytes"], "issue_bound_ms": main["issue_bound_ms"],
         "off_route_ms": main["off_route_search_ms"],
         "w_cdf_build_ms": w_cdf_ms, "shapes": runs, "sass": loop,
-        "res_usage": res_usage("cdf_search.cu", "cdf_search_kernel"),
+        "res_usage": {f: res_usage("cdf_search.cu", f)
+                      for f in CDF_KERNELS},
         # no one PyTorch call computes it
         "library_ms": None,
     }
@@ -1637,9 +1746,10 @@ def phase_train_sparse_small(seed: int, dev, smi):
               "algorithm": algorithm, "kernels": kernels,
               "tokens": corpus.num_tokens, "seconds": secs,
               "llh_per_token": llh[name], "launches": counts, "card": smi})
-        check(all((v > 0) == (n == kernel) for n, v in counts.items()),
-              f"train_sparse_small {name}: expected launches of {kernel} "
-              f"only, got {counts}")
+        want = {} if kernel is None else {kernel: counts[kernel] or -1}
+        if kernels == "auto":
+            want["topic_histogram"] = 2 * SMALL_ITERS
+        check_launches(f"train_sparse_small {name}", counts, want)
         del sess, st
         torch.cuda.empty_cache()
     rel = {n: abs(v / llh["zen"] - 1) for n, v in llh.items()}

@@ -1,15 +1,21 @@
 """Count matrices and their deltas from token assignments
-(``repro/core/counts.py``), by ``index_put_(accumulate=True)``: integer
-sums, bit-equal to the reference's scatter-adds in any order. On the card
-the accumulating ``index_put_`` sorts its indices first, so the ~20% of
-tokens on a Zipf corpus's top word do not contend on one address."""
+(``repro/core/counts.py``): integer sums, bit-equal to the reference's
+scatter-adds in any order. The counts are built by
+``index_put_(accumulate=True)`` (on the card it sorts its indices first,
+so the ~20% of tokens on a Zipf corpus's top word do not contend on one
+address); the per-sweep deltas go through kernel 5 where the caller
+dispatches kernels, else through its plain version."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.topic_histogram import topic_histogram_plain
+from repro_torch.kernels import ops
+from repro_torch.kernels.topic_histogram import (
+    RowOrder,
+    topic_histogram_plain,
+)
 
 
 def _ones(ids: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -58,12 +64,27 @@ def delta_counts(
     num_docs: int,
     num_topics: int,
     mask: Optional[torch.Tensor] = None,
+    *,
+    use_kernel: bool = False,
+    orders: Optional[Tuple[RowOrder, RowOrder]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Delta aggregation (paper §5.2): (d_wk, d_kd, d_k) int32 with
     ``new_counts = old_counts + delta``; tokens whose topic did not change
-    (or that ``mask`` marks padded) contribute exactly zero. The two
-    (rows, K) deltas are kernel 5's plain version; d_k is d_wk's column
-    sum (exact in int32)."""
+    (or that ``mask`` marks padded) contribute exactly zero. d_k is d_wk's
+    column sum (exact in int32).
+
+    The two (rows, K) deltas are kernel 5 (``ops.topic_histogram``) when
+    ``use_kernel`` (the caller's ``kernel_dispatch``), walking the
+    ``orders`` (word, doc) :class:`RowOrder` of these tokens where given;
+    else its plain version. Both give the same integers."""
+    if use_kernel:
+        inc = None if mask is None else mask.to(torch.int32)
+        w_order, d_order = orders if orders is not None else (None, None)
+        d_wk = ops.topic_histogram(word, old_topic, new_topic, inc,
+                                   num_words, num_topics, order=w_order)
+        d_kd = ops.topic_histogram(doc, old_topic, new_topic, inc,
+                                   num_docs, num_topics, order=d_order)
+        return d_wk, d_kd, d_wk.sum(0, dtype=torch.int32)
     changed = old_topic != new_topic
     if mask is not None:
         changed = changed & mask

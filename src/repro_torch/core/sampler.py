@@ -196,7 +196,9 @@ def gibbs_iteration(state: CGSState, corpus: Corpus, hyper: LDAHyperParams,
                     method: str = "cdf", exclude_self: bool = True,
                     decomposition: str = "zen",
                     token_chunk: Optional[int] = None) -> CGSState:
-    """One single-box iteration: stale sweep, then the delta merge."""
+    """One single-box iteration: stale sweep, then the delta merge. A
+    plain-torch reference loop: its merge stays on kernel 5's plain version
+    (``TrainSession``'s plan dispatches the kernel)."""
     new_topic = cgs_sweep_stale(state, corpus, hyper, method=method,
                                 exclude_self=exclude_self,
                                 decomposition=decomposition,

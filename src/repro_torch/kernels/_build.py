@@ -54,8 +54,10 @@ SIGNATURES = {
     "zen_train_constants": (_P, _P),
     "zen_train_fast_error": (_P, _I, _I, _P, _P),
     "sparse_row": (_P, _P, _P, _P, _I, _I, _P),
-    "cdf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "topic_histogram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "cdf_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "topic_histogram": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # the histogram launch's shape: its topic slab, and runs per warp
+    "topic_histogram_shape": (_I, _P, _P),
 }
 
 _LIB: Optional[types.SimpleNamespace] = None

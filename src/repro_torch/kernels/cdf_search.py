@@ -7,10 +7,12 @@ from the resident matrix) times ``term`` (K float32); the result is
 term-2 word topic this way, so neither the (W, K) float CDF matrix nor
 gathered (T, K) rows exist.
 
-``cdf_row_search_cuda`` launches ``cdf_search`` (``csrc/cdf_search.cu``,
-one warp per token). Its prefix sums add in 32-lane strips in the warp
-shuffle scan's order plus the carry of the strips before, as kernel 6's
-do, and its walk stops once that carry reaches the target: the terms
+``cdf_row_search_cuda`` launches ``cdf_search`` (``csrc/cdf_search.cu``:
+one thread per token answers a target <= 0 with 0 and queues the others,
+then every warp of the card walks queued tokens, one at a time). Its
+prefix sums add in 32-lane strips in the warp shuffle scan's order plus
+the carry of the strips before, as kernel 6's do, and its walk stops
+once that carry reaches the target: the terms
 must be non-negative (``zen_cdf``'s t4 is), so no later prefix lies below
 it. ``cdf_row_search_plain`` adds in exactly that order
 (``sparse_row.strip_count``) and never calls ``torch.cumsum``, so on the
@@ -69,14 +71,18 @@ def cdf_row_search_cuda(counts: torch.Tensor, rows: torch.Tensor,
             f"{tuple(rows.shape)}, term {tuple(term.shape)}, targets "
             f"{tuple(targets.shape)} (K >= 1)"
         )
-    if t >= 2**31 or r >= 2**31 or k >= 2**31:
+    if t > 2**31 - 2**16 or r >= 2**31 or k >= 2**31:
         raise ValueError(f"{t} tokens over {r} rows of {k} exceed the "
                          f"kernel's int sizes")
     out = torch.empty(t, dtype=torch.int32, device=counts.device)
+    # the queue's length, then one (token, row, target, 0) entry per
+    # searching token: 16-byte aligned, as a fresh allocation is
+    queue = torch.empty((t + 1) * 4, dtype=torch.int32, device=counts.device)
     stream = torch.cuda.current_stream(counts.device).cuda_stream
     with torch.cuda.device(counts.device):
         check_launch("cdf_search", library().cdf_search(
             counts.data_ptr(), rows.data_ptr(), term.data_ptr(),
-            targets.data_ptr(), out.data_ptr(), t, k, r, stream,
+            targets.data_ptr(), out.data_ptr(), queue.data_ptr(), t, k, r,
+            stream,
         ))
     return out

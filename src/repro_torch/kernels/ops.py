@@ -3,8 +3,7 @@ tensor launches the hand-written kernel, any other device raises.
 
 Arguments mirror ``repro/kernels/ops.py``. ``bt``/``bk``/``bs`` are
 accepted so that callers and configs carry over, but they change no draw:
-the CUDA kernels walk the real K (or row width J) with one warp (or, for
-the histogram, one thread) per token and need no padding.
+the CUDA kernels walk the real K (or row width J) and need no padding.
 
 Each wrapper counts its kernel launches in a plain int
 (:func:`launch_counts`), so a run can show that its main path went
@@ -161,15 +160,19 @@ def cdf_row_search(counts, rows, term, targets, *, bt: int = 256,
     return out
 
 
-def topic_histogram(rows_sorted, z_old, z_new, inc, num_rows: int,
-                    num_topics: int, *, bt: int = 256, bk: int = 512):
+def topic_histogram(rows, z_old, z_new, inc, num_rows: int,
+                    num_topics: int, *, order=None, bt: int = 256,
+                    bk: int = 512):
     """Signed delta histogram (num_rows, num_topics) int32: ``+inc[t]`` at
-    (rows[t], z_new[t]) and ``-inc[t]`` at (rows[t], z_old[t]). Rows need
-    not be sorted (the reference's must be); (T,) int32 ids and inc in."""
-    if _route(rows_sorted) == "cpu":
-        return topic_histogram_plain(rows_sorted, z_old, z_new, inc,
-                                     num_rows, num_topics)
-    out = topic_histogram_cuda(rows_sorted, z_old, z_new, inc, num_rows,
-                               num_topics)
+    (rows[t], z_new[t]) and ``-inc[t]`` at (rows[t], z_old[t]); ``inc``
+    None counts every token once. Rows need not be sorted (the
+    reference's must be); ``order`` (``topic_histogram.row_order(rows)``)
+    is the sorted walk the kernel takes (without it the kernel's wrapper
+    builds one), and changes no result. (T,) int32 ids and inc in."""
+    if _route(rows) == "cpu":
+        return topic_histogram_plain(rows, z_old, z_new, inc, num_rows,
+                                     num_topics)
+    out = topic_histogram_cuda(rows, z_old, z_new, inc, num_rows,
+                               num_topics, order=order)
     _LAUNCHES["topic_histogram"] += 1
     return out

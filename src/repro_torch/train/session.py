@@ -46,6 +46,7 @@ from repro_torch.core.keys import as_key, fold_in
 from repro_torch.core.likelihood import predictive_llh
 from repro_torch.core.types import CGSState, Corpus, LDAHyperParams
 from repro_torch.device import resolve_device
+from repro_torch.kernels.topic_histogram import RowOrder, row_order
 from repro_torch.train.schedule import ActionContext, Schedule, ScheduledAction
 
 
@@ -189,6 +190,9 @@ class SingleBoxPlan:
         # warm-up is handled by ``active_mask`` (start_iteration), so the
         # schedule's "exclusion_on" firing is a recorded no-op here
         self._excl = cfg.exclusion()
+        # the (word, doc) walks of the delta merge's kernel: the corpus's
+        # tokens never change, so they are built once, at first use
+        self._row_orders: Optional[Tuple[RowOrder, RowOrder]] = None
 
     # -- lifecycle ---------------------------------------------------------
     def init(self, rng, init_topics=None) -> CGSState:
@@ -228,9 +232,12 @@ class SingleBoxPlan:
         key = fold_in(state.rng, 2**20 + state.iteration)
         mask = active_mask(state, self._excl, key)
         z_new = torch.where(mask, self.sweep(state), state.topic)
+        use_kernel = algorithms.kernel_dispatch(self._knobs.kernels,
+                                                self.device)
         d_wk, d_kd, d_k = counts_lib.delta_counts(
             c.word, c.doc, state.topic, z_new, c.num_words, c.num_docs,
-            h.num_topics,
+            h.num_topics, use_kernel=use_kernel,
+            orders=self.row_orders() if use_kernel else None,
         )
         i_new, t_new = update_exclusion_stats(state, z_new, mask)
         return CGSState(
@@ -240,6 +247,16 @@ class SingleBoxPlan:
             iteration=state.iteration + 1,
             stale_iters=i_new, same_count=t_new,
         )
+
+    def row_orders(self) -> Tuple[RowOrder, RowOrder]:
+        """The word-major and doc-major walks of the corpus's tokens for
+        kernel 5 (``row_order``: the tokens' own order where it is sorted,
+        as doc rows are; else a stable sort and the gathered rows, 8 bytes
+        per token)."""
+        if self._row_orders is None:
+            self._row_orders = (row_order(self.corpus.word),
+                                row_order(self.corpus.doc))
+        return self._row_orders
 
     # -- metrics -----------------------------------------------------------
     def llh(self, state: CGSState) -> float:

@@ -231,7 +231,11 @@ def test_train_session_runs_through_the_training_kernels(cuda, kernels,
         st.check_invariants(sess.corpus)
     counts = ops.launch_counts()
     assert counts[kernel] == 3
-    assert all(v == 0 for name, v in counts.items() if name != kernel)
+    # the delta merge: kernel 5 twice per step (word and doc rows) where
+    # the session dispatches kernels, never under "off"
+    assert counts["topic_histogram"] == (6 if kernels == "auto" else 0)
+    assert all(v == 0 for name, v in counts.items()
+               if name not in (kernel, "topic_histogram"))
     assert sess.llh(st) > llh0
 
 
@@ -322,8 +326,9 @@ def test_padded_sparse_backends_train_on_card(cuda, algorithm, kernels,
         st.check_invariants(sess.corpus)
     counts = ops.launch_counts()
     assert (counts["sparse_row_sample"] > 0) == launches, counts
+    assert counts["topic_histogram"] == (6 if kernels == "auto" else 0)
     assert all(v == 0 for name, v in counts.items()
-               if name != "sparse_row_sample")
+               if name not in ("sparse_row_sample", "topic_histogram"))
     assert sess.llh(st) > llh0
 
 
@@ -385,6 +390,69 @@ def test_out_of_range_row_raises_in_cdf_search(cuda, row):
     assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
 
 
+def _cdf_case(dev, pattern, t=20000, k=1000, r=500):
+    """Kernel 7's inputs for one placement of the searching tokens (target
+    > 0) among the others: the walk must give each token the plain
+    version's count however the searching tokens cluster."""
+    g = torch.Generator(device=dev).manual_seed(len(pattern))
+    counts = torch.randint(0, 50, (r, k), generator=g, device=dev,
+                           dtype=torch.int32)
+    counts[3] = 0  # a zero-mass row
+    rows = torch.randint(0, r, (t,), generator=g, device=dev,
+                         dtype=torch.int32)
+    term = torch.rand(k, generator=g, device=dev) + 1e-3
+    mass = (counts[rows.long()].float() * term).sum(1)
+    live = torch.rand(t, generator=g, device=dev) * mass
+    pos = torch.arange(t, device=dev)
+    zero = torch.zeros(t, device=dev)
+    tgt = {
+        "all_zero": zero,
+        "all_searching": live,
+        "one_per_warp": torch.where(pos % 32 == 5, live, zero),
+        "one_full_warp": torch.where((pos >= 64) & (pos < 96), live, zero),
+        # longer than a block of the queueing kernel (1,024 tokens)
+        "clusters": torch.where((pos % 7000) < 3000, live, zero),
+        "negative": torch.where(pos % 3 == 0, live, -live - 1.0),
+        # past the row total, and +inf: the clamp to K - 1
+        "past_total": torch.where(pos % 2 == 0, mass * 1.5 + 1.0,
+                                  torch.full_like(mass, float("inf"))),
+    }[pattern]
+    return counts, rows, term, tgt.contiguous()
+
+
+@pytest.mark.parametrize("pattern", ["all_zero", "all_searching",
+                                     "one_per_warp", "one_full_warp",
+                                     "clusters", "negative", "past_total"])
+def test_cdf_search_kernel_on_every_placement_of_searching_tokens(cuda,
+                                                                  pattern):
+    from repro_torch.kernels.cdf_search import cdf_row_search_plain
+
+    counts, rows, term, tgt = _cdf_case(cuda, pattern)
+    before = ops.launch_counts()["cdf_row_search"]
+    got = ops.cdf_row_search(counts, rows, term, tgt)
+    want = cdf_row_search_plain(counts, rows, term, tgt)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cdf_row_search"] == before + 1
+    assert torch.equal(got, want)
+    assert bool((got[tgt <= 0] == 0).all())
+    if pattern == "past_total":
+        assert bool((got == counts.shape[1] - 1).all())
+
+
+@pytest.mark.parametrize("target", [3.0, 0.0])
+@pytest.mark.parametrize("row", [10, -1])
+def test_out_of_range_row_raises_whether_its_token_searches_or_not(
+        cuda, row, target):
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    script = _OUT_OF_RANGE_ROW.format(row=row).replace(
+        "torch.full((64,), 3.0, device=d)",
+        f"torch.full((64,), {target}, device=d)")
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": src})
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+
+
 # -- the topic histogram (csrc/topic_histogram.cu) ----------------------------
 
 @pytest.mark.parametrize("t,r,k,sort", [(100000, 3000, 1000, True),
@@ -442,6 +510,153 @@ def test_out_of_range_id_raises_in_topic_histogram(cuda, which, value):
     assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
 
 
+_DECREASING_WALK = """
+import torch
+from repro_torch.kernels import ops
+from repro_torch.kernels.topic_histogram import RowOrder
+d = torch.device("cuda", 0)
+v = torch.zeros(70000, dtype=torch.int32, device=d)
+rows = torch.arange(70000, dtype=torch.int32, device=d) // 100
+walk = rows.clone()
+walk[{at}] = walk[{at} - 1] - 1  # one decrease along the walk
+try:
+    ops.topic_histogram(rows, v, v + 1, None, 700, 8,
+                        order=RowOrder(rows, walk, None))
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", e)
+"""
+
+
+@pytest.mark.parametrize("at", [205, 16384, 69999])
+def test_rows_decreasing_along_the_walk_raise_in_topic_histogram(cuda, at):
+    """A walk whose rows decrease (inside a tile, at a block's first
+    position, at the last position) aborts the launch."""
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run(
+        [sys.executable, "-c", _DECREASING_WALK.format(at=at)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": src})
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+
+
+def _hist_case(dev, case, k):
+    """Kernel 5's inputs: (rows, z_old, z_new, inc, R), 200,000 tokens in
+    row order unless the case says otherwise."""
+    g = torch.Generator(device=dev).manual_seed(k + len(case))
+    i32 = torch.int32
+    t, r = 200_000, 3000
+    if case == "slab":  # K about the shared-memory boundaries
+        t, r = 40_000, 400
+    rows = torch.randint(0, r, (t,), generator=g, device=dev, dtype=i32)
+    if case == "hot_25":  # one row holds 25% of the tokens
+        rows[::4] = 7
+    elif case == "hot_100":
+        rows[:] = 7
+    elif case == "gaps":  # most rows hold no token
+        rows = rows - rows % 97
+    if case != "unsorted":
+        rows = torch.sort(rows).values
+    zo = torch.randint(0, k, (t,), generator=g, device=dev, dtype=i32)
+    zn = torch.where(torch.rand(t, generator=g, device=dev) < 0.7,
+                     torch.randint(0, k, (t,), generator=g, device=dev,
+                                   dtype=i32), zo)
+    inc = torch.randint(-2, 3, (t,), generator=g, device=dev, dtype=i32)
+    if case == "inc_zero":
+        inc.zero_()
+    return rows, zo, zn, inc, r
+
+
+def _dirty_pool(dev, shape):
+    """Leave a block of the caching allocator full of non-zero bytes, so
+    that an output entry the kernel fails to write shows."""
+    torch.full(shape, -7, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+
+
+def _boundary_k(dev, which):
+    """K on either side of the launcher's two shared-memory boundaries:
+    where a histogram per warp stops fitting, and where the block's own
+    stops fitting (slabs)."""
+    from repro_torch.kernels.topic_histogram import histogram_shape
+
+    fit = histogram_shape(1 << 30, dev)[0]  # the widest slab
+    warp_fit = max(k for k in range(fit // 9 - 64, fit // 9 + 64)
+                   if histogram_shape(k, dev)[1])
+    k = {"warp_fits": warp_fit, "warp_over": warp_fit + 1,
+         "slab_fits": fit, "slab_over": fit + 1}[which]
+    slab, warp_runs = histogram_shape(k, dev)
+    assert warp_runs == (which == "warp_fits")
+    assert slab == min(k, fit)
+    return k
+
+
+@pytest.mark.parametrize("case,k", [
+    ("hot_25", 1000), ("hot_100", 1000), ("unsorted", 1000),
+    ("inc_zero", 1000), ("gaps", 1000), ("plain_rows", 10_000),
+    ("hot_25", 10_000), ("plain_rows", 37),
+    ("slab", "warp_fits"), ("slab", "warp_over"),
+    ("slab", "slab_fits"), ("slab", "slab_over")])
+def test_topic_histogram_cases_bit_equal_on_card(cuda, case, k):
+    from repro_torch.kernels.topic_histogram import (
+        row_order,
+        topic_histogram_plain,
+    )
+
+    if isinstance(k, str):
+        k = _boundary_k(cuda, k)
+    rows, zo, zn, inc, r = _hist_case(cuda, case, k)
+    want = topic_histogram_plain(rows, zo, zn, inc, r, k)
+    for weights in (inc, None):
+        if weights is None:
+            want = topic_histogram_plain(rows, zo, zn, None, r, k)
+        for order in (None, row_order(rows)):
+            _dirty_pool(cuda, (r, k))
+            before = ops.launch_counts()["topic_histogram"]
+            got = ops.topic_histogram(rows, zo, zn, weights, r, k,
+                                      order=order)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["topic_histogram"] == before + 1
+            assert torch.equal(got, want), (case, k, weights is None,
+                                            order is None)
+
+
+def test_topic_histogram_of_no_token_is_zero_on_card(cuda):
+    e = torch.empty(0, dtype=torch.int32, device=cuda)
+    _dirty_pool(cuda, (30, 40))
+    got = ops.topic_histogram(e, e, e, e, 30, 40)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("algorithm", ["zen", "zen_pallas", "zen_sparse"])
+def test_session_merge_runs_kernel_5_only_when_dispatched(cuda, algorithm):
+    """The delta merge launches kernel 5 twice per step under "auto" and
+    never under "off", and both give the same counts."""
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus = synthetic_corpus(0, 300, 400, 60)  # Zipf words: hot rows
+    states = {}
+    for kernels in ("auto", "off"):
+        sess = TrainSession(corpus, LDAHyperParams(num_topics=16),
+                            RunConfig(algorithm=algorithm, kernels=kernels),
+                            device=cuda)
+        st = sess.init(0)
+        ops.reset_launch_counts()
+        for _ in range(3):
+            st = sess.step(st)
+            st.check_invariants(sess.corpus)
+        hist = ops.launch_counts()["topic_histogram"]
+        assert hist == (6 if kernels == "auto" else 0), (kernels, hist)
+        states[kernels] = st
+    # the same draws on either route (zen_pallas: fused == gathered)
+    for name in ("topic", "n_wk", "n_kd", "n_k"):
+        assert torch.equal(getattr(states["auto"], name),
+                           getattr(states["off"], name)), name
+
+
 # -- zen_cdf on the card ---------------------------------------------------
 
 @pytest.mark.parametrize("kernels,launches", [("auto", True),
@@ -463,10 +678,12 @@ def test_zen_cdf_session_on_card_launches_only_kernel_7(cuda, kernels,
         st = sess.step(st)
         st.check_invariants(sess.corpus)
     counts = ops.launch_counts()
-    # one token chunk per sweep: two searches (draws a and b) each
+    # one token chunk per sweep: two searches (draws a and b) each; the
+    # delta merge two histograms per step
     assert counts["cdf_row_search"] == (6 if launches else 0), counts
+    assert counts["topic_histogram"] == (6 if launches else 0), counts
     assert all(v == 0 for name, v in counts.items()
-               if name != "cdf_row_search")
+               if name not in ("cdf_row_search", "topic_histogram"))
     assert sess.llh(st) > llh0
 
 

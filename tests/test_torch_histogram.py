@@ -135,3 +135,54 @@ def test_cuda_wrapper_validates_before_launch():
     with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.topic_histogram(rows.to("meta"), zo.to("meta"), zn.to("meta"),
                             inc.to("meta"), 3, 5)
+
+
+@pytest.mark.parametrize("sort", [True, False])
+def test_row_order_is_the_stable_row_major_walk(sort):
+    rows = _inputs(21, 300, 5, 40, sort=sort)[0]
+    walk = topic_histogram.row_order(torch.from_numpy(rows))
+    if sort:  # already sorted: the tokens' own order, nothing stored
+        assert walk.order is None
+        np.testing.assert_array_equal(walk.rows.numpy(), rows)
+    else:
+        want = np.argsort(rows, kind="stable")
+        assert walk.order.dtype == torch.int32
+        np.testing.assert_array_equal(walk.order.numpy(), want)
+        np.testing.assert_array_equal(walk.rows.numpy(), rows[want])
+
+
+@pytest.mark.parametrize("t,k,r", [(700, 30, 25), (64, 7, 1), (1, 3, 2)])
+def test_walk_and_unit_weights_change_nothing(t, k, r):
+    """``order`` only chooses the kernel's walk, and ``inc=None`` is a
+    weight of one per token: the results equal the reference oracle's."""
+    rows, zo, zn, _ = _inputs(3 * t + k, t, k, r, sort=False)
+    ones = np.ones(t, np.int32)
+    want = _jax(jref.topic_histogram_ref, rows, zo, zn, ones, r, k)
+    tr, tzo, tzn = (torch.from_numpy(a) for a in (rows, zo, zn))
+    for order in (None, topic_histogram.row_order(tr)):
+        got = ops.topic_histogram(tr, tzo, tzn, None, r, k, order=order)
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        topic_histogram.topic_histogram_plain(tr, tzo, tzn, None, r,
+                                              k).numpy(), want)
+
+
+def test_cuda_wrapper_checks_the_walk_before_launch():
+    rows, zo, zn, inc = (torch.from_numpy(a) for a in _inputs(4, 8, 5, 3))
+    walk = topic_histogram.RowOrder(rows, rows,
+                                    torch.arange(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        topic_histogram.topic_histogram_cuda(rows, zo, zn, None, 3, 5,
+                                             order=walk)
+
+
+def test_cuda_wrapper_refuses_a_walk_of_other_rows():
+    """A walk serves only the rows it was built from: one of other rows of
+    the same length is refused before anything else is checked."""
+    rows, zo, zn, _ = (torch.from_numpy(a)
+                       for a in _inputs(6, 8, 5, 3, sort=False))
+    other = topic_histogram.row_order(rows.flip(0).contiguous())
+    assert torch.equal(topic_histogram.row_order(rows).source, rows)
+    with pytest.raises(ValueError, match="other rows"):
+        topic_histogram.topic_histogram_cuda(rows, zo, zn, None, 3, 5,
+                                             order=other)

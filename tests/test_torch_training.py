@@ -111,6 +111,72 @@ def test_delta_counts_and_word_frequencies_bit_equal(masked):
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
 
 
+@pytest.mark.parametrize("case", ["masked", "unchanged", "hot_word"])
+def test_plan_row_orders_and_kernel_route_delta_counts(case):
+    """The plan's word-major and doc-major walks are the stable row-major
+    orders of the corpus, and ``delta_counts`` called as the plan calls it
+    where kernels are dispatched (``use_kernel``, those walks; on the CPU
+    the kernel's plain version, which takes no walk) equals the
+    reference's scatter-adds bit for bit: masked tokens, unchanged tokens,
+    and a corpus where one word holds >= 25% of the tokens."""
+    rng = np.random.default_rng(5)
+    e, w, d, k = 2000, 60, 30, 9
+    word = rng.integers(0, w, e).astype(np.int32)
+    if case == "hot_word":
+        word[rng.random(e) < 0.3] = 17
+        assert (word == 17).mean() >= 0.25
+    doc = np.sort(rng.integers(0, d, e)).astype(np.int32)
+    old = rng.integers(0, k, e).astype(np.int32)
+    new = rng.integers(0, k, e).astype(np.int32)
+    keep = rng.random(e) < (0.5 if case == "unchanged" else 0.1)
+    new[keep] = old[keep]  # unchanged tokens add nothing
+    mask = rng.random(e) < 0.7 if case == "masked" else None
+    tc = Corpus(word=torch.from_numpy(word), doc=torch.from_numpy(doc),
+                num_words=w, num_docs=d)
+    plan = SingleBoxPlan(tc, LDAHyperParams(num_topics=k),
+                         RunConfig(algorithm="zen", kernels="on"),
+                         device="cpu")
+    w_order, d_order = plan.row_orders()
+    assert d_order.order is None  # doc rows: the corpus order is sorted
+    assert bool((w_order.rows[1:] >= w_order.rows[:-1]).all())
+    assert torch.equal(tc.word[w_order.order.long()], w_order.rows)
+    j = jcounts.delta_counts(jnp.asarray(word), jnp.asarray(doc),
+                             jnp.asarray(old), jnp.asarray(new), w, d, k,
+                             mask=None if mask is None else jnp.asarray(mask))
+    t = counts.delta_counts(
+        tc.word, tc.doc, torch.from_numpy(old), torch.from_numpy(new), w, d,
+        k, mask=None if mask is None else torch.from_numpy(mask),
+        use_kernel=True, orders=plan.row_orders())
+    for a, b in zip(j, t):
+        assert b.dtype == torch.int32
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("algorithm", ["zen", "zen_pallas", "zen_cdf"])
+def test_session_states_equal_under_every_kernel_policy_on_cpu(algorithm):
+    """On the CPU "auto" dispatches no kernel and "on" takes the kernels'
+    plain versions (the delta merge along the plan's row walks): after 3
+    steps every state equals the "off" run's."""
+    tc, _ = synthetic_lda_corpus(0, 60, 80, 6, 30)
+    th = LDAHyperParams(num_topics=6, alpha=0.1, beta=0.01)
+    states = {}
+    for kernels in ("auto", "on", "off"):
+        sess = TrainSession(tc, th, RunConfig(algorithm=algorithm,
+                                              kernels=kernels),
+                            device="cpu")
+        st = sess.init(0)
+        for _ in range(3):
+            st = sess.step(st)
+            st.check_invariants(sess.corpus)
+        states[kernels] = st
+    for kernels in ("auto", "on"):
+        for name in ("topic", "prev_topic", "n_wk", "n_kd", "n_k",
+                     "stale_iters", "same_count"):
+            assert torch.equal(getattr(states[kernels], name),
+                               getattr(states["off"], name)), \
+                (kernels, name)
+
+
 def test_exclusion_stats_and_resample_prob_bit_equal():
     (jc, js, _), (tc, ts, _) = _corpus_state(3)
     rng = np.random.default_rng(4)
@@ -415,6 +481,43 @@ def test_whole_runs_match_reference_perplexity():
         port = _chains(tc, th, init_topics, algorithm)
         assert abs(np.mean(port) / ref_mean - 1) < 0.10, \
             (algorithm, port, ref_ppl)
+
+
+@pytest.mark.parametrize("seed,max_kd", [
+    *(pytest.param(s, 8, id=str(s)) for s in range(6)),
+    *(pytest.param(s, 64, id=f"{s}-control") for s in range(6))])
+def test_zen_cdf_doc_topk_truncation_tracks_the_reference(seed, max_kd):
+    """``zen_cdf`` on K = 64 topics, both packages from the reference's
+    initial topics, 6 iterations. With doc rows truncated to their top
+    max_kd = 8 (60-token documents: most rows hold more than 8) and, as
+    the control, with max_kd = K (nothing truncated, so only the two
+    packages' own chains differ): the port's llh lies within 1% of the
+    reference's after every iteration. Each case prints its largest gap
+    (``pytest -s``): the band sits just above the controls' and far below
+    a 2% gap of the truncation between the packages."""
+    jc, _ = j_lda_corpus(0, 60, 150, 64, 60)
+    tc, _ = synthetic_lda_corpus(0, 60, 150, 64, 60)
+    jh = JHyper(num_topics=64, alpha=0.1, beta=0.01)
+    th = LDAHyperParams(num_topics=64, alpha=0.1, beta=0.01)
+    js = JSession(jc, jh, JRunConfig(algorithm="zen_cdf", max_kd=max_kd))
+    jst = js.init(jax.random.key(seed))
+    sess = TrainSession(tc, th,
+                        RunConfig(algorithm="zen_cdf", max_kd=max_kd),
+                        device="cpu")
+    st = sess.init(seed, init_topics=np.asarray(jst.topic))
+    assert float(np.asarray(jst.n_kd).astype(bool).sum(1).max()) > 8
+    ref, port = [js.llh(jst)], [sess.llh(st)]
+    for _ in range(6):
+        jst, st = js.step(jst), sess.step(st)
+        st.check_invariants(sess.corpus)
+        ref.append(js.llh(jst))
+        port.append(sess.llh(st))
+    assert port[0] == pytest.approx(ref[0], rel=1e-6)
+    assert port[-1] > port[0]
+    gap = max(abs(b / a - 1) for a, b in zip(ref[1:], port[1:]))
+    print(f"zen_cdf K=64 max_kd={max_kd} seed={seed}: largest llh gap "
+          f"{gap:.4%}")
+    assert gap < 0.01, (ref, port)
 
 
 # -- config, state and checkpoints cross between the packages ---------------
