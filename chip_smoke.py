@@ -12,11 +12,15 @@ Phases, each printing one JSON line:
    ``topic_histogram.cu`` for sm_90a, one nvcc each, in parallel (prints
    the ``-Xptxas -v`` summary);
 3. kernels — both serving kernels at NYTIMES width (W = 101,636,
-   K = 1000) on one full bucket sweep (32 slots x 512 = 16,384 tokens):
-   the fused kernel must be bit-equal to the gathered one, and both may
-   differ from the plain torch version on the card only at counted
-   near-ties (top two scores within 1e-4) on at most 1e-4 of tokens;
-   CUDA-event times of kernels and plain version, and the bound;
+   K = 1000) on one full bucket sweep (32 slots x 512 = 16,384 tokens) of
+   random counts: the fused kernel must be bit-equal to the gathered one
+   and to the exact loop (``zen_infer_exact``: the exact chain for every
+   (t, k), one warp per token, as the kernels ran before their redesign),
+   and both may differ from the plain torch version on the card only at
+   counted near-ties (top two scores within 1e-4) on at most 1e-4 of
+   tokens; CUDA-event times of kernels, exact loop and plain version, the
+   kernels' stats (topics scored exactly, exact-loop tokens), the fast
+   loop's and the exact chain's SASS per (t, k), and the bounds;
 4. serving — a planted NYTIMES-width model (each word one dominant topic,
    ~12M tokens of counts) saved with ``save_lda_model``, loaded back with
    ``FrozenLDAModel.from_checkpoint``, and 256 documents of Poisson(332)
@@ -25,11 +29,23 @@ Phases, each printing one JSON line:
    (``kernels="off"``), latency mode (RT-LDA), then 64 documents through
    ``zen_cdf``'s frozen CDF tables. Every theta must be
    finite and sum to 1, the top topic must match the planted one on at
-   least 90% of single-topic documents, and latency-mode assignments must
-   equal those of the same engine on the CPU for a sample of documents.
+   least 90% of single-topic documents, the two throughput runs' thetas
+   must equal ``SERVE_RECORD`` (taken before the kernels' redesign), and
+   latency-mode assignments must equal those of the same engine on the
+   CPU for a sample of documents.
    Each run's launch counts are zeroed after its warm-up and read right
    after its serving window: a throughput run must launch its own kernel
-   and no other, and the latency and zen_cdf runs (no kernel) none.
+   and no other, and the latency and zen_cdf runs (no kernel) none. Then
+   both serving kernels on the fused run's own inputs (its 10th launch at
+   the widest bucket, captured from a repeat of the run), checked and
+   timed as in phase 3; the serving adversarial grid
+   (``SERVE_ADVERSARIAL``: +inf noise, also at a z_old clamped at p =
+   1e-30, the forced bucket, exact ties in the bucket, across two lanes
+   and in one lane, the engine's padding positions, the clamp, K = 1, 5,
+   37 and 36, inputs outside the premise, and K = 14,464, 14,592 and
+   16,385 about the table's move to global memory), each at 0 mismatches
+   against the exact loop with fused == gathered; and the serving
+   estimate's margin premises checked by exhaustion;
 5. train_kernels — both training kernels at NYTIMES width on the first
    1,048,576 tokens of the corpus below after init (the gathered rows are
    8.4 GB): fused bit-equal to gathered, each bit-equal to its plain
@@ -118,6 +134,7 @@ repository's ``src/`` is missing, or when any check fails.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import shutil
@@ -176,6 +193,15 @@ RECORD = {
     },
 }
 TRAIN_SMALL_LLH = -5.84568195283306  # fused and gathered, per token
+# The serving runs' thetas (theta_digest), as this script measured them
+# before kernels 3 and 4 were redesigned (NVIDIA H100 80GB HBM3, 700 W):
+# a redesign that keeps every draw keeps them
+SERVE_RECORD = {
+    "throughput_fused":
+        "0b6a643fe05845777c0f3971e1aa6cc536f1f61bb03621aae72cd03cbb1f8b6d",
+    "throughput_gathered":
+        "1f903eb536c157bb6d4a33cabec7b7f0c1d854d9d3eae60fbcaba6fcfc4d47d0",
+}
 
 
 def emit(obj) -> None:
@@ -232,47 +258,57 @@ def cuda_ms(fn, reps: int, warmup: int = 2, gate: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(gen, dev, sm_count: int, sm_clock_hz: float):
-    """Both kernels against each other and the plain version."""
+def serve_kernels_on(a, sm_count: int, sm_clock_hz: float, reps: int = 20):
+    """Both serving kernels, the exact loop (zen_infer_exact: the exact
+    chain for every (t, k), one warp per token) and the plain version on
+    one input set ``a`` (n_wk, n_kd, word, slot, z, seeds, alpha, n_k,
+    beta, w_beta): fused == gathered == the exact loop (0 mismatches),
+    kernel against plain only at counted near-ties; CUDA-event times, the
+    kernels' stats, the bytes and the operation bounds."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_gather import zen_fused_infer_sample_plain
+    from repro_torch.kernels.fused_gather import (
+        zen_fused_infer_sample_cuda,
+        zen_fused_infer_sample_plain,
+        zen_infer_exact_cuda,
+    )
     from repro_torch.kernels.zen_sampler import gumbel_noise
 
-    w, k, b, t = W_NYT, K_NYT, SLOTS, SLOTS * BUCKET
-    i32 = torch.int32
-    n_wk = torch.randint(0, 64, (w, k), generator=gen, device=dev, dtype=i32)
-    n_kd = torch.randint(0, 12, (b, k), generator=gen, device=dev, dtype=i32)
-    word = torch.randint(0, w, (t,), generator=gen, device=dev, dtype=i32)
-    slot = torch.arange(b, device=dev, dtype=i32).repeat_interleave(BUCKET)
-    z = torch.randint(0, k, (t,), generator=gen, device=dev, dtype=i32)
-    seeds = torch.randint(0, 2**31 - 1, (t,), generator=gen, device=dev,
-                          dtype=i32)
-    n_k = n_wk.sum(0).to(torch.float32)
-    alpha = torch.rand(k, generator=gen, device=dev) * 0.1
-    beta, w_beta = 0.01, w * 0.01
+    n_wk, n_kd, word, slot, z, seeds = (a[n] for n in (
+        "n_wk", "n_kd", "word", "slot", "z", "seeds"))
+    alpha, n_k, beta, w_beta = a["alpha"], a["n_k"], a["beta"], a["w_beta"]
+    (w, k), b, t = n_wk.shape, n_kd.shape[0], word.shape[0]
+    args = (n_wk, n_kd, word, slot, z, seeds, alpha, n_k)
+    kw = dict(beta=beta, w_beta=w_beta)
     nwk_rows = n_wk[word.long()].contiguous()
     nkd_rows = n_kd[slot.long()].contiguous()
 
     def fused():
-        return ops.zen_fused_infer_sample(n_wk, n_kd, word, slot, z, seeds,
-                                          alpha, n_k, beta=beta,
-                                          w_beta=w_beta)
+        return ops.zen_fused_infer_sample(*args, **kw)
 
     def gathered():
         return ops.zen_infer_sample(nwk_rows, nkd_rows, z, seeds, alpha,
-                                    n_k, beta=beta, w_beta=w_beta)
+                                    n_k, **kw)
+
+    def exact():
+        return zen_infer_exact_cuda(*args, **kw)
 
     def plain():
-        return zen_fused_infer_sample_plain(n_wk, n_kd, word, slot, z, seeds,
-                                            alpha, n_k, beta=beta,
-                                            w_beta=w_beta)
+        return zen_fused_infer_sample_plain(*args, **kw)
 
-    out_f, out_g, out_p = fused(), gathered(), plain()
+    out_f, out_g, out_e, out_p = fused(), gathered(), exact(), plain()
+    stats = torch.zeros(3, dtype=torch.int64, device=n_wk.device)
+    out_s = zen_fused_infer_sample_cuda(*args, stats=stats, **kw)
     torch.cuda.synchronize()
     check(bool(torch.equal(out_f, out_g)),
           "fused and gathered kernels disagree")
+    check(bool(torch.equal(out_s, out_f)), "serving: stats run differs")
+    exact_mism = int((out_f != out_e).sum())
+    check(exact_mism == 0, f"serving kernels differ from the exact loop "
+          f"on {exact_mism} of {t} tokens")
+    check(int(out_f.min()) >= 0 and int(out_f.max()) < k,
+          "serving kernel drew a topic outside [0, K)")
     mism = (out_f != out_p).nonzero().flatten()
     gaps = []
     if mism.numel():
@@ -292,46 +328,387 @@ def phase_kernels(gen, dev, sm_count: int, sm_clock_hz: float):
     check(len(gaps) <= NEAR_TIE * t,
           f"{len(gaps)} kernel-vs-plain mismatches over {t} tokens")
 
-    ms_f = cuda_ms(fused, reps=20)
-    ms_g = cuda_ms(gathered, reps=20)
-    ms_p = cuda_ms(plain, reps=5)
-
+    # gated: a launch of the verified kernels is shorter than its host-side
+    # cost, so back to back they would be timed at the host's pace (kept
+    # apart as host_paced)
+    ms = {"fused": cuda_ms(fused, reps=reps, gate=True),
+          "gathered": cuda_ms(gathered, reps=reps, gate=True),
+          "exact_loop": cuda_ms(exact, reps=reps, gate=True),
+          "plain": cuda_ms(plain, reps=5)}
+    host_paced = {"fused": cuda_ms(fused, reps=reps),
+                  "gathered": cuda_ms(gathered, reps=reps),
+                  "exact_loop": cuda_ms(exact, reps=reps)}
     uniq = int(torch.unique(word).numel())
     vec = 2 * k * 4  # alpha_k and n_k
     tok = t * 4 * 4 + t * 4  # word/slot or z/seeds in, topics out
-    bytes_f = uniq * k * 4 + b * k * 4 + vec + tok
-    bytes_g = 2 * t * k * 4 + vec + t * 4 * 2 + t * 4
-    logf = 3 * t * k
-    sfu_rate = sm_count * SFU_PER_SM_PER_CLK * sm_clock_hz
-    logf_ms = logf / sfu_rate * 1e3
+    forced, cands, fallback = stats.tolist()
+    del nwk_rows, nkd_rows
+    return {
+        "T": t, "K": k, "W": w, "B": b, "unique_words": uniq,
+        "bytes_fused": uniq * k * 4 + b * k * 4 + vec + tok,
+        "bytes_gathered": 2 * t * k * 4 + vec + t * 4 * 2 + t * 4,
+        # the operations any exact draw needs: the hash of every (t, k)
+        # for its noise; this design's estimate adds three MUFU lg2 per
+        # (t, k), its own floor
+        "hash_ms": (HASH_INT_OPS * t * k
+                    / (sm_count * INT_PER_SM_PER_CLK * sm_clock_hz) * 1e3),
+        "mufu_lg2": 3 * t * k,
+        "design_mufu_ms": (3 * t * k / (sm_count * SFU_PER_SM_PER_CLK
+                                        * sm_clock_hz) * 1e3),
+        "ms": ms, "host_paced_ms": host_paced, "gaps": gaps,
+        "exact_loop_mismatches": exact_mism,
+        "exact_work": {"forced": forced, "candidates": cands,
+                       "exact_loop_tokens": fallback},
+        "exact_topics_per_token": (forced + cands) / t,
+        "exact_share": (forced + cands + fallback * k) / (t * k),
+    }
 
-    def row(name, replaces, ms, nbytes):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+def serve_sass():
+    """The serving kernels' SASS: the verified fused and gathered kernels'
+    fast loops at K = 1000 (4 topics per lane, table in shared memory) and
+    the exact loop's K loop (zen_infer_exact_kernel: the exact chain, one
+    topic per lane per pass, as the kernels before the redesign ran it for
+    every (t, k))."""
+    inst = "ILi4ELb1EE"
+    out = {name: fast_loop_stats(kern + inst, 4, source="zen_infer.cu")
+           for name, kern in (("zen_fused_infer_sample",
+                               "zen_infer_fused_kernel"),
+                              ("zen_infer_sample",
+                               "zen_infer_gathered_kernel"))}
+    out["exact_loop"] = sass_loop_stats("zen_infer_exact_kernel",
+                                        source="zen_infer.cu")
+    return out
+
+
+def issue_bound_ms(t: int, k: int, loop, work, sm_count: int,
+                   sm_clock_hz: float):
+    """Issue bound of one launch of a verified sampler (kernels 1-4), in
+    warp instructions: its fast loop (``fast_loop_stats``) over every pass,
+    one exact_score per exactly scored topic (the candidates of a token
+    share one divergent pass, so this overcounts) and ceil(K/32) exact
+    chains per exact-loop token (``work``: the stats output); None without
+    the SASS figures."""
+    if not loop or not loop["exact_score_instructions"]:
+        return None
+    warp_instr = (t * -(-k // (32 * loop["topics_per_pass"]))
+                  * loop["fast_loop_instructions"]
+                  + (work["forced"] + work["candidates"]
+                     + work["exact_loop_tokens"] * -(-k // 32))
+                  * loop["exact_score_instructions"])
+    return (warp_instr * 32 / (sm_count * INSTR_PER_SM_PER_CLK
+                               * sm_clock_hz) * 1e3)
+
+
+def serve_row_figures(r, name, sass, sm_count, sm_clock_hz):
+    """One serving kernel's figures on one input set ``r``."""
+    fused = name == "zen_fused_infer_sample"
+    nbytes = r["bytes_fused" if fused else "bytes_gathered"]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "ms": r["ms"]["fused" if fused else "gathered"],
+        "host_paced_ms": r["host_paced_ms"]["fused" if fused else "gathered"],
+        "plain_ms": r["ms"]["plain"],
+        "exact_loop_ms": r["ms"]["exact_loop"],
+        "bound_ms": max(bytes_ms, r["hash_ms"]),
+        "bound_by": "bytes" if bytes_ms >= r["hash_ms"] else "operations",
+        "bytes": nbytes, "bytes_ms": bytes_ms, "hash_ms": r["hash_ms"],
+        "mufu_lg2": r["mufu_lg2"], "design_mufu_ms": r["design_mufu_ms"],
+        "issue_bound_ms": issue_bound_ms(r["T"], r["K"], sass[name],
+                                         r["exact_work"], sm_count,
+                                         sm_clock_hz),
+        "exact_work": r["exact_work"],
+        "exact_topics_per_token": r["exact_topics_per_token"],
+        "exact_share": r["exact_share"], "tokens": r["T"],
+        "unique_words": r["unique_words"],
+    }
+
+
+def phase_kernels(gen, dev, sm_count: int, sm_clock_hz: float):
+    """Both kernels against each other, the exact loop and the plain
+    version, on random counts at the serving cell's shapes."""
+    import torch
+
+    w, k, b, t = W_NYT, K_NYT, SLOTS, SLOTS * BUCKET
+    i32 = torch.int32
+    n_wk = torch.randint(0, 64, (w, k), generator=gen, device=dev, dtype=i32)
+    n_kd = torch.randint(0, 12, (b, k), generator=gen, device=dev, dtype=i32)
+    word = torch.randint(0, w, (t,), generator=gen, device=dev, dtype=i32)
+    slot = torch.arange(b, device=dev, dtype=i32).repeat_interleave(BUCKET)
+    z = torch.randint(0, k, (t,), generator=gen, device=dev, dtype=i32)
+    seeds = torch.randint(0, 2**31 - 1, (t,), generator=gen, device=dev,
+                          dtype=i32)
+    n_k = n_wk.sum(0).to(torch.float32)
+    alpha = torch.rand(k, generator=gen, device=dev) * 0.1
+    r = serve_kernels_on(dict(n_wk=n_wk, n_kd=n_kd, word=word, slot=slot,
+                              z=z, seeds=seeds, alpha=alpha, n_k=n_k,
+                              beta=0.01, w_beta=w * 0.01),
+                         sm_count, sm_clock_hz)
+    sass = serve_sass()
+    gaps = r["gaps"]
+    # the fused kernel's fixed cost against its cost per token: gated
+    # times on the first 4,096 tokens (one sweep of 128-token buckets),
+    # all 16,384 and those four times over
+    from repro_torch.kernels import ops
+    by_tokens = {}
+    for n in (4096, t, 4 * t):
+        idx = torch.arange(n, device=dev) % t
+        sub = [x[idx].contiguous() for x in (word, slot, z, seeds)]
+        by_tokens[str(n)] = cuda_ms(
+            lambda: ops.zen_fused_infer_sample(n_wk, n_kd, *sub, alpha, n_k,
+                                               beta=0.01, w_beta=w * 0.01),
+            reps=20, gate=True)
+
+    def row(name, replaces):
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/zen_infer.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": max(gaps, default=0.0), "mismatches": len(gaps),
-            "near_tie_gaps": gaps, "tokens": t,
-            "ms": ms, "plain_ms": ms_p,
-            "bound_ms": max(bytes_ms, logf_ms),
-            "bound_by": "bytes" if bytes_ms >= logf_ms else "operations",
-            "bytes": nbytes, "bytes_ms": bytes_ms,
-            "logf": logf, "logf_ms": logf_ms, "library_ms": None,
+            "near_tie_gaps": gaps,
+            "exact_loop_mismatches": r["exact_loop_mismatches"],
+            **serve_row_figures(r, name, sass, sm_count, sm_clock_hz),
+            "sass": sass[name], "exact_loop_sass": sass["exact_loop"],
+            "library_ms": None,
+            **({"ms_by_tokens": by_tokens}
+               if name == "zen_fused_infer_sample" else {}),
         }
 
-    rows = [
-        row("zen_fused_infer_sample",
-            "src/repro/kernels/fused_gather.py:166", ms_f, bytes_f),
-        row("zen_infer_sample",
-            "src/repro/kernels/zen_sampler.py:218", ms_g, bytes_g),
-    ]
-    emit({"phase": "kernels", "W": w, "K": k, "T": t, "unique_words": uniq,
-          "fused_equals_gathered": True, "mismatches_vs_plain": len(gaps),
-          "ms": {"fused": ms_f, "gathered": ms_g, "plain": ms_p}})
-    del n_wk, nwk_rows, nkd_rows
+    rows = [row("zen_fused_infer_sample",
+                "src/repro/kernels/fused_gather.py:166"),
+            row("zen_infer_sample", "src/repro/kernels/zen_sampler.py:218")]
+    emit({"phase": "kernels", "W": w, "K": k, "T": t,
+          "unique_words": r["unique_words"], "fused_equals_gathered": True,
+          "exact_loop_mismatches": r["exact_loop_mismatches"],
+          "mismatches_vs_plain": len(gaps), "ms": r["ms"],
+          "host_paced_ms": r["host_paced_ms"], "exact_work": r["exact_work"],
+          "exact_topics_per_token": r["exact_topics_per_token"],
+          "fused_ms_by_tokens": by_tokens, "sass": sass})
+    del n_wk
     torch.cuda.empty_cache()
     return rows
+
+
+def capture_path_inputs(model, cfg, docs, seed: int, sweep: int):
+    """The inputs of the ``sweep``-th launch of the fused serving kernel
+    at the widest bucket (32 slots x 512 tokens) when ``docs`` are served
+    as the throughput_fused run serves them (the run is deterministic, so
+    these are that run's own): the model's n_wk, the bucket's n_kd, words,
+    slots, z and seeds, and the per-topic vectors."""
+    import repro_torch.algorithms.zen_pallas as zen_pallas
+    from repro_torch.serving import LDAEngine
+
+    seen = []
+    real = zen_pallas.zen_fused_infer_sample
+
+    def record(n_wk, n_kd, word, slot, z_old, seeds, alpha_k, n_k, *,
+               beta, w_beta, **kw):
+        if word.shape[0] == SLOTS * BUCKET:
+            seen.append(None if len(seen) != sweep else dict(
+                n_wk=n_wk, n_kd=n_kd.clone(), word=word.clone(),
+                slot=slot.clone(), z=z_old.clone(), seeds=seeds.clone(),
+                alpha=alpha_k, n_k=n_k, beta=beta, w_beta=w_beta))
+        return real(n_wk, n_kd, word, slot, z_old, seeds, alpha_k, n_k,
+                    beta=beta, w_beta=w_beta, **kw)
+
+    zen_pallas.zen_fused_infer_sample = record
+    try:
+        engine = LDAEngine(model, cfg, seed=seed)
+        engine.infer_batch(docs)
+    finally:
+        zen_pallas.zen_fused_infer_sample = real
+    check(len(seen) > sweep, f"serving path: {len(seen)} launches at the "
+          f"widest bucket, fewer than {sweep + 1}")
+    return seen[sweep]
+
+
+def phase_serve_path(model, cfg, docs, seed: int, rows, sm_count: int,
+                     sm_clock_hz: float):
+    """Both serving kernels on the throughput_fused run's own inputs (the
+    10th launch at the widest bucket), against the exact loop and the
+    plain version; their figures join ``rows`` under ``path``."""
+    import torch
+
+    a = capture_path_inputs(model, cfg, docs, seed, sweep=9)
+    r = serve_kernels_on(a, sm_count, sm_clock_hz)
+    # padding positions (past each slot's document, z_old often at N_kd =
+    # 0, the clamp) are sampled, then dropped by the engine
+    lens = [min(len(d), BUCKET) for d in docs if len(d) > BUCKET // 2]
+    sass = {row["name"]: row["sass"] for row in rows}
+    for row in rows:
+        row["path"] = serve_row_figures(r, row["name"], sass, sm_count,
+                                        sm_clock_hz)
+        row["path"]["mismatches_vs_plain"] = len(r["gaps"])
+    emit({"phase": "serve_path_kernels", "T": r["T"], "K": r["K"],
+          "unique_words": r["unique_words"], "ms": r["ms"],
+          "host_paced_ms": r["host_paced_ms"],
+          "padding_share_of_widest_bucket": 1 - sum(lens) / (len(lens)
+                                                          * BUCKET),
+          "exact_loop_mismatches": r["exact_loop_mismatches"],
+          "mismatches_vs_plain": len(r["gaps"]),
+          "exact_work": r["exact_work"],
+          "exact_topics_per_token": r["exact_topics_per_token"]})
+    torch.cuda.empty_cache()
+
+
+
+# The serving kernels' adversarial grid: (name, seed, T, K, W, B, kind,
+# pins). Slot s holds tokens [s T / B, (s + 1) T / B), as the serving path
+# lays out a bucket. A pin (token, token seed, topics, z_old) sets that
+# token's seed and z_old and must draw min(topics); a pin whose z_old is
+# one of its topics zeroes that doc count (the clamped z_old). Kind
+# "pinned": equal counts (n_wk 5, n_kd 2, alpha 0.05, N_k 1000, z_old 0)
+# with each pin's topics raised to 10^7 in its token's slot row, so that
+# one of them must win. The pins' coordinates (seed, 0, topic), held
+# against the JAX package's hash and oracles by
+# tests/test_torch_serve_kernels.py:
+# - inf_noise: seed 38296 has m = 2^24 - 1 at topic 415 (noise +inf), drawn
+#   by token 100 (z_old 7) and by token 2000, whose z_old is 415 with
+#   N_kd = 0 there, so its p clamps at 1e-30;
+# - top_bucket: seed 1003, topic 325, m = 16774212 (the forced bucket);
+# - top_bucket_tie: seed 141959, topics 156 and 406, m = 16773846 and
+#   16773845, one u: an exact tie of two forced topics;
+# - candidates_tie: seed 1025, topics 402 and 713 (lanes 4 and 18), equal
+#   m: two candidates rescored exactly;
+# - same_lane_tie: seed 1339, topics 696 and 826 (lane 14), equal m: a
+#   lane's two best tie, so the token takes the exact loop;
+# - padding: the engine's bucket state: each slot a document of 1 to 512
+#   tokens, z_old stale past it, n_kd counting the document alone, so
+#   many padding positions have N_kd = 0 at z_old (the clamp);
+# - p_clamp: alpha_k from 1e-33 to 1e-23 and empty counts, so p lies on
+#   both sides of the 1e-30 clamp;
+# - k_1, k_5, k_37 (one topic per lane), k_36 (a partial 128-topic pass),
+#   premise_off (one N_k + W b above 2^100: the block samples with the
+#   exact loop alone);
+# - k_14464 (the largest table an H100 block keeps in shared memory),
+#   k_14592 and k_16385 (tables the launcher puts in global memory, with 4
+#   and 1 topics per lane).
+SERVE_ADVERSARIAL = (
+    ("inf_noise", 21, 4096, 1000, 200, 8, "random",
+     ((100, 38296, (415,), 7), (2000, 38296, (415,), 415))),
+    ("top_bucket", 22, 4096, 1000, 200, 8, "pinned",
+     ((700, 1003, (325,), 0),)),
+    ("top_bucket_tie", 23, 4096, 1000, 200, 8, "pinned",
+     ((1200, 141959, (156, 406), 0),)),
+    ("candidates_tie", 24, 4096, 1000, 200, 8, "pinned",
+     ((1900, 1025, (402, 713), 0),)),
+    ("same_lane_tie", 25, 4096, 1000, 200, 8, "pinned",
+     ((3000, 1339, (696, 826), 0),)),
+    ("padding", 26, 16384, 1000, 5000, 32, "padding", ()),
+    ("p_clamp", 27, 4096, 1000, 100, 8, "clamp", ()),
+    ("k_1", 28, 4096, 1, 50, 8, "random", ()),
+    ("k_5", 29, 4096, 5, 50, 8, "random", ()),
+    ("k_37", 30, 4096, 37, 50, 8, "random", ()),
+    ("k_36", 31, 4096, 36, 50, 8, "random", ()),
+    ("premise_off", 32, 4096, 1000, 100, 8, "premise_off", ()),
+    ("k_14464", 33, 512, 14464, 60, 4, "random", ()),
+    ("k_14592", 34, 512, 14592, 60, 4, "random", ()),
+    ("k_16385", 35, 512, 16385, 60, 4, "random", ()),
+)
+
+
+def serve_adversarial_case(spec, dev):
+    """The inputs of one :data:`SERVE_ADVERSARIAL` case on ``dev``."""
+    import torch
+
+    _, seed, t, k, w, b, kind, pins = spec
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = torch.int32
+    word = torch.randint(0, w, (t,), generator=g, device=dev, dtype=i32)
+    slot = (torch.arange(t, device=dev) * b // t).to(i32)
+    z = torch.randint(0, k, (t,), generator=g, device=dev, dtype=i32)
+    seeds = torch.randint(0, 2**31 - 1, (t,), generator=g, device=dev,
+                          dtype=i32)
+    alpha = torch.rand(k, generator=g, device=dev) * 0.2 + 0.001
+    n_wk = torch.randint(0, 40, (w, k), generator=g, device=dev, dtype=i32)
+    n_k = None
+    if kind == "pinned":
+        n_wk = torch.full((w, k), 5, dtype=i32, device=dev)
+        n_kd = torch.full((b, k), 2, dtype=i32, device=dev)
+        alpha = torch.full((k,), 0.05, device=dev)
+        n_k = torch.full((k,), 1000.0, device=dev)
+        z.zero_()
+    elif kind == "clamp":
+        n_wk.zero_()
+        n_kd = torch.zeros((b, k), dtype=i32, device=dev)
+        alpha = 10.0 ** (torch.rand(k, generator=g, device=dev) * 10 - 33)
+        n_k = torch.full((k,), 1000.0, device=dev)
+    elif kind == "padding":
+        per = t // b
+        length = torch.randint(1, per + 1, (b,), generator=g, device=dev)
+        doc = torch.arange(t, device=dev) % per < length[slot.long()]
+        n_kd = torch.zeros((b, k), dtype=i32, device=dev)
+        n_kd.index_put_((slot[doc].long(), z[doc].long()),
+                        torch.ones_like(z[doc]), accumulate=True)
+    else:  # random, premise_off: each token's own topic counted
+        n_kd = torch.randint(0, 8, (b, k), generator=g, device=dev,
+                             dtype=i32)
+        n_kd.index_put_((slot.long(), z.long()), torch.ones_like(z),
+                        accumulate=True)
+    if n_k is None:
+        n_k = n_wk.sum(0).to(torch.float32)
+    if kind == "premise_off":
+        n_k[5] = 1e35
+    for tok, tseed, topics, z_old in pins:
+        seeds[tok] = tseed
+        z[tok] = z_old
+        row = int(slot[tok])
+        if kind == "pinned":
+            n_kd[row, list(topics)] = 10**7
+        if z_old in topics:
+            n_kd[row, z_old] = 0
+    return dict(n_wk=n_wk, n_kd=n_kd, word=word, slot=slot, z=z,
+                seeds=seeds, alpha=alpha, n_k=n_k, beta=0.01,
+                w_beta=w * 0.01)
+
+
+def serve_adversarial_check(spec, dev):
+    """Both serving kernels on one :data:`SERVE_ADVERSARIAL` case against
+    the exact loop: 0 mismatches, fused == gathered, the pinned draws.
+    Direct launches with the stats output, outside the launch counts.
+    Returns the case's summary, with where the launcher put the table."""
+    import torch
+
+    from repro_torch.kernels.fused_gather import (
+        zen_fused_infer_sample_cuda,
+        zen_infer_exact_cuda,
+    )
+    from repro_torch.kernels.zen_sampler import (
+        infer_global_table_entries,
+        zen_infer_sample_cuda,
+    )
+
+    name, _, t, k, _, _, _, pins = spec
+    a = serve_adversarial_case(spec, dev)
+    args = tuple(a[n] for n in ("n_wk", "n_kd", "word", "slot", "z",
+                                "seeds", "alpha", "n_k"))
+    kw = dict(beta=a["beta"], w_beta=a["w_beta"])
+    exact = zen_infer_exact_cuda(*args, **kw)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    fused = zen_fused_infer_sample_cuda(*args, stats=stats, **kw)
+    gathered = zen_infer_sample_cuda(
+        a["n_wk"][a["word"].long()].contiguous(),
+        a["n_kd"][a["slot"].long()].contiguous(), a["z"], a["seeds"],
+        a["alpha"], a["n_k"], **kw)
+    torch.cuda.synchronize()
+    mism = int((fused != exact).sum())
+    check(bool(torch.equal(fused, gathered)),
+          f"serving adversarial {name}: fused != gathered")
+    check(mism == 0, f"serving adversarial {name}: {mism} mismatches "
+          "against the exact loop")
+    forced, cands, exact_loop = stats.tolist()
+    check(exact_loop == t if name == "premise_off" else
+          exact_loop < t and forced + cands < t * k,
+          f"serving adversarial {name}: exact work {stats.tolist()}")
+    for tok, _, topics, _ in pins:
+        check(int(fused[tok]) == min(topics),
+              f"serving adversarial {name}: token {tok} drew "
+              f"{int(fused[tok])}, pinned {min(topics)}")
+    table = "global" if infer_global_table_entries(k, dev) else "shared"
+    return {"case": name, "T": t, "K": k, "table": table,
+            "stats": stats.tolist(),
+            "pins": {str(p[0]): min(p[2]) for p in pins},
+            "mismatches": mism}
 
 
 def planted_model(gen, dev):
@@ -388,6 +765,15 @@ def serve(model, cfg, docs, seed: int):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return thetas, reqs, secs, ops.launch_counts()
+
+
+def theta_digest(thetas) -> str:
+    """SHA-256 of a serving run's thetas as float32 bytes: every draw of
+    the run decides them, so an unchanged digest shows unchanged draws."""
+    import numpy as np
+
+    return hashlib.sha256(
+        np.ascontiguousarray(thetas, dtype=np.float32).tobytes()).hexdigest()
 
 
 def check_thetas(name, thetas, topics, n_docs):
@@ -494,11 +880,16 @@ def main() -> int:
               "docs_per_sec": len(ds) / secs, "p50_ms": lat["p50"],
               "p99_ms": lat["p99"], "max_ms": lat["max"],
               "planted_top1_single": hit, "planted_top1_pair": pair_hit,
-              "launches": counts, "card": smi, "checkpoint_seconds": t_ckpt})
+              "launches": counts, "card": smi, "checkpoint_seconds": t_ckpt,
+              "theta_sha256": theta_digest(thetas)})
         check(all((v > 0) == (k == kernel) for k, v in counts.items()),
               f"{name}: expected launches of {kernel} only, got {counts}")
         if kernel is not None:
             launches[kernel] = counts[kernel]
+        if name in SERVE_RECORD:
+            check(theta_digest(thetas) == SERVE_RECORD[name],
+                  f"{name}: thetas differ from the record (a kernel "
+                  f"changed a draw)")
 
     # latency mode is deterministic: the CPU engine must agree exactly
     sample = list(range(16))
@@ -512,6 +903,13 @@ def main() -> int:
     for name, cfg, ds, _, _ in runs:
         emit({"phase": "profile", "run": name, "docs": len(ds[:64]),
               **profile_serving(model, cfg, ds[:64], args.seed)})
+    phase_serve_path(model, runs[0][1], docs, args.seed, rows,
+                     props.multi_processor_count, sm_clock_hz)
+    grid = [serve_adversarial_check(spec, dev) for spec in SERVE_ADVERSARIAL]
+    check(any(case["table"] == "global" for case in grid),
+          "serving adversarial grid: no case put the table in global memory")
+    emit({"phase": "serve_kernels_adversarial", "cases": grid,
+          "margin": margin_premises(dev, kernels="infer")})
 
     # -- training: kernels, the full NYTIMES run, the three backends ------
     train_rows, train_launches = run_training(args.seed, dev, props, smi,
@@ -619,9 +1017,9 @@ def fast_loop_stats(kernel: str, topics_per_pass: int,
     smallest backward-branch loop that holds the estimate's MUFU.LG2 (3
     per topic); its instructions less those that a forward branch skips
     over an exact-path CALL (the rare top-bucket block), per pass and per
-    (t, k); and the out-of-line exact_score's length (the CALL target up to
-    its RET), which each exact topic costs. None when the tool or the
-    pattern is missing."""
+    (t, k), with the fast loop's opcodes counted; and the out-of-line
+    exact_score's length (the CALL target up to its RET), which each exact
+    topic costs. None when the tool or the pattern is missing."""
     parsed = sass_function(kernel, source)
     if parsed is None:
         return None
@@ -658,8 +1056,15 @@ def fast_loop_stats(kernel: str, topics_per_pass: int,
                 if any(w.startswith("RET") for w in t.split()):
                     break
             exact = n
+    ops = {}
+    for a, t in body:
+        if a not in skipped:
+            op = t.split()[0] if not t.startswith("@") else t.split()[1]
+            ops[op] = ops.get(op, 0) + 1
     return {"loop_instructions": len(body),
             "fast_loop_instructions": fast,
+            "fast_loop_opcodes": dict(sorted(ops.items(),
+                                             key=lambda kv: -kv[1])),
             "topics_per_pass": topics_per_pass,
             "fast_instructions_per_tk": fast / topics_per_pass,
             "loop_mufu": sum("MUFU" in t for _, t in body),
@@ -826,13 +1231,14 @@ def adversarial_check(spec, dev):
             "mismatches": mism}
 
 
-def margin_premises(dev):
-    """The fast estimate's margin premises by exhaustion on the card:
-    E1 over every float in [1e-30, FLT_MAX], E2 over every m below the
-    forced bucket (and below other widths, for the record)."""
+def margin_premises(dev, kernels: str = "train"):
+    """A verified sampler's margin premises by exhaustion on the card
+    (``kernels``: "train" or "infer", each source's own estimate): E1 over
+    every float in [1e-30, FLT_MAX], E2 over every m below the forced
+    bucket (and below other widths, for the record)."""
     from repro_torch.kernels.zen_sampler import fast_score_errors
 
-    r = fast_score_errors(dev)
+    r = fast_score_errors(dev, kernels)
     noise = r["noise_err"]
     below = {f"2^{j}": float(noise[:(1 << 24) - (1 << j)].max())
              for j in range(8, 15)}
@@ -972,18 +1378,10 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
     def row(name, replaces, ms, nbytes):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         loop = sass[name]
-        issue_ms = None
-        if loop and loop["exact_score_instructions"]:
-            # warp instructions: the fast loop over every pass, one exact
-            # chain per exactly scored topic (the candidates of a token
-            # share one divergent pass, so this overcounts) and ceil(K/32)
-            # per exact-loop token
-            warp_instr = (t * -(-k // (32 * topics_per_pass))
-                          * loop["fast_loop_instructions"]
-                          + (forced + cands + fallback * -(-k // 32))
-                          * loop["exact_score_instructions"])
-            issue_ms = (warp_instr * 32 / (sm_count * INSTR_PER_SM_PER_CLK
-                                           * sm_clock_hz) * 1e3)
+        issue_ms = issue_bound_ms(
+            t, k, loop, {"forced": forced, "candidates": cands,
+                         "exact_loop_tokens": fallback},
+            sm_count, sm_clock_hz)
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/zen_train.cu",

@@ -41,9 +41,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of the sources' extern "C" launchers
 SIGNATURES = {
-    "zen_infer_gathered": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "zen_infer_gathered": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P,
+                           _P, _P),
     "zen_infer_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _F, _F, _P, _P, _P),
+    # the serving exact loop alone (test-only: the draws to keep)
+    "zen_infer_exact": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _F, _P),
+    # where the serving table goes, the estimate's margin and its
+    # exhaustive check (test-only)
+    "zen_infer_global_table": (_I, _P),
+    "zen_infer_constants": (_P, _P),
+    "zen_infer_fast_error": (_P, _I, _I, _P, _P),
     "zen_train_gathered": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                            _P, _P, _P),
     "zen_train_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -4,7 +4,8 @@ The gathered-row samplers read (T, K) rows that a caller materialised as
 ``n_wk[word]`` / ``n_kd[slot or doc]``. These variants read each token's
 rows straight out of the resident matrices, so no (T, K) intermediate
 exists. ``zen_fused_infer_sample_cuda`` launches ``zen_infer_fused``
-(``csrc/zen_infer.cu``) and ``zen_fused_sample_cuda`` launches
+(``csrc/zen_infer.cu``; ``zen_infer_exact_cuda``, test-only, its exact
+loop alone) and ``zen_fused_sample_cuda`` launches
 ``zen_train_fused`` (``csrc/zen_train.cu``); each shares its scoring
 routine with its gathered kernel, so the two are bit-identical on the
 card, as the reference requires of its Pallas kernels. The ``_plain``
@@ -21,6 +22,7 @@ from repro_torch.kernels.zen_sampler import (
     check_cuda_args,
     check_seed,
     infer_argmax_rows,
+    infer_launch_extras,
     train_argmax_rows,
     train_launch_extras,
 )
@@ -43,14 +45,8 @@ def zen_fused_infer_sample_plain(n_wk, n_kd, word, slot, z_old, seeds,
     return out
 
 
-def zen_fused_infer_sample_cuda(n_wk, n_kd, word, slot, z_old, seeds,
-                                alpha_k, n_k, *, beta: float,
-                                w_beta: float) -> torch.Tensor:
-    """Launch ``zen_infer_fused`` on the current stream; no sync. A word
-    or slot id outside its matrix aborts the kernel, and the caller's next
-    synchronize raises, as the plain version's indexing does on the card."""
-    from repro_torch.kernels._build import check_launch, library
-
+def _check_infer_args(n_wk, n_kd, word, slot, z_old, seeds, alpha_k, n_k):
+    """The fused serving launchers' checks; returns (T, K, W, B)."""
     i32, f32 = torch.int32, torch.float32
     check_cuda_args(
         [("n_wk", n_wk), ("n_kd", n_kd), ("word", word), ("slot", slot),
@@ -66,14 +62,54 @@ def zen_fused_infer_sample_cuda(n_wk, n_kd, word, slot, z_old, seeds,
             f"{tuple(n_kd.shape)}, token vectors of {t}, alpha_k "
             f"{tuple(alpha_k.shape)}, n_k {tuple(n_k.shape)}"
         )
-    out = torch.empty(t, dtype=i32, device=n_wk.device)
+    return t, k, w, b
+
+
+def zen_fused_infer_sample_cuda(n_wk, n_kd, word, slot, z_old, seeds,
+                                alpha_k, n_k, *, beta: float,
+                                w_beta: float, stats=None) -> torch.Tensor:
+    """Launch ``zen_infer_fused`` on the current stream; no sync. A word
+    or slot id outside its matrix aborts the kernel, and the caller's next
+    synchronize raises, as the plain version's indexing does on the card.
+    ``stats``: see :func:`repro_torch.kernels.zen_sampler.launch_extras`.
+    """
+    from repro_torch.kernels._build import check_launch, library
+
+    t, k, w, b = _check_infer_args(n_wk, n_kd, word, slot, z_old, seeds,
+                                   alpha_k, n_k)
+    out = torch.empty(t, dtype=torch.int32, device=n_wk.device)
+    scratch, extras = infer_launch_extras(k, n_wk.device, stats)
     stream = torch.cuda.current_stream(n_wk.device).cuda_stream
     with torch.cuda.device(n_wk.device):
         check_launch("zen_infer_fused", library().zen_infer_fused(
             n_wk.data_ptr(), n_kd.data_ptr(), word.data_ptr(),
             slot.data_ptr(), z_old.data_ptr(), seeds.data_ptr(),
             alpha_k.data_ptr(), n_k.data_ptr(), out.data_ptr(),
-            t, k, w, b, ctypes.c_float(beta), ctypes.c_float(w_beta), stream,
+            t, k, w, b, ctypes.c_float(beta), ctypes.c_float(w_beta),
+            *extras, stream,
+        ))
+    return out
+
+
+def zen_infer_exact_cuda(n_wk, n_kd, word, slot, z_old, seeds, alpha_k,
+                         n_k, *, beta: float, w_beta: float) -> torch.Tensor:
+    """Launch ``zen_infer_exact``, the exact loop alone over every token
+    (test-only: the draws the verified serving kernels must keep; gathered
+    rows go in as ``n_wk``/``n_kd`` with ``word = slot = arange(T)``), on
+    the current stream; no sync."""
+    from repro_torch.kernels._build import check_launch, library
+
+    t, k, w, b = _check_infer_args(n_wk, n_kd, word, slot, z_old, seeds,
+                                   alpha_k, n_k)
+    out = torch.empty(t, dtype=torch.int32, device=n_wk.device)
+    stream = torch.cuda.current_stream(n_wk.device).cuda_stream
+    with torch.cuda.device(n_wk.device):
+        check_launch("zen_infer_exact", library().zen_infer_exact(
+            n_wk.data_ptr(), n_kd.data_ptr(), word.data_ptr(),
+            slot.data_ptr(), z_old.data_ptr(), seeds.data_ptr(),
+            alpha_k.data_ptr(), n_k.data_ptr(), out.data_ptr(),
+            t, k, w, b, ctypes.c_float(beta), ctypes.c_float(w_beta),
+            stream,
         ))
     return out
 

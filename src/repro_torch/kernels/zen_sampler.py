@@ -179,8 +179,10 @@ def check_cuda_args(named, dtypes) -> None:
 
 
 def zen_infer_sample_cuda(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k,
-                          *, beta: float, w_beta: float) -> torch.Tensor:
-    """Launch ``zen_infer_gathered`` on the current stream; no sync."""
+                          *, beta: float, w_beta: float,
+                          stats=None) -> torch.Tensor:
+    """Launch ``zen_infer_gathered`` on the current stream; no sync.
+    ``stats``: see :func:`infer_launch_extras`."""
     from repro_torch.kernels._build import check_launch, library
 
     i32, f32 = torch.int32, torch.float32
@@ -200,69 +202,97 @@ def zen_infer_sample_cuda(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k,
             f"n_k {tuple(n_k.shape)}"
         )
     out = torch.empty(t, dtype=i32, device=nwk_rows.device)
+    scratch, extras = infer_launch_extras(k, nwk_rows.device, stats)
     stream = torch.cuda.current_stream(nwk_rows.device).cuda_stream
     with torch.cuda.device(nwk_rows.device):
         check_launch("zen_infer_gathered", library().zen_infer_gathered(
             nwk_rows.data_ptr(), nkd_rows.data_ptr(), z_old.data_ptr(),
             seeds.data_ptr(), alpha_k.data_ptr(), n_k.data_ptr(),
             out.data_ptr(), t, k, ctypes.c_float(beta),
-            ctypes.c_float(w_beta), stream,
+            ctypes.c_float(w_beta), *extras, stream,
         ))
     return out
 
 
-def train_global_table_entries(k: int, device) -> int:
-    """The float4 entries of global scratch a training launch at ``k``
-    topics needs on ``device``: 0 where the kernel keeps its per-topic
-    table in shared memory (the library's rule: wherever the table fits in
-    what a block can opt into, K <= 14,464 on an H100)."""
+def global_table_entries(k: int, device, query: str) -> int:
+    """The float4 entries of global scratch a launch at ``k`` topics needs
+    on ``device``, by the library's ``query`` (``zen_train_global_table``
+    or ``zen_infer_global_table``): 0 where the kernel keeps its per-topic
+    table in shared memory (wherever the table fits in what a block can
+    opt into, K <= 14,464 on an H100)."""
     from repro_torch.kernels._build import library
 
     entries = ctypes.c_longlong()
     with torch.cuda.device(device):
-        err = library().zen_train_global_table(int(k),
-                                               ctypes.addressof(entries))
+        err = getattr(library(), query)(int(k), ctypes.addressof(entries))
     if err:
-        raise RuntimeError(f"zen_train_global_table: cudaError {err}")
+        raise RuntimeError(f"{query}: cudaError {err}")
     return entries.value
 
 
-def train_launch_extras(k: int, device, stats):
-    """The training launchers' trailing arguments, after the scratch the
-    caller keeps until the launch: the global table's scratch (None where
-    the table goes in shared memory) and the optional stats pointer (an
-    int64 CUDA tensor of 3 that accumulates the topics scored exactly in
-    the pass or as z_old, the rescored candidates and the tokens sampled
-    by the exact loop; for tests and measurements: the path passes none).
-    """
+def train_global_table_entries(k: int, device) -> int:
+    """:func:`global_table_entries` of the training kernels."""
+    return global_table_entries(k, device, "zen_train_global_table")
+
+
+def infer_global_table_entries(k: int, device) -> int:
+    """:func:`global_table_entries` of the serving kernels."""
+    return global_table_entries(k, device, "zen_infer_global_table")
+
+
+def launch_extras(k: int, device, stats, table_entries):
+    """The verified samplers' trailing launch arguments, after the scratch
+    the caller keeps until the launch: the global table's scratch of
+    ``table_entries(k, device)`` float4 (None where the table goes in
+    shared memory) and the optional stats pointer (an int64 CUDA tensor of
+    3 that accumulates the topics scored exactly in the pass or as z_old,
+    the rescored candidates and the tokens sampled by the exact loop; for
+    tests and measurements: the paths pass none). ``stats`` is checked
+    before the library is asked anything."""
     if stats is not None:
         check_cuda_args([("stats", stats)], [torch.int64])
         if stats.shape != (3,) or stats.device != torch.device(device):
             raise ValueError("stats must be 3 int64 on the kernel's device")
-    entries = train_global_table_entries(k, device)
+    entries = table_entries(k, device)
     scratch = (torch.empty((entries, 4), dtype=torch.float32, device=device)
                if entries else None)
     return scratch, (None if scratch is None else scratch.data_ptr(),
                      None if stats is None else stats.data_ptr())
 
 
-def fast_score_errors(device) -> dict:
-    """The training estimate's margin premises, measured by exhaustion on
-    the card with the kernel's own estimate functions (test-only launch):
-    ``noise_err`` (2^24 float64, one per m) and ``log_err``, the largest
-    |ln2 lg2(x) - logf(x)| over every float x in [1e-30, FLT_MAX]."""
+def train_launch_extras(k: int, device, stats):
+    """:func:`launch_extras` of the training kernels."""
+    return launch_extras(k, device, stats, train_global_table_entries)
+
+
+def infer_launch_extras(k: int, device, stats):
+    """:func:`launch_extras` of the serving kernels."""
+    return launch_extras(k, device, stats, infer_global_table_entries)
+
+
+def fast_score_errors(device, kernels: str = "train") -> dict:
+    """A verified sampler's margin premises, measured by exhaustion on the
+    card with the kernel's own estimate functions (test-only launch;
+    ``kernels``: "train" for ``zen_train.cu``, "infer" for
+    ``zen_infer.cu``): ``noise_err`` (2^24 float64, one per m) and
+    ``log_err``, the largest |ln2 lg2(x) - logf(x)| over every float x in
+    [1e-30, FLT_MAX]."""
     from repro_torch.kernels._build import check_launch, library
 
+    if kernels not in ("train", "infer"):
+        raise ValueError(f"kernels must be 'train' or 'infer', not "
+                         f"{kernels!r}")
     lib = library()
     margin, top = ctypes.c_float(), ctypes.c_int()
-    lib.zen_train_constants(ctypes.addressof(margin),
-                            ctypes.addressof(top))
+    getattr(lib, f"zen_{kernels}_constants")(ctypes.addressof(margin),
+                                             ctypes.addressof(top))
     noise = torch.empty(1 << 24, dtype=torch.float64, device=device)
     worst = torch.zeros(1, dtype=torch.int64, device=device)
     lo = int(torch.tensor(1e-30, dtype=torch.float32).view(torch.int32))
     stream = torch.cuda.current_stream(device).cuda_stream
+    name = f"zen_{kernels}_fast_error"
     with torch.cuda.device(device):
-        check_launch("zen_train_fast_error", lib.zen_train_fast_error(
+        check_launch(name, getattr(lib, name)(
             noise.data_ptr(), lo, 0x7F7FFFFF, worst.data_ptr(), stream))
     torch.cuda.synchronize(device)
     return {"margin": margin.value, "top_bucket": top.value,

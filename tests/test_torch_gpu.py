@@ -127,6 +127,80 @@ def test_engine_serves_through_the_fused_kernel(cuda):
     assert ops.launch_counts()["zen_fused_infer_sample"] > 0
 
 
+# -- serving kernels (csrc/zen_infer.cu): bound, then verify ------------------
+# The verified kernels must draw what the exact loop (zen_infer_exact: the
+# exact chain for every topic) draws, bit for bit. Their adversarial grid
+# is chip_smoke.py's own (SERVE_ADVERSARIAL: +inf noise, also at a z_old
+# clamped at p = 1e-30, the forced bucket, exact ties in the bucket, in
+# two lanes and in one, the engine's padding, the clamp, K = 1, 5, 37, 36,
+# inputs outside the premise, and K = 14,464 / 14,592 / 16,385 about the
+# table's move from shared to global memory).
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the repo's root; stdlib-only at import)
+
+
+@pytest.mark.parametrize("spec", chip_smoke.SERVE_ADVERSARIAL,
+                         ids=[spec[0] for spec in chip_smoke.SERVE_ADVERSARIAL])
+def test_serving_kernels_adversarial_grid_on_card(cuda, spec):
+    """0 mismatches against the exact loop, fused == gathered and the
+    pinned draws (chip_smoke's check: a failure raises SystemExit); the
+    launcher keeps the table in shared memory up to K = 14,464."""
+    out = chip_smoke.serve_adversarial_check(spec, cuda)
+    assert out["mismatches"] == 0 and len(out["stats"]) == 3
+    assert out["table"] == ("global" if spec[3] > 14464 else "shared")
+
+
+@pytest.mark.parametrize("t,k,w,b", [(16384, 1000, 101636, 32),
+                                     (4096, 1000, 20000, 8),
+                                     (4099, 36, 50, 7), (333, 37, 50, 3),
+                                     (1, 5, 2, 1)])
+def test_serving_kernels_equal_the_exact_loop_and_stats_add_up(cuda, t, k,
+                                                               w, b):
+    """Fused == gathered == the exact loop; each token's exact work is its
+    own, so the stats of two launches over the halves add up to those of
+    one launch over all tokens, and the gathered kernel counts the same."""
+    from repro_torch.kernels.fused_gather import (
+        zen_fused_infer_sample_cuda,
+        zen_infer_exact_cuda,
+    )
+    from repro_torch.kernels.zen_sampler import zen_infer_sample_cuda
+
+    a = _inputs(cuda, t + k + 1, t, k, w, b)
+    names = ("n_wk", "n_kd", "word", "slot", "z", "seeds", "alpha", "n_k")
+    args = tuple(a[n] for n in names)
+    kw = dict(beta=0.01, w_beta=w * 0.01)
+    i64 = torch.int64
+    whole, split, g_stats = (torch.zeros(3, dtype=i64, device=cuda)
+                             for _ in range(3))
+    exact = zen_infer_exact_cuda(*args, **kw)
+    fused = zen_fused_infer_sample_cuda(*args, stats=whole, **kw)
+    gathered = zen_infer_sample_cuda(
+        a["n_wk"][a["word"].long()].contiguous(),
+        a["n_kd"][a["slot"].long()].contiguous(), a["z"], a["seeds"],
+        a["alpha"], a["n_k"], stats=g_stats, **kw)
+    h = t // 2
+    parts = [zen_fused_infer_sample_cuda(
+        *(x[lo:hi] if n in ("word", "slot", "z", "seeds") else x
+          for n, x in zip(names, args)), stats=split, **kw)
+        for lo, hi in ((0, h), (h, t))]
+    torch.cuda.synchronize()
+    assert torch.equal(fused, exact) and torch.equal(gathered, exact)
+    assert torch.equal(torch.cat(parts), fused)
+    assert torch.equal(split, whole) and torch.equal(g_stats, whole)
+    forced, cands, exact_loop = whole.tolist()
+    assert (exact_loop < t or t == 1) and forced + cands < t * k
+
+
+def test_serving_fast_estimate_margin_premises_by_exhaustion(cuda):
+    """zen_infer.cu's own estimate functions: E1 + E2 + 2^-14 within the
+    margin (chip_smoke's check), with the training sampler's constants."""
+    out = chip_smoke.margin_premises(cuda, kernels="infer")
+    assert out["margin"] == 2.0 ** -8
+    assert out["top_bucket"] == (1 << 24) - (1 << 12)
+    assert 0.0 < out["E1_log"] and 0.0 < out["E2_noise"]
+    assert out["sum"] <= out["margin"]
+
+
 # -- training kernels (csrc/zen_train.cu) --------------------------------------
 
 def _train_inputs(dev, seed, t, k, w, d):
@@ -244,8 +318,6 @@ def test_train_session_runs_through_the_training_kernels(cuda, kernels,
 # exact ties, p at the 1e-30 clamp, K = 37, 36 and 10,000, inputs outside
 # the fast estimate's premise, and K = 14,464 / 16,384 / 16,385 about the
 # table's move from shared to global memory.
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402  (the repo's root; stdlib-only at import)
 
 
 @pytest.mark.parametrize("spec", chip_smoke.ADVERSARIAL,
