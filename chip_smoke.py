@@ -122,11 +122,48 @@ Phases, each printing one JSON line:
    launching only its own kernel (``lightlda`` off, ``zen_cdf`` off and
    ``zen`` none) and, under ``kernels="auto"``, kernel 5 twice per step.
 
+14. stream — the live pipeline on the train corpus (``ReplaySource``,
+   32,768-document windows: 10 per epoch, the last of 4,840; 2 sweeps per
+   window): (1) rotation, ``zen_pallas`` fused, decay 0: 12 windows (one
+   epoch, then w0 and w1 again on their retained topics), a model
+   checkpoint every 4 windows; after the first, a throughput ``LDAEngine``
+   (``zen_pallas`` fused, buckets (128, 256, 512), 32 slots, 10 sweeps)
+   serves it under its background ticker, follows the directory
+   (``watch_checkpoint_dir``, period 0.2 s) and a client thread keeps 64
+   corpus documents in flight; the stream's callback waits (60 s at most)
+   for each later checkpoint's reload. Checks: ``n_k == n_wk.sum(0)``,
+   counts >= 0 and every token counted once after every window, finite
+   window perplexities, the final counts bit-equal to
+   ``assembled_state()``'s, every theta finite, versions never decreasing
+   within a bucket and the last request's >= 2, launches of kernels 2, 5
+   and 4 and none of the gathered ones; then one more window profiled.
+   (2) decay 0.02, ``zen_cdf`` (max_kd 64), 4 fresh windows: the count
+   checks, one transition's device decay equal to ``np.rint`` on the host
+   in float64, kernels 7 and 5 launched. (3) resume, the first 65,536
+   documents in 16,384-document windows: 6 windows straight, against 3
+   windows with a stream checkpoint and a new session resuming to 6:
+   counts, cursors and retained topics bit-equal. (4) kernel 2 on the
+   inputs of a 32,768-document window's first sweep, captured from the
+   session's call, against its plain version: every draw equal; then 2
+   windows of 8,192 documents under ``kernels="auto"`` (the fused path:
+   kernels 2 and 5) and ``"off"`` (the gathered path: kernel 1 and the
+   plain merge): bit-equal counts and retained topics, equal window llh.
+   After leg 1 the following engine, trainer idle and watcher stopped, is
+   timed at the stream client's load and at the serving phase's (256
+   documents at once, under the ticker and stepped inline), as a control
+   for the serving rate beside the trainer. Per window it prints
+   milliseconds by phase (host slice; then decay, copy with the plan,
+   compose and sweeps between CUDA events; eval and retire on the host
+   clock), docs/sec and tokens/sec; per leg the model-save times, the
+   reload latency from a checkpoint's commit to the version bump, serving
+   docs/sec and peak device memory.
+
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
 ``std`` (Eq. 3 as written, plain torch) within 1% of ``zen``.
 
-Then it prints the ``{"kernels": [...]}`` line (all seven kernels), the
+Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
+with its launches on its own path and on the stream phase's), the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
 non-zero, before any result, when no CUDA device is present, when the
 repository's ``src/`` is missing, or when any check fails.
@@ -160,6 +197,14 @@ INSTR_PER_SM_PER_CLK = 4 * 32  # 4 warp schedulers x 32 lanes
 INT_PER_SM_PER_CLK = 64  # 32-bit integer operations per SM per clock
 HASH_INT_OPS = 9  # integer operations of the counter hash per (t, k)
 NEAR_TIE = 1e-4
+# the stream phase: the train corpus replayed in windows
+STREAM_WINDOW_DOCS, STREAM_SWEEPS = 32_768, 2  # 10 windows per epoch
+STREAM_WINDOWS, STREAM_SAVE_EVERY = 12, 4  # one epoch, then w0, w1 again
+STREAM_DECAY, DECAY_WINDOWS = 0.02, 4
+RESUME_DOCS, RESUME_WINDOW_DOCS = 65_536, 16_384
+RESUME_WINDOWS, RESUME_KILL = 6, 3
+PLAIN_WINDOW_DOCS, PLAIN_WINDOWS = 8_192, 2
+STREAM_IDLE_SERVE_S = 2.0  # serving after the stream ends, trainer idle
 # kernel 5 (csrc/topic_histogram.cu) and kernel 7 (csrc/cdf_search.cu)
 # as the profiler names their device functions
 HIST_KERNELS = ("hist_sorted_kernel", "zero_cut_rows_kernel",
@@ -912,12 +957,14 @@ def main() -> int:
           "margin": margin_premises(dev, kernels="infer")})
 
     # -- training: kernels, the full NYTIMES run, the three backends ------
-    train_rows, train_launches = run_training(args.seed, dev, props, smi,
-                                              sm_clock_hz)
+    train_rows, train_launches, stream_launches = run_training(
+        args.seed, dev, props, smi, sm_clock_hz)
     launches.update(train_launches)
     rows = train_rows + rows
     for r in rows:
         r["launches"] = launches[r["name"]]
+        # the live pipeline's launches (stream phase: legs 1 and 2)
+        r["launches_stream"] = stream_launches.get(r["name"], 0)
         check(r["launches"] > 0,
               f"{r['name']} was not launched on its path")
     emit({"kernels": rows})
@@ -1623,7 +1670,6 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
     hyper = LDAHyperParams(num_topics=K_NYT)
     sess = TrainSession(corpus, hyper, RunConfig(algorithm="zen_pallas"),
                         device=dev)
-    del corpus
     t0 = time.perf_counter()
     st = sess.init(seed)
     st.check_invariants(sess.corpus)
@@ -1645,6 +1691,8 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
     del corpus_dev
     torch.cuda.empty_cache()
     phase_train_sparse_small(seed, dev, smi)
+    stream_counts = phase_stream(corpus, seed, dev, smi)
+    del corpus
     # kernel 5's launches on the delta merge of each full-width path
     merge = {"train": train_counts["topic_histogram"],
              "train_sparse": sparse_counts["topic_histogram"],
@@ -1657,7 +1705,7 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
         "zen_sample": gathered_launches,
         "sparse_row_sample": sparse_counts["sparse_row_sample"],
         "cdf_row_search": cdf_counts["cdf_row_search"],
-        "topic_histogram": train_counts["topic_histogram"]}
+        "topic_histogram": train_counts["topic_histogram"]}, stream_counts
 
 
 def phase_train_sparse(corpus, seed: int, smi):
@@ -2155,6 +2203,518 @@ def phase_train_sparse_small(seed: int, dev, smi):
     bad = {n: r for n, r in rel.items() if r >= SPARSE_LLH_BAND}
     check(not bad, f"train_sparse_small: llh/token off zen's by >= "
           f"{SPARSE_LLH_BAND:.0%}: {bad} ({llh})")
+
+
+def stream_source(corpus, window_docs: int, epochs: int):
+    """A ``ReplaySource`` that also records the host milliseconds of each
+    window's slice (``slice_ms``, in call order)."""
+    from repro_torch.data.stream import ReplaySource
+
+    class TimedReplay(ReplaySource):
+        def window_slice(self, slice_index):
+            t0 = time.perf_counter()
+            w = super().window_slice(slice_index)
+            self.slice_ms.append((time.perf_counter() - t0) * 1e3)
+            return w
+
+    src = TimedReplay(corpus, window_docs, epochs=epochs)
+    src.slice_ms = []
+    return src
+
+
+def stream_window_record(sess, src, m, tokens_seen=None):
+    """One window's line: its metrics, milliseconds by phase and rates,
+    after the count checks (``n_k == n_wk.sum(0)``, both >= 0, and with
+    ``tokens_seen`` the conserved token total)."""
+    import math
+
+    import torch
+
+    check(bool(torch.equal(sess.n_k, sess.n_wk.sum(0, dtype=torch.int32))),
+          f"stream window {m['window']}: n_k != n_wk.sum(0)")
+    check(bool((sess.n_wk >= 0).all()) and bool((sess.n_k >= 0).all()),
+          f"stream window {m['window']}: a negative count")
+    if tokens_seen is not None:
+        check(int(sess.n_k.sum(dtype=torch.int64)) == tokens_seen,
+              f"stream window {m['window']}: {int(sess.n_k.sum())} tokens "
+              f"in the model, {tokens_seen} seen")
+    check(math.isfinite(m["perplexity"]),
+          f"stream window {m['window']}: perplexity {m['perplexity']}")
+    t = sess.timings
+    dt = m["docs"] / m["docs_per_sec"]
+    return {"window": m["window"], "uid": m["uid"], "docs": m["docs"],
+            "tokens": m["tokens"], "perplexity": m["perplexity"],
+            "change_rate": m["change_rate"],
+            "docs_per_sec": m["docs_per_sec"],
+            "tokens_per_sec": m["tokens"] / dt,
+            "ms": {"slice": src.slice_ms[-1] if src.slice_ms else None,
+                   "copy": t["plan"], "compose": t["compose"],
+                   "sweeps": t["sweeps"], "eval": t["eval"],
+                   "decay": t["decay"], "retire": t["retire"]}}
+
+
+def serving_controls(engine, docs):
+    """The following engine once the trainer is idle and its watcher is
+    stopped, at three loads on its last model: the stream's closed-loop
+    client (64 documents in flight for STREAM_IDLE_SERVE_S seconds) and
+    N_DOCS documents at once, both under the background ticker, then
+    N_DOCS at once stepped inline by ``result``, as the serving phase
+    serves them."""
+    import numpy as np
+
+    def run(batches):
+        lat, n = [], 0
+        t0 = time.perf_counter()
+        for batch in batches:
+            tickets = [engine.submit_async(d) for d in batch]
+            reqs = [engine.request(t) for t in tickets]
+            for t in tickets:
+                engine.result(t, timeout=120)
+            lat += [(r.t_done - r.t_submit) * 1e3 for r in reqs]
+            n += len(batch)
+        secs = time.perf_counter() - t0
+        return {"docs": n, "seconds": secs, "docs_per_sec": n / secs,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99))}
+
+    def closed_loop():
+        t_end, i = time.perf_counter() + STREAM_IDLE_SERVE_S, 0
+        while time.perf_counter() < t_end:
+            yield [docs[(i + j) % len(docs)] for j in range(64)]
+            i += 64
+
+    burst = [docs[:N_DOCS]]
+    out = {}
+    engine.start(0.001)
+    try:
+        out["ticker_64_in_flight"] = run(closed_loop())
+        out["ticker_at_once"] = run(burst)
+    finally:
+        engine.stop()
+    out["inline_at_once"] = run(burst)
+    return out
+
+
+def stream_fused_vs_plain(corpus, hyper, seed: int, dev):
+    """Kernel 2 at the stream's shapes: the inputs of the first sweep of
+    one STREAM_WINDOW_DOCS window (the stream's first window, fresh
+    topics), captured from the session's own call, against the plain
+    version on the same inputs. The plain version materialises (T, K)
+    floats, so it runs in KERNEL_TOKENS slices at their token offsets."""
+    import torch
+
+    import repro_torch.algorithms.zen_pallas as zen_pallas
+    from repro_torch.kernels.fused_gather import zen_fused_sample_plain
+    from repro_torch.train.online import StreamingSession
+    from repro_torch.train.session import RunConfig
+
+    seen = []
+    real = zen_pallas.zen_fused_sample
+
+    def record(n_wk, n_kd, word, doc, z_old, alpha_k, n_k, kseed, *,
+               beta, w_beta, **kw):
+        out = real(n_wk, n_kd, word, doc, z_old, alpha_k, n_k, kseed,
+                   beta=beta, w_beta=w_beta, **kw)
+        if not seen:
+            seen.append(dict(
+                n_wk=n_wk.clone(), n_kd=n_kd.clone(), word=word.clone(),
+                doc=doc.clone(), z=z_old.clone(), alpha=alpha_k.clone(),
+                n_k=n_k.clone(), seed=kseed, beta=beta, w_beta=w_beta,
+                out=out.clone()))
+        return out
+
+    zen_pallas.zen_fused_sample = record
+    try:
+        StreamingSession(stream_source(corpus, STREAM_WINDOW_DOCS, 1), hyper,
+                         RunConfig(algorithm="zen_pallas", kernels="auto",
+                                   num_iterations=1,
+                                   window_docs=STREAM_WINDOW_DOCS,
+                                   window_sweeps=1),
+                         device=dev).run(seed)
+    finally:
+        zen_pallas.zen_fused_sample = real
+    check(len(seen) == 1, "stream: kernel 2 was not called on the window")
+    a = seen[0]
+    t = a["word"].shape[0]
+    mismatches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, t, KERNEL_TOKENS):
+        end = min(t, start + KERNEL_TOKENS)
+        plain = zen_fused_sample_plain(
+            a["n_wk"], a["n_kd"], a["word"][start:end], a["doc"][start:end],
+            a["z"][start:end], a["alpha"], a["n_k"], a["seed"],
+            beta=a["beta"], w_beta=a["w_beta"], row_offset=start)
+        mismatches += int((plain != a["out"][start:end]).sum())
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    # the verified design is exact: not even a near-tie may differ
+    check(mismatches == 0, f"stream: kernel 2 differs from its plain "
+          f"version on {mismatches} of {t} window tokens")
+    return {"window_docs": STREAM_WINDOW_DOCS, "tokens": t,
+            "docs_in_window": int(a["n_kd"].shape[0]),
+            "mismatches": mismatches, "plain_seconds": plain_s}
+
+
+def phase_stream(corpus, seed: int, dev, smi):
+    """The live pipeline on the card: streaming training (the NYTIMES
+    corpus replayed in windows) and a serving engine that hot-reloads the
+    trainer's model checkpoints. Four legs (see the module docstring);
+    returns the stream path's launch counts."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.types import Corpus, LDAHyperParams
+    from repro_torch.kernels import ops
+    from repro_torch.serving import FrozenLDAModel, LDAEngine, LDAServeConfig
+    from repro_torch.train.online import StreamingSession
+    from repro_torch.train.session import RunConfig
+
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    build = ROOT / "build"
+    models_dir = build / "chip_smoke_stream_models"
+    resume_dir = build / "chip_smoke_stream_resume"
+    for d in (models_dir, resume_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+    # -- leg 1: rotation (zen_pallas fused) followed by a serving engine --
+    t0 = time.perf_counter()
+    src = stream_source(corpus, STREAM_WINDOW_DOCS, epochs=2)
+    source_s = time.perf_counter() - t0
+    cfg = RunConfig(algorithm="zen_pallas", kernels="auto",
+                    num_iterations=STREAM_WINDOWS,
+                    window_docs=STREAM_WINDOW_DOCS,
+                    window_sweeps=STREAM_SWEEPS,
+                    checkpoint_dir=str(models_dir),
+                    checkpoint_every=STREAM_SAVE_EVERY)
+    sess = StreamingSession(src, hyper, cfg, device=dev)
+    saves, bumps, windows = [], [], []
+    live = {"engine": None, "tokens_seen": 0, "waited": 0}
+    served, served_lock = [], threading.Lock()
+    stop = threading.Event()
+    threads = []
+    real_save = sess.save_model
+
+    def timed_save(directory=None):
+        t = time.perf_counter()
+        path = real_save(directory)
+        done = time.perf_counter()
+        saves.append({"step": sess.windows_done, "ms": (done - t) * 1e3,
+                      "committed_at": done})
+        return path
+
+    sess.save_model = timed_save
+    first = src.window_slice(0).corpus
+    bounds = np.searchsorted(first.doc.numpy(),
+                             np.arange(first.num_docs + 1))
+    docs = [first.word.numpy()[bounds[d]:bounds[d + 1]]
+            for d in range(first.num_docs)]
+    src.slice_ms.clear()
+
+    def client(engine):
+        """Closed loop: 64 documents in flight, each batch reaped before
+        the next is submitted."""
+        i = 0
+        while not stop.is_set():
+            batch = [docs[(i + j) % len(docs)] for j in range(64)]
+            i += 64
+            tickets = [engine.submit_async(d) for d in batch]
+            reqs = [engine.request(t) for t in tickets]
+            thetas = [engine.result(t, timeout=120) for t in tickets]
+            with served_lock:
+                served.extend(
+                    (r.uid, r.model_version, len(r.words),
+                     bool(np.isfinite(th).all()), r.t_done - r.t_submit,
+                     r.t_done)
+                    for r, th in zip(reqs, thetas))
+
+    def monitor(engine):
+        version = engine.model_version
+        while not stop.is_set():
+            v = engine.model_version
+            if v != version:
+                bumps.append({"version": v, "at": time.perf_counter()})
+                version = v
+            time.sleep(0.002)
+
+    def wait_version(engine, version):
+        deadline = time.monotonic() + 60
+        while engine.model_version < version \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        check(engine.model_version >= version,
+              f"stream: the engine did not reach model version {version} "
+              f"within 60 s of its checkpoint (at {engine.model_version}; "
+              f"watcher error {engine.watch_error})")
+
+    def on_window(s, m):
+        if m["window"] < src.windows_per_epoch:
+            live["tokens_seen"] += m["tokens"]
+        windows.append(stream_window_record(s, src, m, live["tokens_seen"]))
+        eng = live["engine"]
+        if eng is None and saves:
+            # the first model checkpoint is on disk: serve it, follow
+            model = FrozenLDAModel.from_checkpoint(str(models_dir),
+                                                   device=dev)
+            eng = LDAEngine(model, LDAServeConfig(
+                buckets=(128, 256, 512), max_batch=SLOTS, num_sweeps=10,
+                algorithm="zen_pallas"), seed=seed)
+            eng.warm()
+            eng.start(0.001)
+            eng.watch_checkpoint_dir(str(models_dir), period=0.2,
+                                     initial_step=saves[0]["step"])
+            live["engine"], live["t_engine"] = eng, time.perf_counter()
+            live["waited"] = 1
+            for fn in (client, monitor):
+                th = threading.Thread(target=fn, args=(eng,), daemon=True)
+                th.start()
+                threads.append(th)
+        elif eng is not None and len(saves) > live["waited"]:
+            # the save after the previous window: wait for its reload
+            wait_version(eng, len(saves) - 1)
+            live["waited"] = len(saves)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess.run(seed, callback=on_window)
+    eng = live["engine"]
+    check(eng is not None, "stream: no model checkpoint started the engine")
+    wait_version(eng, len(saves) - 1)
+    t_idle = time.monotonic()
+    time.sleep(STREAM_IDLE_SERVE_S)  # serving on, the trainer idle
+    stop.set()
+    for th in threads:
+        th.join()
+    t_serve = time.perf_counter() - live["t_engine"]
+    watch_err = eng.stop_watching()
+    eng.stop()
+    torch.cuda.synchronize()
+    leg1_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "stream_serve_control", "version": eng.model_version,
+          **serving_controls(eng, docs), "card": smi})
+    for w in windows:
+        emit({"phase": "stream_window", "leg": "rotation", **w})
+    check(watch_err is None, f"stream: checkpoint watcher failed: "
+          f"{watch_err}")
+    check(len(windows) == STREAM_WINDOWS and sess.windows_done
+          == STREAM_WINDOWS, f"stream: {len(windows)} windows run")
+    check(all(x[3] for x in served) and len(served) > 0,
+          f"stream: {sum(not x[3] for x in served)} of {len(served)} "
+          f"thetas not finite")
+    # one bucket admits in submission order and never mixes versions, so
+    # versions never decrease within a bucket; across buckets a later
+    # short document may be admitted before an earlier long one
+    by_bucket = {}
+    for uid, version, n, *_ in sorted(served):
+        bl = next((b for b in (128, 256, 512) if n <= b), 512)
+        by_bucket.setdefault(bl, []).append(version)
+    check(all(v == sorted(v) for v in by_bucket.values()),
+          "stream: request versions decrease within a bucket")
+    last_version = sorted(served)[-1][1]
+    check(last_version >= 2, f"stream: the last request decoded under "
+          f"version {last_version}, not >= 2")
+    reloads = []
+    for k, save in enumerate(saves[1:], start=1):
+        bump = next((b for b in bumps if b["version"] >= k), None)
+        reloads.append(None if bump is None else
+                       (bump["at"] - save["committed_at"]) * 1e3)
+    t0 = time.perf_counter()
+    st = sess.assembled_state()
+    assemble_s = time.perf_counter() - t0
+    check(bool(torch.equal(st.n_wk, sess.n_wk))
+          and bool(torch.equal(st.n_k, sess.n_k)),
+          "stream: the session's counts differ from assembled_state()'s")
+    del st
+    lat = sorted(x[4] * 1e3 for x in served)
+    idle_docs = sum(t_idle <= x[5] < t_idle + STREAM_IDLE_SERVE_S
+                    for x in served)
+    emit({"phase": "stream", "leg": "rotation", "windows": len(windows),
+          "window_docs": STREAM_WINDOW_DOCS, "sweeps": STREAM_SWEEPS,
+          "source_seconds": source_s, "leg_seconds": leg1_s,
+          "model_save_ms": [x["ms"] for x in saves],
+          "model_save_steps": [x["step"] for x in saves],
+          "reload_latency_ms": reloads,
+          "engine_versions": eng.model_version, "reloads": eng.reloads,
+          "served_docs": len(served), "serve_seconds": t_serve,
+          "serve_docs_per_sec": len(served) / t_serve,
+          "serve_docs_per_sec_trainer_idle": idle_docs / STREAM_IDLE_SERVE_S,
+          "serve_p50_ms": lat[len(lat) // 2],
+          "serve_p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+          "versions_by_bucket": {b: sorted(set(v))
+                                 for b, v in by_bucket.items()},
+          "assembled_seconds": assemble_s, "peak_device_gb": peak_gb,
+          "launches": counts, "card": smi})
+    for name in ("zen_fused_sample", "topic_histogram",
+                 "zen_fused_infer_sample"):
+        check(counts[name] > 0, f"stream: {name} was not launched")
+    for name in ("zen_sample", "zen_infer_sample"):
+        check(counts[name] == 0, f"stream: {name} (gathered) launched")
+    # one profiled window (w2 again) after the checks
+    from torch.profiler import ProfilerActivity, profile
+
+    window = next(src.windows(start=STREAM_WINDOWS))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.run_window(window)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    emit({"phase": "stream_profile", "window": window.index,
+          "uid": window.uid, "ms": sess.timings,
+          **device_summary(prof, wall_us,
+                           groups={"delta_merge": HIST_KERNELS})})
+    del sess, src, prof
+    torch.cuda.empty_cache()
+
+    # -- leg 2: decay (zen_cdf, kernel 7), four fresh windows -------------
+    src = stream_source(corpus, STREAM_WINDOW_DOCS, epochs=1)
+    cfg = RunConfig(algorithm="zen_cdf", kernels="auto", max_kd=CDF_MAX_KD,
+                    num_iterations=DECAY_WINDOWS,
+                    window_docs=STREAM_WINDOW_DOCS,
+                    window_sweeps=STREAM_SWEEPS, decay=STREAM_DECAY)
+    sess = StreamingSession(src, hyper, cfg, device=dev)
+    windows, decay = [], {}
+
+    def on_decay_window(s, m):
+        windows.append(stream_window_record(s, src, m))
+        if m["window"] != 1:
+            return
+        # one transition: the session's device decay against np.rint on
+        # the host in float64, then the counts are put back
+        kept = (s.n_wk, s.n_k)
+        t = time.perf_counter()
+        host = s.n_wk.cpu().numpy()
+        decay["copy_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        want = np.rint(host.astype(np.float64)
+                       * (1.0 - STREAM_DECAY)).astype(np.int32)
+        decay["host_rint_ms"] = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s._apply_decay()
+        torch.cuda.synchronize()
+        decay["device_ms"] = (time.perf_counter() - t) * 1e3
+        decay["equal"] = bool(np.array_equal(s.n_wk.cpu().numpy(), want)) \
+            and bool(np.array_equal(s.n_k.cpu().numpy(),
+                                    want.sum(0).astype(np.int32)))
+        decay["ties"] = int((host.astype(np.float64) * (1.0 - STREAM_DECAY)
+                             % 1.0 == 0.5).sum())
+        s.n_wk, s.n_k = kept
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess.run(seed, callback=on_decay_window)
+    torch.cuda.synchronize()
+    leg2_s = time.perf_counter() - t0
+    cdf_counts = ops.launch_counts()
+    for w in windows:
+        emit({"phase": "stream_window", "leg": "decay", **w})
+    emit({"phase": "stream", "leg": "decay", "windows": len(windows),
+          "decay": STREAM_DECAY, "leg_seconds": leg2_s, "transition": decay,
+          "launches": cdf_counts, "card": smi})
+    check(len(windows) == DECAY_WINDOWS, f"decay: {len(windows)} windows")
+    check(decay.get("equal") is True,
+          "decay: the device decay differs from np.rint on the host")
+    check(cdf_counts["cdf_row_search"] > 0
+          and cdf_counts["topic_histogram"] > 0,
+          f"decay: kernels 7 and 5 not launched: {cdf_counts}")
+    del sess, src
+    torch.cuda.empty_cache()
+
+    # -- leg 3: kill and resume, on the first 65,536 documents -------------
+    t_end = int(np.searchsorted(corpus.doc.numpy(), RESUME_DOCS))
+    sub = Corpus(word=corpus.word[:t_end], doc=corpus.doc[:t_end],
+                 num_words=corpus.num_words, num_docs=RESUME_DOCS)
+    cfg = RunConfig(algorithm="zen_pallas", num_iterations=RESUME_WINDOWS,
+                    window_docs=RESUME_WINDOW_DOCS,
+                    window_sweeps=STREAM_SWEEPS)
+    runs = {}
+    t0 = time.perf_counter()
+    for name, c in (
+        ("straight", cfg),
+        ("killed", dataclasses.replace(
+            cfg, num_iterations=RESUME_KILL,
+            train_checkpoint_dir=str(resume_dir),
+            train_checkpoint_every=RESUME_KILL)),
+        ("resumed", dataclasses.replace(
+            cfg, train_checkpoint_dir=str(resume_dir),
+            train_checkpoint_every=RESUME_KILL)),
+    ):
+        s = StreamingSession(stream_source(sub, RESUME_WINDOW_DOCS, 2),
+                             hyper, c, device=dev)
+        t = time.perf_counter()
+        s.run(seed)
+        torch.cuda.synchronize()
+        runs[name] = (s, time.perf_counter() - t)
+    leg3_s = time.perf_counter() - t0
+    a, b = runs["straight"][0], runs["resumed"][0]
+    same = (a.windows_done == b.windows_done == RESUME_WINDOWS
+            and a.docs_consumed == b.docs_consumed
+            and runs["killed"][0].windows_done == RESUME_KILL
+            and bool(torch.equal(a.n_wk, b.n_wk))
+            and bool(torch.equal(a.n_k, b.n_k))
+            and sorted(a._retained) == sorted(b._retained)
+            and all(np.array_equal(a._retained[u], b._retained[u])
+                    for u in a._retained))
+    emit({"phase": "stream", "leg": "resume", "docs": RESUME_DOCS,
+          "tokens": sub.num_tokens, "window_docs": RESUME_WINDOW_DOCS,
+          "windows": RESUME_WINDOWS, "killed_at": RESUME_KILL,
+          "seconds": {k: v[1] for k, v in runs.items()},
+          "leg_seconds": leg3_s, "bit_equal": same, "card": smi})
+    check(same, "resume: the resumed run differs from the straight one")
+    del runs, a, b, s, sub
+    shutil.rmtree(resume_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- leg 4: kernel 2 on a whole window against its plain version, then
+    # the fused path (kernels 2 and 5) against the gathered one (kernel 1
+    # and the plain merge)
+    emit({"phase": "stream", "leg": "fused_vs_plain", "card": smi,
+          **stream_fused_vs_plain(corpus, hyper, seed, dev)})
+    out = {}
+    for kernels in ("auto", "off"):
+        src = stream_source(corpus, PLAIN_WINDOW_DOCS, epochs=1)
+        s = StreamingSession(src, hyper, RunConfig(
+            algorithm="zen_pallas", kernels=kernels,
+            num_iterations=PLAIN_WINDOWS, window_docs=PLAIN_WINDOW_DOCS,
+            window_sweeps=STREAM_SWEEPS), device=dev)
+        llh = []
+        ops.reset_launch_counts()
+        s.run(seed, callback=lambda _s, m: llh.append(m["llh"]))
+        torch.cuda.synchronize()
+        out[kernels] = (s, llh, ops.launch_counts())
+    (a, la, ca), (b, lb, cb) = out["auto"], out["off"]
+    same = (bool(torch.equal(a.n_wk, b.n_wk))
+            and bool(torch.equal(a.n_k, b.n_k))
+            and sorted(a._retained) == sorted(b._retained)
+            and all(np.array_equal(a._retained[u], b._retained[u])
+                    for u in a._retained))
+    emit({"phase": "stream", "leg": "fused_vs_gathered",
+          "window_docs": PLAIN_WINDOW_DOCS, "windows": PLAIN_WINDOWS,
+          "llh_auto": la, "llh_off": lb, "bit_equal": same,
+          "launches_auto": ca, "launches_off": cb, "card": smi})
+    check(same and la == lb, "stream: kernels='auto' and 'off' differ")
+    check(ca["zen_fused_sample"] == PLAIN_WINDOWS * STREAM_SWEEPS
+          and ca["topic_histogram"] == 2 * PLAIN_WINDOWS * STREAM_SWEEPS,
+          f"stream auto: launches {ca}")
+    check(cb["zen_fused_sample"] == 0 and cb["topic_histogram"] == 0
+          and cb["zen_sample"] > 0,
+          f"stream off: launches {cb}")
+    del out, a, b
+    shutil.rmtree(models_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"zen_fused_sample": counts["zen_fused_sample"],
+            "topic_histogram": counts["topic_histogram"],
+            "zen_fused_infer_sample": counts["zen_fused_infer_sample"],
+            "cdf_row_search": cdf_counts["cdf_row_search"]}
 
 
 def profile_serving(model, cfg, docs, seed: int):

@@ -125,11 +125,14 @@ class CGSState:
 
     @classmethod
     def from_numpy(cls, leaves: Dict[str, object],
-                   device="cpu") -> "CGSState":
+                   device=None) -> "CGSState":
         """Inverse of :meth:`to_numpy`. ``rng`` may be any two uint32
-        words, e.g. ``jax.random.key_data`` of a reference state's key."""
+        words, e.g. ``jax.random.key_data`` of a reference state's key.
+        ``device`` defaults to ``cuda`` and raises without a card."""
         from repro_torch.core.keys import as_key
+        from repro_torch.device import resolve_device
 
+        device = resolve_device(device)
         kw = {}
         for name in _STATE_TENSORS:
             if leaves.get(name) is not None:

@@ -7,7 +7,8 @@ seed gives the same corpus in both packages; only the container differs
 * ``synthetic_corpus``     — Zipf word frequencies, Poisson doc lengths.
 * ``synthetic_lda_corpus`` — documents drawn from an LDA model with known
   topics (returns the true phi for recovery checks).
-* ``load_libsvm/save_libsvm`` — one line per doc, ``label word_id:count``.
+* ``load_libsvm/save_libsvm`` — one line per doc, ``label word_id:count``;
+  ``skip_libsvm_docs`` fast-forwards an open handle (stream resume).
 """
 from __future__ import annotations
 
@@ -128,3 +129,17 @@ def load_libsvm(
     return _corpus(np.asarray(words_list, np.int32),
                    np.asarray(docs_list, np.int32),
                    num_words or (max_w + 1), d)
+
+
+def skip_libsvm_docs(f, n: int) -> int:
+    """Advance an open libsvm handle past ``n`` documents (blank lines do
+    not count, as in ``load_libsvm``). Returns how many were skipped
+    (fewer at EOF): the cursor fast-forward of a resumed stream."""
+    skipped = 0
+    while skipped < n:
+        line = f.readline()
+        if not line:
+            break
+        if line.strip():
+            skipped += 1
+    return skipped

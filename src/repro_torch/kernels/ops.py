@@ -7,7 +7,9 @@ the CUDA kernels walk the real K (or row width J) and need no padding.
 
 Each wrapper counts its kernel launches in a plain int
 (:func:`launch_counts`), so a run can show that its main path went
-through the kernels; plain-version calls are not counted.
+through the kernels; plain-version calls are not counted, nor is a call
+with no tokens, whose launcher launches nothing (kernel 5's launcher
+zero-fills its output then, and counts).
 """
 from __future__ import annotations
 
@@ -59,6 +61,11 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
+def _count(name: str, tokens: int) -> None:
+    if tokens > 0:
+        _LAUNCHES[name] += 1
+
+
 def _route(t) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
@@ -78,7 +85,7 @@ def zen_sample(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
                                 row_offset=row_offset)
     out = zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed,
                           beta=beta, w_beta=w_beta, row_offset=row_offset)
-    _LAUNCHES["zen_sample"] += 1
+    _count("zen_sample", z_old.shape[0])
     return out
 
 
@@ -94,7 +101,7 @@ def zen_fused_sample(n_wk, n_kd, word, doc, z_old, alpha_k, n_k, seed: int,
     out = zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
                                 seed, beta=beta, w_beta=w_beta,
                                 row_offset=row_offset)
-    _LAUNCHES["zen_fused_sample"] += 1
+    _count("zen_fused_sample", word.shape[0])
     return out
 
 
@@ -112,7 +119,7 @@ def zen_infer_sample(nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k, *,
         nwk_rows, nkd_rows, z_old, seeds, alpha_k, n_k,
         beta=beta, w_beta=w_beta,
     )
-    _LAUNCHES["zen_infer_sample"] += 1
+    _count("zen_infer_sample", z_old.shape[0])
     return out
 
 
@@ -130,7 +137,7 @@ def zen_fused_infer_sample(n_wk, n_kd, word, slot, z_old, seeds, alpha_k,
         n_wk, n_kd, word, slot, z_old, seeds, alpha_k, n_k,
         beta=beta, w_beta=w_beta,
     )
-    _LAUNCHES["zen_fused_infer_sample"] += 1
+    _count("zen_fused_infer_sample", word.shape[0])
     return out
 
 
@@ -143,7 +150,7 @@ def sparse_row_sample(vals, topics, targets, *, bt: int = 256,
     if _route(vals) == "cpu":
         return sparse_row_sample_plain(vals, topics, targets)
     out = sparse_row_sample_cuda(vals, topics, targets)
-    _LAUNCHES["sparse_row_sample"] += 1
+    _count("sparse_row_sample", targets.shape[0])
     return out
 
 
@@ -156,7 +163,7 @@ def cdf_row_search(counts, rows, term, targets, *, bt: int = 256,
     if _route(counts) == "cpu":
         return cdf_row_search_plain(counts, rows, term, targets)
     out = cdf_row_search_cuda(counts, rows, term, targets)
-    _LAUNCHES["cdf_row_search"] += 1
+    _count("cdf_row_search", rows.shape[0])
     return out
 
 

@@ -12,12 +12,17 @@ load through the async ticket front:
         --synthetic-docs 64] [--algorithm zen_pallas] \\
         [--buckets 32,64,128,256] [--max-batch 32] [--sweeps 10] \\
         [--rtlda-sweeps 2] [--tick-period 0] [--max-slot-wait 0] \\
-        [--rounds 1] [--pace 0] [--eval]
+        [--rounds 1] [--pace 0] [--eval] [--follow [--watch-period 0.5]]
 
-It prints the reference's ``docs/sec`` and ``latency ms: p50=`` lines,
-with the device they were measured on. The reference's ``--follow``,
-``--mesh-shape``, ``--replicas > 1``, ``--autopilot`` and
-``--metrics-out`` are not ported yet: they exit non-zero.
+It prints the reference's ``docs/sec`` (with the model versions the
+round's requests decoded under) and ``latency ms: p50=`` lines, with the
+device they were measured on. ``--follow`` makes it the consuming half of
+the live pipeline: a checkpoint watcher polls ``--checkpoint-dir`` every
+``--watch-period`` seconds and hot-reloads each newer model the trainer
+(``launch.train --stream``) commits, while the load replays for
+``--rounds`` rounds. The reference's ``--mesh-shape``, ``--replicas > 1``,
+``--autopilot`` and ``--metrics-out`` are not ported yet: they exit
+non-zero.
 """
 import argparse
 import sys
@@ -64,9 +69,12 @@ def main(argv=None) -> int:
                     help="serve the query load this many rounds")
     ap.add_argument("--pace", type=float, default=0.0,
                     help="> 0: sleep this many seconds between submits")
+    ap.add_argument("--follow", action="store_true",
+                    help="watch --checkpoint-dir and hot-reload every new "
+                         "model checkpoint while serving (live pipeline)")
+    ap.add_argument("--watch-period", type=float, default=0.5,
+                    help="checkpoint poll cadence in seconds (--follow)")
     # the reference's flags whose features are not ported yet
-    ap.add_argument("--follow", action="store_true")
-    ap.add_argument("--watch-period", type=float, default=0.5)
     ap.add_argument("--mesh-shape", default=None)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--metrics-out", default=None)
@@ -75,7 +83,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     unported = [flag for flag, on in (
-        ("--follow", args.follow), ("--mesh-shape", args.mesh_shape),
+        ("--mesh-shape", args.mesh_shape),
         ("--replicas > 1", args.replicas > 1), ("--autopilot", args.autopilot),
         ("--metrics-out", args.metrics_out),
     ) if on]
@@ -86,6 +94,10 @@ def main(argv=None) -> int:
         return 2
 
     import numpy as np
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(args.device)  # no card: raise before any IO
 
     from repro_torch.data.corpus import load_libsvm, synthetic_corpus
     from repro_torch.observe.metrics import summarize_latencies
@@ -99,7 +111,7 @@ def main(argv=None) -> int:
     from repro_torch.train.checkpoint import load_lda_model
 
     n_wk, n_k, hyper, _meta, step0 = load_lda_model(args.checkpoint_dir)
-    model = FrozenLDAModel.from_numpy(n_wk, n_k, hyper, device=args.device)
+    model = FrozenLDAModel.from_numpy(n_wk, n_k, hyper, device=dev)
     card = _device_name(model.device)
     print(f"model: W={model.num_words} K={model.num_topics} "
           f"tokens={int(np.asarray(n_k).sum())} step={step0} from "
@@ -139,6 +151,10 @@ def main(argv=None) -> int:
     engine.warm()
     if args.tick_period > 0:
         engine.start(args.tick_period)
+    if args.follow:
+        engine.watch_checkpoint_dir(args.checkpoint_dir,
+                                    period=args.watch_period,
+                                    initial_step=step0)
 
     thetas = []
     for rnd in range(max(1, args.rounds)):
@@ -154,12 +170,20 @@ def main(argv=None) -> int:
         dt = time.perf_counter() - t0
         stats = summarize_latencies((r.t_done - r.t_submit) * 1e3
                                     for r in reqs)
+        versions = sorted({r.model_version for r in reqs})
         tag = f"round {rnd}  " if args.rounds > 1 else ""
         print(f"{tag}served {len(docs)} docs in {dt:.3f}s "
               f"({len(docs) / dt:.1f} docs/sec, "
-              f"{engine.sweeps_run - sweeps0} bucket dispatches) on {card}")
+              f"{engine.sweeps_run - sweeps0} bucket dispatches)  "
+              f"model versions {versions} on {card}")
         print(f"latency ms: p50={stats['p50']:.2f} p99={stats['p99']:.2f} "
               f"max={stats['max']:.2f} on {card}")
+        if args.follow and rnd < args.rounds - 1:
+            time.sleep(args.watch_period)
+    if args.follow:
+        err = engine.stop_watching()
+        if err is not None:
+            print(f"serve_lda: checkpoint watcher: {err}", file=sys.stderr)
     if args.tick_period > 0:
         engine.stop()
 

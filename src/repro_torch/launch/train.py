@@ -12,6 +12,10 @@ one command line means the same run in both packages, plus ``--device``
         [--hyper-every 5] [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --config run.json
     PYTHONPATH=src python -m repro_torch.launch.train --list-algorithms
+    PYTHONPATH=src python -m repro_torch.launch.train --stream \
+        --window-docs 64 --decay 0.02 --checkpoint-dir /tmp/lda_live \
+        [--stream-source replay|libsvm:<path>|drift[:<seed>]] \
+        [--window-sweeps 2] [--epochs 1] [--num-windows 8]
 
 It prints the reference's progress lines (``iter N  llh ...  ppl ...
 change ...``, ``finished at iteration N; final llh ...``).
@@ -23,10 +27,21 @@ counts before every sweep); for those backends the widths the first
 sweep uses are printed as ``padded-row widths: ...``. ``--max-kd`` is also
 ``zen_cdf``'s sparse doc-row width (default 64, clamped to K). Every
 backend of the reference is ported; the default is ``zen_cdf``, as there.
+
+``--stream`` trains window by window (``train.online.StreamingSession``)
+over a ``CorpusSource`` (``--stream-source``; default a replay of
+``--corpus``, else the drift source), with ``--iters`` the absolute
+window budget (0 = until the source ends), and writes a model checkpoint
+every ``--checkpoint-every`` windows that ``serve_lda --follow``
+hot-reloads: the live pipeline. It prints the reference's lines
+(``window N (wN)  docs ..  ppl ..  .. docs/s  resident kd .. KiB``,
+``stream finished at window N``); the single-box plan needs no
+``--single-box`` there, and ``--rows``/``--cols`` are ignored.
+
 What is not ported yet exits non-zero with the ROADMAP item that waits
-for it: the mesh plan (run without ``--single-box``, or with
-``--rows``/``--cols`` or ``--host-devices``), ``--stream``,
-``--metrics-out``, ``--autopilot`` and ``--quality-every``.
+for it: the mesh plan (run without ``--single-box`` or ``--stream``, or
+with ``--rows``/``--cols`` or ``--host-devices``), ``--metrics-out``,
+``--autopilot`` and ``--quality-every``.
 """
 import argparse
 import sys
@@ -96,13 +111,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None, metavar="PATH")
     ap.add_argument("--autopilot", action="store_true")
     ap.add_argument("--autopilot-every", type=int, default=0)
-    ap.add_argument("--stream", action="store_true")
-    ap.add_argument("--stream-source", default=None)
-    ap.add_argument("--window-docs", type=int, default=64)
-    ap.add_argument("--window-sweeps", type=int, default=2)
-    ap.add_argument("--decay", type=float, default=0.0)
-    ap.add_argument("--epochs", type=int, default=1)
-    ap.add_argument("--num-windows", type=int, default=8)
+    ap.add_argument("--stream", action="store_true",
+                    help="windowed online training (StreamingSession); "
+                         "--iters becomes the absolute window budget "
+                         "(0 = run to source exhaustion)")
+    ap.add_argument("--stream-source", default=None,
+                    help="replay | libsvm:<path> | drift[:<seed>] "
+                         "(default: replay of --corpus, else drift)")
+    ap.add_argument("--window-docs", type=int, default=64,
+                    help="documents per stream window")
+    ap.add_argument("--window-sweeps", type=int, default=2,
+                    help="CGS sweeps per window visit")
+    ap.add_argument("--decay", type=float, default=0.0,
+                    help="forgetting factor: counts *= (1-decay) per "
+                         "window transition (0 = never forget)")
+    ap.add_argument("--epochs", type=int, default=1,
+                    help="replay source: passes over the corpus")
+    ap.add_argument("--num-windows", type=int, default=8,
+                    help="drift source: stream length in windows")
     return ap
 
 
@@ -111,11 +137,9 @@ def unported_flags(args) -> list:
     each with the ROADMAP item that waits for it."""
     mesh = "the mesh plan, ROADMAP queue 1 item 7"
     found = [(flag, why) for flag, on, why in (
-        ("--rows/--cols", args.rows is not None or args.cols is not None,
-         mesh),
+        ("--rows/--cols", (args.rows is not None or args.cols is not None)
+         and not args.stream, mesh),
         ("--host-devices", bool(args.host_devices), mesh),
-        ("--stream", args.stream or args.stream_source is not None,
-         "streaming, ROADMAP queue 1 item 6"),
         ("--metrics-out", args.metrics_out is not None,
          "telemetry, ROADMAP queue 1 item 5"),
         ("--autopilot", args.autopilot,
@@ -123,9 +147,58 @@ def unported_flags(args) -> list:
         ("--quality-every", args.quality_every > 0,
          "quality evaluation, ROADMAP queue 1 item 5"),
     ) if on]
-    if not args.config and not args.single_box:
+    if not args.config and not args.single_box and not args.stream:
         found.append(("no --single-box", mesh + " (pass --single-box)"))
     return [f"{flag} ({why})" for flag, why in found]
+
+
+def run_stream(args, cfg) -> int:
+    """The ``--stream`` path: a ``CorpusSource`` from the config's spec
+    and a ``StreamingSession`` over it on ``--device``."""
+    import torch
+
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import load_libsvm, synthetic_corpus
+    from repro_torch.data.stream import make_source
+    from repro_torch.device import resolve_device
+    from repro_torch.train.online import StreamingSession
+
+    dev = resolve_device(args.device)
+    spec = cfg.stream_source or ("replay" if args.corpus else "drift")
+    corpus = None
+    if spec == "replay":
+        corpus = (load_libsvm(args.corpus) if args.corpus
+                  else synthetic_corpus(0, num_docs=args.synthetic_docs,
+                                        num_words=args.synthetic_words,
+                                        avg_doc_len=args.synthetic_len,
+                                        zipf_a=1.2))
+    source = make_source(
+        spec, cfg.window_docs, corpus=corpus,
+        # a chunked source cannot tell the global vocabulary: it is
+        # --synthetic-words (the stable-vocabulary contract)
+        num_words=args.synthetic_words, epochs=args.epochs,
+        num_windows=args.num_windows,
+    )
+    hyper = LDAHyperParams(num_topics=args.topics)
+    session = StreamingSession(source, hyper, cfg, device=dev)
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"stream  source={spec}  window_docs={cfg.window_docs}  "
+          f"sweeps/window={cfg.window_sweeps}  decay={cfg.decay}  "
+          f"algorithm={cfg.algorithm}  device={card}")
+
+    def cb(sess, m):
+        print(f"window {m['window']:4d} ({m['uid']})  docs {m['docs']:5d}  "
+              f"ppl {m['perplexity']:.1f}  {m['docs_per_sec']:.0f} docs/s  "
+              f"resident kd {m['resident_kd_bytes'] / 1024:.1f} KiB",
+              flush=True)
+
+    session.run(0, callback=cb)
+    print(f"stream finished at window {session.windows_done}")
+    if cfg.checkpoint_dir:
+        print(f"model checkpoints: {cfg.checkpoint_dir} "
+              f"(follow with: python -m repro_torch.launch.serve_lda "
+              f"--checkpoint-dir {cfg.checkpoint_dir} --follow)")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -155,6 +228,9 @@ def main(argv=None) -> int:
         with open(args.config) as f:
             cfg = RunConfig.from_json(f.read())
     else:
+        if args.stream and (args.rows is not None or args.cols is not None):
+            print("note: --stream runs the single-box windowed plan; "
+                  "ignoring the mesh shape")
         if args.delta_dtype != "int32":
             print("note: single-box plan ignores --delta-dtype")
         cfg = RunConfig(
@@ -172,8 +248,17 @@ def main(argv=None) -> int:
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every,
             train_checkpoint_dir=args.ckpt,
-            train_checkpoint_every=25 if args.ckpt else 0,
+            train_checkpoint_every=(
+                (1 if args.stream else 25) if args.ckpt else 0
+            ),
+            window_docs=args.window_docs if args.stream else 0,
             window_sweeps=args.window_sweeps,
+            decay=args.decay if args.stream else 0.0,
+            stream_source=(
+                (args.stream_source
+                 or ("replay" if args.corpus else "drift"))
+                if args.stream else None
+            ),
             autopilot_every=args.autopilot_every,
             quality_top_n=args.quality_top_n,
             quality_npmi_window=args.npmi_window,
@@ -193,6 +278,9 @@ def main(argv=None) -> int:
             f.write(cfg.to_json() + "\n")
         print(f"wrote {args.dump_config}")
         return 0
+
+    if args.stream or cfg.stream_source:
+        return run_stream(args, cfg)
 
     import torch
 

@@ -16,6 +16,23 @@ Both are fronted by the async ticket API (:meth:`LDAEngine.submit_async`,
 :meth:`~LDAEngine.poll`, :meth:`~LDAEngine.result`) and an optional
 background ticker (:meth:`~LDAEngine.start`).
 
+Hot reload: :meth:`LDAEngine.reload` swaps in a new model between ticks.
+Each model version is a slot (the model, its backend tables, its alpha_k
+and its version tag); a bucket pins the slot current when a request lands
+in it empty, admits only requests of that version while occupied, and
+decodes (counts, tables, alpha_k) on the pinned slot until it drains, so
+every request finishes on the model it was admitted under
+(``InferRequest.model_version``) and nothing is dropped. Versions strictly
+increase. :meth:`LDAEngine.watch_checkpoint_dir` runs a
+:class:`CheckpointWatcher` thread that polls a model checkpoint directory
+and reloads every newer committed step: it builds the new
+:class:`FrozenLDAModel` on the engine's device and the slot (for
+``zen_cdf`` a (W, K) CDF) before it takes the engine lock, so the ticker
+keeps sweeping meanwhile; the version check and the swap happen under
+the lock. A directory with nothing committed is waited on; a committed
+checkpoint that fails to load is retried ``max_failures`` times and then
+surfaced on :attr:`LDAEngine.watch_error`.
+
 Randomness (throughput mode) is counter-based (``core.keys``): a request's
 key is derived from the engine seed and its uid unless the caller passes
 one, its initial topics and each sweep's draws hash from that key and the
@@ -27,17 +44,17 @@ is deterministic and gives the reference's assignments.
 
 Not ported yet, and refused with a ``ValueError`` when a config sets them:
 sharded serving (``mesh_shape``), telemetry and the autopilot
-(``metrics_out``, ``autopilot``, ``autopilot_window``). Hot reload
-(``reload``, ``watch_checkpoint_dir``) and the replica router are not part
-of this engine yet either.
+(``metrics_out``, ``autopilot``, ``autopilot_window``). The replica router
+(``LDARouter``) is not part of this package yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +66,8 @@ from repro_torch.core.keys import as_key, fold_in, init_topics, key_from_seed
 from repro_torch.core.types import LDAHyperParams
 from repro_torch.device import resolve_device
 from repro_torch.observe.metrics import latency_percentile  # noqa: F401
+
+logger = logging.getLogger(__name__)
 
 
 def _hyper(hyper) -> LDAHyperParams:
@@ -179,7 +198,9 @@ _NOT_PORTED = {
 class InferRequest:
     """One in-flight (or finished) serving request; ``theta`` (K,) once
     ``done``, ``z`` the final assignments in latency mode, ``t_submit`` /
-    ``t_done`` ``time.monotonic`` stamps."""
+    ``t_done`` ``time.monotonic`` stamps, ``model_version`` the version of
+    the model it decoded under (stamped at admission, or at submit for an
+    instant completion; -1 until then)."""
 
     uid: int
     words: np.ndarray
@@ -194,6 +215,7 @@ class InferRequest:
     done: bool = False
     admitted: bool = False
     ticks_waited: int = 0
+    model_version: int = -1
     t_submit: float = 0.0
     t_done: float = 0.0
     sweeps_done: int = 0
@@ -202,8 +224,24 @@ class InferRequest:
     z: Optional[np.ndarray] = None
 
 
+@dataclasses.dataclass
+class _ModelSlot:
+    """One servable model version: the frozen model, the backend's tables
+    (``aux``), its alpha_k on the host and its version tag. A bucket
+    holds the slot it was pinned to until it drains, so an old version
+    lives exactly as long as its in-flight requests."""
+
+    model: FrozenLDAModel
+    aux: Any
+    alpha_k: np.ndarray
+    version: int
+
+
 class _Bucket:
-    """One fixed-shape slot batch: the device state for bucket width L."""
+    """One fixed-shape slot batch: the device state for bucket width L.
+    ``slot_model`` is the model slot its occupants decode under: set when
+    a request is placed into the empty bucket, fixed while any slot is
+    active."""
 
     def __init__(self, length: int, slots: int, num_topics: int,
                  device: torch.device):
@@ -216,6 +254,7 @@ class _Bucket:
         self.n_kd = torch.zeros((slots, num_topics), dtype=i32,
                                 device=device)
         self.active: List[Optional[InferRequest]] = [None] * slots
+        self.slot_model: Optional[_ModelSlot] = None
 
     def free_slot(self) -> Optional[int]:
         for s, r in enumerate(self.active):
@@ -226,6 +265,88 @@ class _Bucket:
     @property
     def num_active(self) -> int:
         return sum(r is not None for r in self.active)
+
+
+class CheckpointWatcher:
+    """Poll a model checkpoint directory and pass every newer committed
+    step to ``reload_fn`` as a :class:`FrozenLDAModel` built on ``device``
+    (default ``cuda``).
+
+    Failure policy: a load failure is benign only while nothing is
+    committed (``FileNotFoundError`` and no committed step: the trainer
+    has not written one yet). Any other failure, such as a committed step
+    that does not load, counts against ``max_failures`` consecutive
+    attempts, each logged; then the watcher stops. The last error stays
+    on :attr:`error` and :meth:`stop` returns it; a good load clears it."""
+
+    def __init__(self, reload_fn: Callable[[FrozenLDAModel], Any],
+                 directory: str, period: float = 1.0,
+                 initial_step: Optional[int] = None, max_failures: int = 8,
+                 device=None):
+        self.reload_fn = reload_fn
+        self.directory = directory
+        self.period = period
+        self.max_failures = max_failures
+        self.device = resolve_device(device)
+        self.error: Optional[Exception] = None
+        self.failures = 0  # consecutive
+        self.last_step = initial_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name="lda-ckpt-watcher", daemon=True
+        )
+
+    def start(self) -> "CheckpointWatcher":
+        self._thread.start()
+        return self
+
+    def is_alive(self) -> bool:
+        return self._thread.is_alive()
+
+    def stop(self) -> Optional[Exception]:
+        """Stop polling; returns the last load error (None = healthy)."""
+        self._stop.set()
+        self._thread.join()
+        return self.error
+
+    def _loop(self) -> None:
+        from repro_torch.train.checkpoint import (
+            committed_steps,
+            load_lda_model,
+        )
+
+        while not self._stop.is_set():
+            try:
+                n_wk, n_k, hyper, _meta, step = load_lda_model(
+                    self.directory)
+            except (OSError, ValueError, KeyError) as exc:
+                if (isinstance(exc, FileNotFoundError)
+                        and not committed_steps(self.directory)):
+                    self.failures = 0  # nothing committed yet: wait
+                else:
+                    self.failures += 1
+                    self.error = exc
+                    logger.warning(
+                        "checkpoint watch of %r: load failed (%d/%d): %s",
+                        self.directory, self.failures, self.max_failures,
+                        exc,
+                    )
+                    if self.failures >= self.max_failures:
+                        logger.warning(
+                            "checkpoint watch of %r: giving up after %d "
+                            "consecutive failures",
+                            self.directory, self.failures,
+                        )
+                        return
+                self._stop.wait(self.period)
+                continue
+            self.failures = 0
+            self.error = None
+            if self.last_step is None or step > self.last_step:
+                self.reload_fn(FrozenLDAModel.from_numpy(
+                    n_wk, n_k, hyper, device=self.device))
+                self.last_step = step
+            self._stop.wait(self.period)
 
 
 class LDAEngine:
@@ -249,15 +370,10 @@ class LDAEngine:
                     f"is not ported to the PyTorch engine yet"
                 )
         self.cfg = cfg
-        self.model = model
         self.device = model.device
         self.backend = algorithms.get(cfg.algorithm)
         self._knobs = cfg.knobs()
-        # latency mode never runs backend sweeps: no tables
-        self._aux = None if cfg.mode == "latency" else \
-            self.backend.prepare_infer(model.n_wk, model.n_k, model.hyper,
-                                       self._knobs)
-        self._alpha_k = model.hyper.alpha_k(model.n_k).cpu().numpy()
+        self._current = self._build_slot(model, version=0)
         self._buckets = {
             length: _Bucket(length, cfg.max_batch, model.num_topics,
                             self.device)
@@ -270,12 +386,109 @@ class LDAEngine:
         self.docs_done = 0
         self.sweeps_run = 0  # bucket sweeps/decodes executed
         self.spills = 0  # max_slot_wait admissions into wider buckets
+        self.reloads = 0
         self._tick_period = cfg.tick_period or 0.001
         self._max_slot_wait = cfg.max_slot_wait
         self._tickets: Dict[int, InferRequest] = {}
         self._cv = threading.Condition(threading.RLock())
         self._ticker: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
+        self._watcher: Optional[CheckpointWatcher] = None
+
+    # -- model slots and hot reload ----------------------------------------
+    @property
+    def model(self) -> FrozenLDAModel:
+        """The model new admissions decode under (in-flight buckets may
+        still be finishing an older version)."""
+        return self._current.model
+
+    @property
+    def model_version(self) -> int:
+        """Version of the current slot: 0 at construction, raised by every
+        :meth:`reload`."""
+        return self._current.version
+
+    @property
+    def _alpha_k(self) -> np.ndarray:
+        return self._current.alpha_k
+
+    def _build_slot(self, model: FrozenLDAModel,
+                    version: int = -1) -> _ModelSlot:
+        if model.device != self.device:
+            model = FrozenLDAModel(n_wk=model.n_wk.to(self.device),
+                                   n_k=model.n_k.to(self.device),
+                                   hyper=model.hyper)
+        # latency mode never runs backend sweeps: no tables
+        aux = None if self.cfg.mode == "latency" else \
+            self.backend.prepare_infer(model.n_wk, model.n_k, model.hyper,
+                                       self._knobs)
+        return _ModelSlot(
+            model=model, aux=aux,
+            alpha_k=model.hyper.alpha_k(model.n_k).cpu().numpy(),
+            version=version,
+        )
+
+    def _next_version(self, version: Optional[int]) -> int:
+        new_version = (self._current.version + 1 if version is None
+                       else int(version))
+        if new_version <= self._current.version:
+            raise ValueError(f"model version must increase: {new_version} "
+                             f"<= {self._current.version}")
+        return new_version
+
+    def reload(self, model: FrozenLDAModel,
+               version: Optional[int] = None) -> int:
+        """Swap in ``model`` for new admissions; returns its version
+        (``version``, which must exceed the current one, or current + 1).
+
+        In-flight requests finish on the slot their bucket pinned; a
+        bucket serves the new version once it drains. The new slot (the
+        backend's tables) is built before the engine lock is taken, so a
+        running ticker is not held up by it; the version check and the
+        swap happen under the lock."""
+        with self._cv:
+            self._next_version(version)  # refuse early, before the build
+        slot = self._build_slot(model)
+        with self._cv:
+            slot.version = self._next_version(version)
+            self._current = slot
+            self.reloads += 1
+            return slot.version
+
+    def watch_checkpoint_dir(self, directory: str, period: float = 1.0,
+                             initial_step: Optional[int] = None,
+                             max_failures: int = 8) -> None:
+        """Poll ``directory`` every ``period`` seconds and :meth:`reload`
+        every committed model checkpoint newer than the last one seen
+        (``initial_step``: the step already served). See
+        :class:`CheckpointWatcher` for the failure policy. Idempotent
+        while a watcher runs; stop it with :meth:`stop_watching`."""
+        with self._cv:
+            if self._watcher is not None and self._watcher.is_alive():
+                return
+            self._watcher = CheckpointWatcher(
+                self.reload, directory, period=period,
+                initial_step=initial_step, max_failures=max_failures,
+                device=self.device,
+            ).start()
+
+    @property
+    def watch_error(self) -> Optional[Exception]:
+        """The watcher's last load error (None: healthy, or no watcher).
+        With a dead watcher it means the watcher gave up; the engine keeps
+        serving its current model."""
+        watcher = self._watcher
+        return None if watcher is None else watcher.error
+
+    def stop_watching(self) -> Optional[Exception]:
+        """Stop the checkpoint watcher (no-op without one); returns its
+        last load error."""
+        watcher = self._watcher
+        if watcher is None:
+            return None
+        err = watcher.stop()
+        self._watcher = None
+        return err
 
     # -- request intake ----------------------------------------------------
     def submit(self, words, key=None, num_sweeps: Optional[int] = None,
@@ -330,14 +543,17 @@ class LDAEngine:
         )
         k = self.model.num_topics
         if req.words.shape[0] == 0:
+            req.model_version = self._current.version
             req.theta = self._alpha_k / self._alpha_k.sum()
             self._complete(req)
             self._instant.append(req)
         elif not latency and req.num_sweeps <= 0:
             # zero sweeps: theta straight from the initial assignment
+            req.model_version = self._current.version
             z0 = init_topics(req.key, req.words.shape[0], k).numpy()
             req.theta = self._theta(
-                req, np.bincount(z0, minlength=k).astype(np.int32))
+                req, np.bincount(z0, minlength=k).astype(np.int32),
+                self._alpha_k)
             self._complete(req)
             self._instant.append(req)
         else:
@@ -468,11 +684,21 @@ class LDAEngine:
                 return self._buckets[bl]
         return self._buckets[max(self._buckets)]
 
+    def _admittable(self, bucket: _Bucket) -> Optional[int]:
+        """A free slot of ``bucket`` a request may take now: a drained
+        bucket always (it pins the current model at placement), an
+        occupied one only while it decodes the current version. The
+        identity test comes first: it is all a step pays between reloads
+        (``num_active`` walks every slot)."""
+        if bucket.slot_model is not self._current and bucket.num_active:
+            return None
+        return bucket.free_slot()
+
     def _admit(self) -> None:
         still_queued = []
         for req in self.queue:
             bucket = self._bucket_for(req.words.shape[0])
-            slot = bucket.free_slot()
+            slot = self._admittable(bucket)
             if slot is None and self._max_slot_wait > 0 \
                     and req.ticks_waited >= self._max_slot_wait:
                 # SLA spill: take any wider free slot
@@ -480,7 +706,7 @@ class LDAEngine:
                     wider = self._buckets[bl]
                     if bl <= bucket.length or bl < req.words.shape[0]:
                         continue
-                    s = wider.free_slot()
+                    s = self._admittable(wider)
                     if s is not None:
                         bucket, slot = wider, s
                         self.spills += 1
@@ -493,7 +719,17 @@ class LDAEngine:
         self.queue = still_queued
 
     def _place(self, req: InferRequest, bucket: _Bucket, slot: int) -> None:
-        l, k = bucket.length, self.model.num_topics
+        if bucket.slot_model is not self._current:
+            # only a drained bucket gets here (``_admittable``): it pins
+            # the current model; if K changed across a reload, its
+            # doc-topic state takes the new shape
+            bucket.slot_model = self._current
+            k_now = self._current.model.num_topics
+            if bucket.n_kd.shape[1] != k_now:
+                bucket.n_kd = torch.zeros(
+                    (bucket.n_kd.shape[0], k_now), dtype=torch.int32,
+                    device=self.device)
+        l, k = bucket.length, bucket.slot_model.model.num_topics
         n = req.words.shape[0]
         words = torch.zeros(l, dtype=torch.int32)
         words[:n] = torch.from_numpy(req.words)
@@ -502,6 +738,7 @@ class LDAEngine:
         bucket.mask[slot, :n] = True
         bucket.active[slot] = req
         req.admitted = True
+        req.model_version = bucket.slot_model.version
         if self.cfg.mode == "latency":
             return  # RT-LDA keeps no chain state
         z0 = init_topics(req.key, l, k)  # prefix-stable in l
@@ -522,10 +759,10 @@ class LDAEngine:
     def _latency_step(self) -> List[InferRequest]:
         self._admit()
         finished, self._instant = self._instant, []
-        m = self.model
         for bucket in self._buckets.values():
             if bucket.num_active == 0:
                 continue
+            m = bucket.slot_model.model  # pinned: the admitted model
             z, n_kd = rtlda_assign(m.n_wk, m.n_k, bucket.words, bucket.mask,
                                    m.hyper, self.cfg.rtlda_sweeps)
             self.sweeps_run += 1
@@ -554,14 +791,15 @@ class LDAEngine:
     def _throughput_step(self) -> List[InferRequest]:
         self._admit()
         finished, self._instant = self._instant, []
-        m = self.model
         for bucket in self._buckets.values():
             if bucket.num_active == 0:
                 continue
+            sm = bucket.slot_model  # pinned: the admitted model
+            m = sm.model
             z_new = self.backend.infer_sweep(
                 self._sweep_keys(bucket), bucket.words, bucket.mask,
                 bucket.z, bucket.n_kd, m.n_wk, m.n_k, m.hyper, self._knobs,
-                self._aux,
+                sm.aux,
             )
             bucket.z = torch.where(bucket.mask, z_new, bucket.z)
             bucket.n_kd = torch.zeros_like(bucket.n_kd).scatter_add_(
@@ -585,7 +823,8 @@ class LDAEngine:
                         if req.theta_sum is None:
                             req.theta_sum = np.zeros(m.num_topics,
                                                      np.float32)
-                        req.theta_sum += self._theta(req, n_kd_host[slot])
+                        req.theta_sum += self._theta(req, n_kd_host[slot],
+                                                     sm.alpha_k)
                         req.theta_samples += 1
                 if ripe:
                     self._finish(req, bucket, slot, n_kd_host[slot])
@@ -593,18 +832,18 @@ class LDAEngine:
                     finished.append(req)
         return finished
 
-    def _theta(self, req: InferRequest, n_kd_row: np.ndarray) -> np.ndarray:
+    def _theta(self, req: InferRequest, n_kd_row: np.ndarray,
+               alpha_k: np.ndarray) -> np.ndarray:
         l = req.words.shape[0]
-        return (n_kd_row.astype(np.float32) + self._alpha_k) / (
-            l + self._alpha_k.sum()
-        )
+        return (n_kd_row.astype(np.float32) + alpha_k) / (l + alpha_k.sum())
 
     def _finish(self, req: InferRequest, bucket: _Bucket, slot: int,
                 n_kd_row: np.ndarray) -> None:
         if req.theta_samples:
             req.theta = req.theta_sum / req.theta_samples
         else:
-            req.theta = self._theta(req, n_kd_row)
+            # prior smoothing from the model the request decoded under
+            req.theta = self._theta(req, n_kd_row, bucket.slot_model.alpha_k)
         bucket.active[slot] = None
         self._complete(req)
 

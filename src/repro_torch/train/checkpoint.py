@@ -105,6 +105,37 @@ def _verify_and_load(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
     return leaves, manifest
 
 
+def _unflatten(target: Any, leaves: List[Any]) -> Any:
+    """``target``'s structure with its leaves replaced, in the order
+    :func:`_flatten` walks them (``leaves`` is consumed from the front)."""
+    if isinstance(target, dict):
+        return {key: _unflatten(target[key], leaves)
+                for key in sorted(target)}
+    if isinstance(target, (list, tuple)):
+        items = [_unflatten(item, leaves) for item in target]
+        return items if isinstance(target, list) else tuple(items)
+    return leaves.pop(0)
+
+
+def restore_checkpoint(path: str, target: Any,
+                       device=None) -> Tuple[Any, Dict]:
+    """The checkpoint at ``path`` in the structure of ``target``, its
+    leaves as torch tensors on ``device`` (default ``cuda``; raises
+    without a card), and its metadata. The leaves fill ``target`` in
+    flattening order, as the reference's ``restore_checkpoint`` does."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    named, manifest = _verify_and_load(path)
+    flat, _desc = _flatten(target)
+    if len(flat) != len(named):
+        raise ValueError(f"checkpoint {path} holds {len(named)} leaves, "
+                         f"the target {len(flat)}")
+    leaves = [torch.from_numpy(np.array(named[entry["name"]])).to(dev)
+              for entry in manifest["leaves"]]
+    return _unflatten(target, leaves), manifest["metadata"]
+
+
 def _parse_step(dirname: str) -> Optional[int]:
     if not dirname.startswith("step_") or dirname.endswith(".tmp"):
         return None
@@ -160,6 +191,14 @@ class CheckpointManager:
                 continue
             return leaves, manifest["metadata"], step
         return None
+
+    def restore_latest_named(
+        self,
+    ) -> Optional[Tuple[Dict[str, np.ndarray], Dict, int]]:
+        """The reference's name for :meth:`restore_latest`, which already
+        returns named host leaves (a stream checkpoint's tree varies with
+        the windows it retains)."""
+        return self.restore_latest()
 
 
 def save_lda_model(directory: str, n_wk, n_k, hyper, step: int = 0,

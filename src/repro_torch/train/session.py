@@ -5,7 +5,9 @@
   packages (``launch/train.py --config run.json``). Features this port
   has not reached yet are refused when a session is built: a non-default
   value of one of them raises a ``ValueError`` that names the field and
-  its ROADMAP item.
+  its ROADMAP item. The streaming fields (``window_docs``,
+  ``stream_source``) drive ``train.online.StreamingSession``;
+  ``TrainSession`` ignores them, as the reference's does.
 * ``SingleBoxPlan`` — the whole corpus as one cell on one device: sweep
   (the registry backend), exclusion mask, delta merge and exclusion
   statistics, as the reference's single-box plan does them.
@@ -146,9 +148,6 @@ class RunConfig:
 UNPORTED_FIELDS = {
     "mesh_shape": (lambda v: v is not None,
                    "the mesh plan, ROADMAP queue 1 item 7"),
-    "window_docs": (lambda v: v != 0, "streaming, ROADMAP queue 1 item 6"),
-    "stream_source": (lambda v: v is not None,
-                      "streaming, ROADMAP queue 1 item 6"),
     "metrics_out": (lambda v: v is not None,
                     "telemetry, ROADMAP queue 1 item 5"),
     "autopilot": (bool, "the autopilot, ROADMAP queue 1 item 5"),

@@ -771,3 +771,156 @@ def test_engine_serves_zen_cdf_on_card(cuda):
         buckets=(16,), algorithm="zen_cdf")).infer_batch(docs)
     assert [int(np.argmax(th)) for th in thetas] == list(range(8))
     assert all(v == 0 for v in ops.launch_counts().values())
+
+
+def _stream_on_card(cuda, kernels, algorithm="zen_pallas"):
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.data.stream import ReplaySource
+    from repro_torch.train.online import StreamingSession
+    from repro_torch.train.session import RunConfig
+
+    corpus = synthetic_corpus(1, num_docs=300, num_words=500, avg_doc_len=40)
+    src = ReplaySource(corpus, window_docs=128, epochs=2)  # 128, 128, 44
+    sess = StreamingSession(
+        src, LDAHyperParams(num_topics=64),
+        RunConfig(algorithm=algorithm, kernels=kernels, num_iterations=0,
+                  window_docs=128, window_sweeps=2), device=cuda)
+    metrics = []
+    ops.reset_launch_counts()
+    sess.run(0, callback=lambda s, m: metrics.append(m))
+    torch.cuda.synchronize()
+    return sess, metrics, ops.launch_counts()
+
+
+def test_stream_on_kernels_equals_kernels_off_on_card(cuda):
+    """Six windows (two epochs of three) of ``zen_pallas``: the fused
+    kernel and kernel 5's merge (``auto``) against the gathered kernel and
+    the plain merge (``off``): the same counts, retained topics and window
+    llh, since every kernel is exact against its plain version."""
+    a, ma, ca = _stream_on_card(cuda, "auto")
+    b, mb, cb = _stream_on_card(cuda, "off")
+    assert torch.equal(a.n_wk, b.n_wk) and torch.equal(a.n_k, b.n_k)
+    assert sorted(a._retained) == sorted(b._retained) == ["w0", "w1", "w2"]
+    for uid, z in a._retained.items():
+        np.testing.assert_array_equal(z, b._retained[uid])
+    assert [m["llh"] for m in ma] == [m["llh"] for m in mb]
+    assert a.n_wk.device.type == "cuda"
+    assert {n: v for n, v in ca.items() if v} == {
+        "zen_fused_sample": 12, "topic_histogram": 24}
+    assert {n: v for n, v in cb.items() if v} == {"zen_sample": 12}
+    st = a.assembled_state()
+    assert torch.equal(st.n_wk, a.n_wk) and torch.equal(st.n_k, a.n_k)
+
+
+@pytest.mark.parametrize("algorithm", ["zen_pallas", "zen_cdf"])
+def test_zero_token_window_on_card(cuda, tmp_path, algorithm):
+    """A libsvm window of documents without tokens passes through the
+    kernels' paths: nothing is launched for its sweeps but kernel 5's
+    zero fill, and the model keeps the earlier window's counts."""
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import save_libsvm, synthetic_corpus
+    from repro_torch.data.stream import LibsvmStreamSource
+    from repro_torch.train.online import StreamingSession
+    from repro_torch.train.session import RunConfig
+
+    path = str(tmp_path / "s.libsvm")
+    c = synthetic_corpus(2, num_docs=3, num_words=50, avg_doc_len=20)
+    save_libsvm(c, path)
+    with open(path, "a") as f:
+        f.write("0\n0\n0\n")
+    sess = StreamingSession(
+        LibsvmStreamSource(path, 3, 50), LDAHyperParams(num_topics=16),
+        RunConfig(algorithm=algorithm, num_iterations=0, window_docs=3,
+                  max_kd=8 if algorithm == "zen_cdf" else 0), device=cuda)
+    metrics = []
+    sess.run(0, callback=lambda s, m: metrics.append(m))
+    torch.cuda.synchronize()
+    assert [m["tokens"] for m in metrics] == [c.num_tokens, 0]
+    assert metrics[1]["llh"] == 0.0
+    assert int(sess.n_wk.sum()) == c.num_tokens
+    assert torch.equal(sess.n_k, sess.n_wk.sum(0).to(torch.int32))
+
+
+def test_reload_under_ticker_while_watcher_builds_on_card(cuda, tmp_path):
+    """A throughput engine on the card under its background ticker and a
+    client, following a checkpoint directory: the watcher thread builds
+    each new model on the card while the ticker launches sweeps; every
+    ticket finishes with a finite theta, versions never decrease."""
+    import threading
+    import time
+
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.serving import FrozenLDAModel, LDAEngine, LDAServeConfig
+    from repro_torch.train.checkpoint import save_lda_model
+
+    rng = np.random.default_rng(0)
+    w, k = 2000, 64
+    hyper = LDAHyperParams(num_topics=k)
+    models = [rng.integers(0, 30, (w, k)).astype(np.int32) for _ in range(3)]
+    td = str(tmp_path)
+    save_lda_model(td, models[0], models[0].sum(0), hyper, step=1)
+    eng = LDAEngine(FrozenLDAModel.from_checkpoint(td, device=cuda),
+                    LDAServeConfig(buckets=(32, 64), max_batch=8,
+                                   num_sweeps=4, algorithm="zen_pallas"))
+    eng.start(0.001)
+    eng.watch_checkpoint_dir(td, period=0.02, initial_step=1)
+    stop = threading.Event()
+    tickets, lock = [], threading.Lock()
+
+    def client():
+        r = np.random.default_rng(1)
+        while not stop.is_set():
+            doc = r.integers(0, w, size=int(r.integers(5, 60)))
+            with lock:
+                tickets.append(eng.submit_async(doc))
+            time.sleep(0.001)
+
+    t = threading.Thread(target=client)
+    t.start()
+    try:
+        for step, n in ((2, models[1]), (3, models[2])):
+            time.sleep(0.2)
+            save_lda_model(td, n, n.sum(0), hyper, step=step)
+            deadline = time.monotonic() + 30
+            while eng.model_version < step - 1 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+        time.sleep(0.1)
+    finally:
+        stop.set()
+        t.join(timeout=30)
+        with lock:
+            reqs = [eng.request(tk) for tk in tickets]
+            thetas = [eng.result(tk, timeout=60) for tk in tickets]
+        err = eng.stop_watching()
+        eng.stop()
+    assert not t.is_alive()
+    assert err is None and eng.model_version == 2 and eng.reloads == 2
+    assert eng.model.device.type == "cuda"
+    assert torch.equal(eng.model.n_wk.cpu(), torch.from_numpy(models[2]))
+    assert len(thetas) == len(tickets) > 0
+    assert all(np.isfinite(th).all() for th in thetas)
+    versions = [r.model_version for r in reqs]
+    assert versions[-1] == 2 and set(versions) <= {0, 1, 2}
+
+
+def test_stream_entry_points_default_to_cuda_on_card(cuda):
+    from repro_torch.core.types import CGSState, LDAHyperParams
+    from repro_torch.data.stream import DriftSource
+    from repro_torch.train.online import StreamingSession
+    from repro_torch.train.session import RunConfig
+
+    sess = StreamingSession(DriftSource(0, 4, 1, 30),
+                            LDAHyperParams(num_topics=4),
+                            RunConfig(window_docs=4))
+    assert sess.device.type == "cuda" and sess.n_wk.device.type == "cuda"
+    sess.run(0)
+    assert sess.windows_done == 1 and sess.n_wk.device.type == "cuda"
+    z = np.zeros(3, np.int32)
+    st = CGSState.from_numpy({"topic": z, "prev_topic": z,
+                              "n_wk": np.eye(4, dtype=np.int32)[:, :4],
+                              "n_kd": np.zeros((1, 4), np.int32),
+                              "n_k": np.ones(4, np.int32),
+                              "rng": np.zeros(2, np.uint32)})
+    assert st.topic.device.type == "cuda" and st.n_wk.device.type == "cuda"

@@ -378,7 +378,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     n_wk, n_k = _sharp()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FrozenLDAModel.from_numpy(n_wk, n_k, {"num_topics": 4})
-    assert serve_lda.main(["--checkpoint-dir", "x", "--follow"]) == 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lda.main(["--checkpoint-dir", "x", "--follow"])
 
 
 def test_training_half_names_the_training_slice():

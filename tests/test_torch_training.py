@@ -544,13 +544,15 @@ def test_run_config_json_round_trips_between_packages():
 def test_unported_run_config_fields_are_refused(field, value, item):
     """Fields the port has not reached are refused naming their ROADMAP
     item. The two backends that once waited (``zen_cdf``, item 4; ``std``,
-    item 1) are ported: their reference RunConfig JSON loads in both
-    packages and trains in ``TrainSession``."""
+    item 1) and the streaming fields (``window_docs``, ``stream_source``,
+    item 6) are ported: their reference RunConfig JSON loads in both
+    packages and trains in ``TrainSession``, which ignores the streaming
+    fields, as the reference's does."""
     (_, _, _), (tc, _, th) = _corpus_state(12)
     cfg = RunConfig(**{field: value})
     ref = JRunConfig.from_json(cfg.to_json())  # the reference takes it
     assert getattr(ref, field) == value
-    if field == "algorithm":
+    if field in ("algorithm", "window_docs", "stream_source"):
         port = RunConfig.from_json(ref.to_json())
         assert port == cfg
         sess = TrainSession(tc, th, port, device="cpu")
@@ -578,9 +580,11 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--single-box", "--algorithm", "zen", "--iters", "1",
                     "--synthetic-docs", "5", "--synthetic-words", "9"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CGSState.from_numpy({"topic": np.zeros(4, np.int32),
+                             "rng": np.zeros(2, np.uint32)})
     for argv in (["--algorithm", "zen"],
                  ["--single-box", "--algorithm", "zen", "--rows", "2"],
-                 ["--single-box", "--algorithm", "zen", "--stream"],
                  ["--single-box", "--algorithm", "zen", "--autopilot"],
                  ["--single-box", "--algorithm", "zen", "--metrics-out",
                   "m"],
@@ -595,6 +599,14 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
     out = capsys.readouterr().out
     assert "single-box  algorithm=zen_cdf " in out
     assert "finished at iteration 2; final llh -" in out
+    # --stream is ported: a drift stream trains on the CPU
+    assert train.main(["--single-box", "--algorithm", "zen", "--stream",
+                       "--iters", "2", "--topics", "4", "--window-docs",
+                       "4", "--synthetic-words", "30", "--device",
+                       "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "stream  source=drift  window_docs=4" in out
+    assert "stream finished at window 2" in out
 
 
 def test_state_crosses_between_packages():
@@ -605,7 +617,7 @@ def test_state_crosses_between_packages():
               and getattr(js, f.name) is not None}
     leaves["rng"] = np.asarray(jax.random.key_data(js.rng))
     leaves["iteration"] = 4
-    st = CGSState.from_numpy(leaves)
+    st = CGSState.from_numpy(leaves, device="cpu")
     st.check_invariants(tc)
     assert st.iteration == 4 and st.rng.tolist() == leaves["rng"].tolist()
     back = st.to_numpy()
