@@ -158,12 +158,53 @@ Phases, each printing one JSON line:
    reload latency from a checkpoint's commit to the version bump, serving
    docs/sec and peak device memory.
 
+15. quality (runs right after ``train``) — quality evaluation and
+   telemetry on the train cell: ``CoherenceStats`` of the 99.5M-token
+   corpus (NPMI window 10) timed alone with its peak device memory; then
+   ``TrainSession.run`` with ``zen_pallas``, an eval and a quality eval
+   (top 10 words, 100 left-to-right documents of 20 particles) after
+   every iteration and a ``train_iter`` record per iteration into a JSONL
+   under ``build/`` (removed after). The llh and change-rate lists must
+   equal ``RECORD["train"]`` (quality and telemetry are read-only), the
+   launches those of ``train``, the JSONL one record per iteration. It
+   prints seconds per quality eval, one eval split into top words, UMass,
+   NPMI and left-to-right (with its near-tie count per document; the
+   same sweep on the host must agree within 1e-10 relative on every
+   document without one), milliseconds per telemetry record. A trained
+   model's top words on this corpus are a dozen head words, so the eval
+   is also timed, with the peak device memory of UMass and NPMI, on a
+   top-word union of several thousand words spread over every frequency
+   band (``planted_top_counts``). D(w), D(w, w') and the window counts of
+   1,000 seeded pairs of the trained model's top words and 1,000 pairs of
+   that union, drawn across frequency bands (``banded_pairs``), are
+   checked against a direct per-pair version on the card
+   (``plain_pair_counts``: per-word document sets and window-interval
+   unions). train_autopilot: the same init with the autopilot every 2 of 4
+   iterations: its decisions, the backend it moves to, seconds per
+   iteration on each side, count invariants after every step, and each
+   iteration's launches checked for the backend that ran it;
+16. serve_autopilot (runs after the serving adversarial grid) — the
+   serving phase's model and 256 documents through an engine under its
+   ticker, submissions 2 ms apart: telemetry off, then telemetry and the
+   autopilot on (windows of 16 arrivals), then the documents cut to 32
+   tokens in two bursts, so the autopilot's recut of the wide grid is
+   applied when the grid drains. docs/sec, p50/p99, every decision and
+   whether it was applied, every bucket swap (no request admitted and
+   unfinished at it; a request still queued must finish on the new grid
+   as its decode alone does), finite thetas and launches of kernel 4
+   only. Then the recut grid is swapped under traffic, stepped inline
+   (``swap_across_traffic``): the grid must hold while a request is in
+   flight, requests queued at the swap are cut to the new widest bucket,
+   and every theta must equal its document's decode alone with the same
+   key on the grid it finished on.
+
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
 ``std`` (Eq. 3 as written, plain torch) within 1% of ``zen``.
 
 Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
-with its launches on its own path and on the stream phase's), the
+with its launches on its own path and on the stream, quality,
+train_autopilot and serve_autopilot phases'), the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
 non-zero, before any result, when no CUDA device is present, when the
 repository's ``src/`` is missing, or when any check fails.
@@ -205,6 +246,14 @@ RESUME_DOCS, RESUME_WINDOW_DOCS = 65_536, 16_384
 RESUME_WINDOWS, RESUME_KILL = 6, 3
 PLAIN_WINDOW_DOCS, PLAIN_WINDOWS = 8_192, 2
 STREAM_IDLE_SERVE_S = 2.0  # serving after the stream ends, trainer idle
+# the quality phase: the train cell with quality evaluation and telemetry
+QUALITY_TOP_N, NPMI_WINDOW = 10, 10
+L2R_DOCS, L2R_PARTICLES = 100, 20
+PAIR_SAMPLE = 1000  # top-word pairs recounted by the plain version
+AUTOPILOT_ITERS, AUTOPILOT_EVERY = 4, 2
+# the serve_autopilot phase
+SERVE_PACE_S, AUTOPILOT_WINDOW = 0.002, 16
+SHORT_QUERY = 32  # tokens of the short queries of the recut run
 # kernel 5 (csrc/topic_histogram.cu) and kernel 7 (csrc/cdf_search.cu)
 # as the profiler names their device functions
 HIST_KERNELS = ("hist_sorted_kernel", "zero_cut_rows_kernel",
@@ -955,16 +1004,22 @@ def main() -> int:
           "serving adversarial grid: no case put the table in global memory")
     emit({"phase": "serve_kernels_adversarial", "cases": grid,
           "margin": margin_premises(dev, kernels="infer")})
+    serve_autopilot_launches = phase_serve_autopilot(
+        model, base, docs, topics, args.seed, smi)
 
     # -- training: kernels, the full NYTIMES run, the three backends ------
-    train_rows, train_launches, stream_launches = run_training(
+    train_rows, train_launches, by_phase = run_training(
         args.seed, dev, props, smi, sm_clock_hz)
     launches.update(train_launches)
+    by_phase["serve_autopilot"] = {
+        "zen_fused_infer_sample": serve_autopilot_launches}
     rows = train_rows + rows
     for r in rows:
         r["launches"] = launches[r["name"]]
-        # the live pipeline's launches (stream phase: legs 1 and 2)
-        r["launches_stream"] = stream_launches.get(r["name"], 0)
+        # the live pipeline's launches (stream phase: legs 1 and 2), and
+        # those of the quality, train_autopilot and serve_autopilot runs
+        for phase, counts in by_phase.items():
+            r[f"launches_{phase}"] = counts.get(r["name"], 0)
         check(r["launches"] > 0,
               f"{r['name']} was not launched on its path")
     emit({"kernels": rows})
@@ -1683,6 +1738,7 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
     corpus_dev = sess.corpus
     del sess, st
     torch.cuda.empty_cache()
+    quality_counts, autopilot_counts = phase_quality(corpus_dev, seed, smi)
     gathered_launches = phase_train_small(seed, dev, smi)
     sparse_counts, sparse_row = phase_train_sparse(corpus_dev, seed, smi)
     torch.cuda.empty_cache()
@@ -1705,7 +1761,9 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
         "zen_sample": gathered_launches,
         "sparse_row_sample": sparse_counts["sparse_row_sample"],
         "cdf_row_search": cdf_counts["cdf_row_search"],
-        "topic_histogram": train_counts["topic_histogram"]}, stream_counts
+        "topic_histogram": train_counts["topic_histogram"]}, {
+        "stream": stream_counts, "quality": quality_counts,
+        "train_autopilot": autopilot_counts}
 
 
 def phase_train_sparse(corpus, seed: int, smi):
@@ -2746,6 +2804,593 @@ def serve_cpu(model, cfg, docs):
     uids = [engine.submit(d) for d in docs]
     done = {r.uid: r for r in engine.run_until_done()}
     return [done[u] for u in uids]
+
+
+def plain_pair_counts(corpus, pairs, window: int):
+    """D(w), D(w, w') and the windows holding both words of each pair,
+    recomputed directly on the card for :func:`phase_quality`'s check: per
+    word its documents (distinct (word, doc) pairs) and the union of the
+    window intervals its occurrences fall in (a difference array over the
+    corpus's window indices); per pair the intersection of those sets.
+    Independent of ``CoherenceStats``' first-occurrence counting."""
+    import numpy as np
+    import torch
+
+    dev = corpus.word.device
+    word, doc = corpus.word.long(), corpus.doc.long()
+    d_count = corpus.num_docs
+    bounds = torch.searchsorted(doc, torch.arange(d_count + 1, device=dev))
+    lens = bounds[1:] - bounds[:-1]
+    last = (lens - window).clamp(min=0)
+    n_win = (last + 1) * (lens > 0)
+    win_base = torch.cumsum(n_win, 0) - n_win
+    total_windows = int(n_win.sum())
+    words = np.unique(pairs).astype(np.int64)
+    wanted = torch.zeros(corpus.num_words, dtype=torch.bool, device=dev)
+    wanted[torch.as_tensor(words, device=dev)] = True
+    tok = wanted[word].nonzero().squeeze(1)  # token positions, ascending
+    key = word[tok] * (d_count + 1) + doc[tok]
+    key, order = torch.sort(key, stable=True)
+    tok = tok[order]
+    cuts = torch.searchsorted(key, torch.as_tensor(
+        words, device=dev) * (d_count + 1)).tolist() + [len(key)]
+    span = {int(w): (cuts[i], cuts[i + 1]) for i, w in enumerate(words)}
+
+    def docs_of(w):
+        lo, hi = span[w]
+        return torch.unique_consecutive(doc[tok[lo:hi]])
+
+    def windows_of(w):
+        lo, hi = span[w]
+        p = tok[lo:hi]
+        d = doc[p]
+        pos = p - bounds[d]
+        start = (pos - window + 1).clamp(min=0) + win_base[d]
+        stop = torch.minimum(pos, last[d]) + win_base[d] + 1
+        diff = torch.zeros(total_windows + 1, dtype=torch.int32, device=dev)
+        diff.index_add_(0, start, torch.ones_like(start, dtype=torch.int32))
+        diff.index_add_(0, stop, -torch.ones_like(stop, dtype=torch.int32))
+        return torch.cumsum(diff[:-1], 0) > 0
+
+    out = {"doc_freq": [], "co_doc_freq": [], "window_count": [],
+           "co_window_count": []}
+    cached = (None, None, None)
+    for a, b in sorted((int(x), int(y)) for x, y in pairs):
+        if cached[0] != a:
+            cached = (a, docs_of(a), windows_of(a))
+        _, docs_a, win_a = cached
+        docs_b, win_b = docs_of(b), windows_of(b)
+        out["doc_freq"].append(int(docs_a.numel()))
+        out["co_doc_freq"].append(int(torch.isin(docs_a, docs_b).sum()))
+        out["window_count"].append(int(win_a.sum()))
+        out["co_window_count"].append(int((win_a & win_b).sum()))
+    return sorted((int(x), int(y)) for x, y in pairs), out, total_windows
+
+
+def planted_top_counts(num_words: int, k: int, top_n: int, seed: int,
+                       device):
+    """(W, K) int32 counts whose top ``top_n`` words of each topic are
+    drawn log-uniformly over word rank (the synthetic corpus's word id is
+    its Zipf rank), with counts top_n..1 and zeros elsewhere: a top-word
+    union of several thousand words that spans every frequency band, as
+    a trained model's topics do, where a few iterations on the Zipf
+    corpus give every topic the same head words."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_wk = torch.zeros((num_words, k), dtype=torch.int32, device=device)
+    rows, cols, vals = [], [], []
+    for t in range(k):
+        ids = []
+        while len(ids) < top_n:
+            w = int(np.exp(rng.uniform(0.0, np.log(num_words)))) - 1
+            if w not in ids:
+                ids.append(w)
+        rows += ids
+        cols += [t] * top_n
+        vals += list(range(top_n, 0, -1))
+    n_wk[torch.as_tensor(rows, device=device),
+         torch.as_tensor(cols, device=device)] = torch.as_tensor(
+        vals, dtype=torch.int32, device=device)
+    return n_wk
+
+
+def banded_pairs(top, doc_freq, n: int, rng):
+    """``n`` of the top-word matrix's (l, m) pairs, spread over frequency
+    bands: pairs are grouped by the decades of their two words' document
+    frequencies and drawn round-robin across the groups, in a seeded
+    order within each. Returns the (n, 2) pairs and the count per band
+    ("lo-hi" decades)."""
+    import numpy as np
+
+    k, top_n = top.shape
+    ls = np.array([l for m in range(1, top_n) for l in range(m)])
+    ms = np.array([m for m in range(1, top_n) for _ in range(m)])
+    pairs = np.stack([top[:, ls].ravel(), top[:, ms].ravel()], 1)
+    dec = np.floor(np.log10(np.maximum(doc_freq(pairs.ravel()), 1)))
+    dec = dec.astype(np.int64).reshape(pairs.shape)
+    lo, hi = dec.min(1), dec.max(1)
+    perm = rng.permutation(len(pairs))
+    key = (lo * 16 + hi)[perm]
+    order = np.argsort(key, kind="stable")
+    sk = key[order]
+    start = np.searchsorted(sk, sk)  # first slot of each group
+    rank = np.empty(len(perm), np.int64)
+    rank[order] = np.arange(len(perm)) - start
+    pick = perm[np.argsort(rank, kind="stable")[:n]]
+    bands = {}
+    for a, b in zip(lo[pick], hi[pick]):
+        bands[f"{a}-{b}"] = bands.get(f"{a}-{b}", 0) + 1
+    return pairs[pick], dict(sorted(bands.items()))
+
+
+def phase_quality(corpus, seed: int, smi):
+    """The ``train`` cell's run again with quality evaluation and telemetry
+    on, then a run with the autopilot; returns the launch counts of both
+    runs (summed) for the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.eval import (
+        CoherenceStats,
+        left_to_right_llh_batch,
+        npmi_coherence,
+        top_topic_words,
+        umass_coherence,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.observe.metrics import read_jsonl
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    dev = corpus.word.device
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    out_dir = ROOT / "build" / "chip_smoke_quality"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+
+    # (2) the corpus statistics alone: build time and peak device memory
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = CoherenceStats.from_corpus(corpus, window=NPMI_WINDOW)
+    torch.cuda.synchronize()
+    stats_s = time.perf_counter() - t0
+    stats_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    stats_held_gb = (torch.cuda.memory_allocated() - base) / 1e9
+
+    # (1), (4): quality and telemetry on the train cell's run
+    path = out_dir / "train.jsonl"
+    cfg = RunConfig(algorithm="zen_pallas", num_iterations=TRAIN_ITERS,
+                    eval_every=1, quality_every=1,
+                    quality_top_n=QUALITY_TOP_N,
+                    quality_npmi_window=NPMI_WINDOW,
+                    quality_l2r_docs=L2R_DOCS,
+                    quality_l2r_particles=L2R_PARTICLES,
+                    metrics_out=str(path), metrics_every=1)
+    t0 = time.perf_counter()
+    sess = TrainSession(corpus, hyper, cfg, device=dev)
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t0
+    timed = {"quality_s": [], "telemetry_ms": []}
+
+    def timing(fn, key, scale):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timed[key].append((time.perf_counter() - t) * scale)
+            return got
+        return wrapped
+
+    sess._quality.evaluate = timing(sess._quality.evaluate, "quality_s", 1)
+    sess.telemetry.record_iteration = timing(
+        sess.telemetry.record_iteration, "telemetry_ms", 1e3)
+    seen = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    final = sess.run(seed, callback=lambda st, m: seen.append(dict(m)))
+    counts = ops.launch_counts()
+    llh = [m["llh"] for m in seen]
+    change = [m["change_rate"] for m in seen]
+    quality = [{k: m[k] for k in ("coherence_umass", "coherence_npmi",
+                                  "l2r_llh", "l2r_per_token")}
+               for m in seen]
+    records = read_jsonl(str(path))
+    iters = [r for r in records if r["kind"] == "train_iter"]
+    check(llh == RECORD["train"]["llh"][1:]
+          and change == RECORD["train"]["change_rate"],
+          f"quality: quality and telemetry changed the run: llh {llh}, "
+          f"change rate {change} against {RECORD['train']}")
+    check_launches("quality", counts, {"zen_fused_sample": TRAIN_ITERS,
+                                       "topic_histogram": 2 * TRAIN_ITERS})
+    check([r["iteration"] for r in iters] == list(range(1, TRAIN_ITERS + 1)),
+          f"quality: telemetry records {[r['iteration'] for r in iters]}")
+    check(all(np.isfinite(v) for q in quality for v in q.values()),
+          f"quality: non-finite quality record {quality}")
+
+    # (2) one eval split into its parts, on the final snapshot
+    split = {}
+
+    def part(name, fn, into=split):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        into[name] = time.perf_counter() - t
+        return got
+
+    top = part("top_words_s", lambda: top_topic_words(
+        final.n_wk, QUALITY_TOP_N).cpu().numpy())
+    umass, _ = part("umass_s", lambda: umass_coherence(stats, top))
+    npmi, _ = part("npmi_s", lambda: npmi_coherence(stats, top))
+    l2r_docs = sess._quality._l2r_docs
+    rngs = [np.random.default_rng((0, TRAIN_ITERS, i))
+            for i in range(len(l2r_docs))]
+    (l2r, near) = part("l2r_s", lambda: left_to_right_llh_batch(
+        final.n_wk, final.n_k, l2r_docs, hyper,
+        num_particles=L2R_PARTICLES, rngs=rngs))
+    check(umass == quality[-1]["coherence_umass"]
+          and npmi == quality[-1]["coherence_npmi"]
+          and sum(float(v) for v in l2r) == quality[-1]["l2r_llh"],
+          "quality: the split eval differs from the session's last one")
+    # the same sweep on the host: a document with no near-tie on the card
+    # must draw the host's particles
+    t0 = time.perf_counter()
+    host_l2r, host_near = left_to_right_llh_batch(
+        final.n_wk.cpu(), final.n_k.cpu(), l2r_docs, hyper,
+        num_particles=L2R_PARTICLES,
+        rngs=[np.random.default_rng((0, TRAIN_ITERS, i))
+              for i in range(len(l2r_docs))])
+    host_l2r_s = time.perf_counter() - t0
+    l2r_gap = np.abs(l2r - host_l2r) / np.maximum(np.abs(host_l2r), 1.0)
+    clean = near == 0
+    check(not host_near.any() and clean.any()
+          and l2r_gap[clean].max() <= 1e-10,
+          f"quality: left-to-right on the card differs from the host's: "
+          f"largest relative gap {l2r_gap[clean].max()} on documents "
+          f"without a near-tie, host near-ties {int(host_near.sum())}")
+
+    # (3) a top-word union of realistic size: its eval cost and memory
+    wide_n_wk = planted_top_counts(corpus.num_words, K_NYT, QUALITY_TOP_N,
+                                   seed, dev)
+    wide_split, wide_peak_gb = {}, {}
+    wide_top = part("top_words_s", lambda: top_topic_words(
+        wide_n_wk, QUALITY_TOP_N).cpu().numpy(), wide_split)
+    del wide_n_wk
+    for name, fn in (("umass", umass_coherence), ("npmi", npmi_coherence)):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        part(f"{name}_s", lambda fn=fn: fn(stats, wide_top), wide_split)
+        wide_peak_gb[name] = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+
+    # (3) the counts on the card against a direct per-pair version: pairs
+    # of the trained model's top words, and of the wide union spread over
+    # frequency bands
+    rng = np.random.default_rng(seed)
+    pair_idx = [(m, l) for m in range(1, QUALITY_TOP_N) for l in range(m)]
+    pick = rng.choice(top.shape[0] * len(pair_idx), PAIR_SAMPLE,
+                      replace=False)
+    pairs = np.array([(top[i // len(pair_idx), pair_idx[i % len(pair_idx)][1]],
+                       top[i // len(pair_idx), pair_idx[i % len(pair_idx)][0]])
+                      for i in pick])
+    wide_pairs, bands = banded_pairs(wide_top, stats.doc_freq, PAIR_SAMPLE,
+                                     rng)
+    pairs = np.concatenate([pairs, wide_pairs])
+    t0 = time.perf_counter()
+    ordered, plain, total_windows = plain_pair_counts(corpus, pairs,
+                                                      NPMI_WINDOW)
+    plain_s = time.perf_counter() - t0
+    a = np.array([p[0] for p in ordered])
+    b = np.array([p[1] for p in ordered])
+    got = {"doc_freq": stats.doc_freq(a).tolist(),
+           "co_doc_freq": stats.co_doc_freq(a, b).tolist(),
+           "window_count": stats.window_count(a).tolist(),
+           "co_window_count": stats.co_window_count(a, b).tolist()}
+    for key in got:
+        bad = sum(x != y for x, y in zip(got[key], plain[key]))
+        check(bad == 0, f"quality: {key} differs from the plain version "
+              f"on {bad} of {len(ordered)} pairs")
+    check(total_windows == stats.num_windows,
+          f"quality: {stats.num_windows} windows, plain {total_windows}")
+    emit({"phase": "quality", "tokens": corpus.num_tokens,
+          "num_windows": stats.num_windows, "llh": llh,
+          "change_rate": change, "equal_to_record": True,
+          "quality": quality, "l2r_near_ties": int(near.sum()),
+          "l2r_near_tie_docs": int((~clean).sum()),
+          "l2r_near_ties_session": sess._quality.last_near_ties,
+          "l2r_host_s": host_l2r_s,
+          "l2r_host_gap_max": float(l2r_gap.max()),
+          "stats_build_s": stats_s, "stats_peak_gb": stats_peak_gb,
+          "stats_held_gb": stats_held_gb, "session_build_s": session_s,
+          "quality_eval_s": timed["quality_s"], "eval_split": split,
+          "union_words": int(np.unique(top).size),
+          "wide_union_words": int(np.unique(wide_top).size),
+          "wide_eval_split": wide_split, "wide_peak_gb": wide_peak_gb,
+          "wide_pair_bands": bands,
+          "telemetry_ms": timed["telemetry_ms"],
+          "telemetry_records": len(iters),
+          "tokens_per_s": [r["tokens_per_s"] for r in iters],
+          "pairs_checked": len(ordered), "plain_pairs_s": plain_s,
+          "launches": counts, "card": smi})
+    del sess, final, stats
+    torch.cuda.empty_cache()
+    return counts, phase_train_autopilot(corpus, seed, hyper, out_dir, smi)
+
+
+def phase_train_autopilot(corpus, seed: int, hyper, out_dir, smi):
+    """The train cell from the same initial topics with the autopilot on:
+    its decisions, the backend it moves to and the seconds per iteration
+    on each side of the switch, launches counted per backend."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.observe.metrics import read_jsonl
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    path = out_dir / "autopilot.jsonl"
+    sess = TrainSession(corpus, hyper, RunConfig(
+        algorithm="zen_pallas", num_iterations=AUTOPILOT_ITERS,
+        autopilot=True, autopilot_every=AUTOPILOT_EVERY,
+        metrics_out=str(path)), device=corpus.word.device)
+    st0 = sess.init(seed)
+    steps, decisions, launches = [], [], {}
+    backend = [sess.plan.backend.name]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_last = [time.perf_counter()]
+
+    def cb(st, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        ran = backend[-1]
+        kernel = ("zen_fused_sample" if ran == "zen_pallas"
+                  else "sparse_row_sample")
+        check(counts.get(kernel, 0) > 0,
+              f"autopilot: iteration {int(st.iteration)} on {ran} did not "
+              f"launch {kernel}: {counts}")
+        check_launches(f"autopilot iteration {int(st.iteration)} ({ran})",
+                       counts, {kernel: counts[kernel],
+                                "topic_histogram": 2})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        steps.append({"iteration": int(st.iteration), "backend": ran,
+                      "seconds": now - t_last[0],
+                      "launches": {k: v for k, v in counts.items() if v}})
+        decisions.extend(m.get("autopilot", ()))
+        backend.append(sess.plan.backend.name)
+        st.check_invariants(sess.corpus)
+        torch.cuda.synchronize()
+        t_last[0] = time.perf_counter()
+
+    sess.run(state=st0, callback=cb)
+    records = read_jsonl(str(path))
+    iters = [r for r in records if r["kind"] == "train_iter"]
+    check(len(iters) == AUTOPILOT_ITERS and decisions
+          and any(r["kind"] == "decision" for r in records),
+          f"autopilot: {len(iters)} telemetry records, decisions "
+          f"{decisions}")
+    emit({"phase": "train_autopilot", "iterations": steps,
+          "decisions": decisions, "final_backend": sess.plan.backend.name,
+          "row_pads": list(sess.row_pads),
+          "telemetry": [{k: r[k] for k in ("iteration", "backend", "dt_s",
+                                           "word_rows", "doc_rows")}
+                        for r in iters],
+          "card": smi})
+    del sess, st0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_paced(engine, docs, pace: float):
+    """Submit ``docs`` ``pace`` seconds apart under the engine's ticker and
+    collect them; returns (thetas, requests, seconds)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    tickets = []
+    for d in docs:
+        tickets.append(engine.submit_async(d))
+        time.sleep(pace)
+    reqs = [engine.request(t) for t in tickets]
+    thetas = np.stack([engine.result(t, timeout=120.0) for t in tickets])
+    return thetas, reqs, time.perf_counter() - t0
+
+
+def phase_serve_autopilot(model, base, docs, topics, seed: int, smi):
+    """The serving phase's model and documents under the ticker, paced:
+    telemetry off, then telemetry and the autopilot on; then short
+    queries on the same grid, in two bursts, so the autopilot's bucket
+    recut is applied once the grid drains. Returns the fused serving
+    kernel's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.observe.metrics import read_jsonl, summarize_latencies
+    from repro_torch.serving import LDAEngine, LDAServeConfig
+
+    out_dir = ROOT / "build" / "chip_smoke_serve_autopilot"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    kernel = "zen_fused_infer_sample"
+    launches = 0
+    short = [d[:SHORT_QUERY] for d in docs]
+    runs = [("telemetry_off", {}, [docs]),
+            ("autopilot", {"autopilot": True}, [docs]),
+            ("autopilot_recut", {"autopilot": True},
+             [short[:len(short) // 2], short[len(short) // 2:]])]
+    for name, extra, bursts in runs:
+        path = out_dir / f"{name}.jsonl"
+        if extra:
+            extra = {**extra, "autopilot_window": AUTOPILOT_WINDOW,
+                     "metrics_out": str(path)}
+        engine = LDAEngine(model, LDAServeConfig(**base, **extra), seed=seed)
+        swaps = []
+        apply = engine._apply_pending_buckets
+
+        def watched(engine=engine, apply=apply, swaps=swaps):
+            # in flight from the requests' own flags, not the buckets'
+            # slots that the swap itself tests
+            grid = engine.bucket_widths
+            in_flight = [u for u, r in engine._tickets.items()
+                         if r.admitted and not r.done]
+            queued = [r.uid for r in engine.queue]
+            apply()
+            if engine.bucket_widths != grid:
+                swaps.append({"from": list(grid),
+                              "to": list(engine.bucket_widths),
+                              "in_flight": in_flight, "queued": queued})
+
+        engine._apply_pending_buckets = watched
+        engine.warm()
+        engine.start()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        served = []
+        try:
+            for burst in bursts:
+                served.append(serve_paced(engine, burst, SERVE_PACE_S))
+        finally:
+            engine.stop()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        thetas = np.concatenate([s[0] for s in served])
+        reqs = [r for s in served for r in s[1]]
+        secs = sum(s[2] for s in served)
+        lat = summarize_latencies((r.t_done - r.t_submit) * 1e3
+                                  for r in reqs)
+        check(bool(np.isfinite(thetas).all())
+              and thetas.shape == (len(docs), K_NYT),
+              f"serve_autopilot {name}: non-finite or missing thetas")
+        check(not any(s["in_flight"] for s in swaps),
+              f"serve_autopilot {name}: a bucket swap with requests in "
+              f"flight {swaps}")
+        by_uid = {r.uid: (r, th) for r, th in zip(reqs, thetas)}
+        for sw in swaps:
+            check_requeued(model, base, seed, sw["to"],
+                           [by_uid[u] for u in sw["queued"]],
+                           f"serve_autopilot {name}")
+        check(all((v > 0) == (k == kernel) for k, v in counts.items()),
+              f"serve_autopilot {name}: expected launches of {kernel} "
+              f"only, got {counts}")
+        launches += counts[kernel]
+        row = {"phase": "serve_autopilot", "run": name, "docs": len(reqs),
+               "pace_s": SERVE_PACE_S, "seconds": secs,
+               "docs_per_sec": len(reqs) / secs, "p50_ms": lat["p50"],
+               "p99_ms": lat["p99"], "max_ms": lat["max"],
+               "final_knobs": {"tick_period": engine.tick_period,
+                               "max_slot_wait": engine.max_slot_wait,
+                               "buckets": list(engine.bucket_widths)},
+               "bucket_swaps": swaps, "spills": engine.spills,
+               "launches": counts, "card": smi}
+        if name != "autopilot_recut":
+            hit, pair_hit = check_thetas(f"serve_autopilot {name}", thetas,
+                                         topics, len(docs))
+            row.update(planted_top1_single=hit, planted_top1_pair=pair_hit)
+        if extra:
+            records = read_jsonl(str(path))
+            row["windows"] = sum(r["kind"] == "serve_window"
+                                 for r in records)
+            row["decisions"] = [
+                {k: r[k] for k in ("tick_period", "max_slot_wait",
+                                   "buckets", "applied", "reason")}
+                for r in records if r["kind"] == "decision"]
+            check(row["windows"] > 0, f"serve_autopilot {name}: no window")
+        if name == "autopilot_recut":
+            check(len(swaps) >= 1 and engine.bucket_widths[0] <= SHORT_QUERY,
+                  f"serve_autopilot: the short queries' grid was not recut "
+                  f"({swaps}, {engine.bucket_widths})")
+            recut = swaps[0]["to"]
+        emit(row)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "serve_autopilot", "run": "swap_across_traffic",
+          **swap_across_traffic(model, base, docs, recut, seed),
+          "card": smi})
+    return launches
+
+
+def check_requeued(model, base, seed: int, grid, queued, what: str) -> None:
+    """Requests queued when the bucket grid became ``grid``: each must
+    have finished on it, cut to its widest bucket exactly when longer,
+    with the theta of the same document and key decoded alone by a fresh
+    engine on that grid (a chain's draws depend on its key, words and
+    model only)."""
+    import numpy as np
+
+    from repro_torch.serving import LDAEngine, LDAServeConfig
+
+    if not queued:
+        return
+    fresh = LDAEngine(model, LDAServeConfig(**{**base, "buckets":
+                                                tuple(grid)}), seed=seed)
+    uids = [fresh.submit(r.words, key=r.key) for r, _ in queued]
+    alone = {r.uid: r for r in fresh.run_until_done()}
+    for (r, theta), u in zip(queued, uids):
+        known = r.orig_len - r.dropped_unknown
+        check(r.done and len(r.words) == min(known, max(grid))
+              and r.truncated == (known > len(r.words))
+              and np.array_equal(theta, alone[u].theta),
+              f"{what}: request {r.uid} queued across the swap to {grid} "
+              f"finished with {len(r.words)} of {known} tokens, truncated "
+              f"{r.truncated}, or a theta unlike its decode alone")
+
+
+def swap_across_traffic(model, base, docs, grid, seed: int):
+    """The recut run's grid swapped under traffic, stepped inline so the
+    order is fixed: 16 documents admitted to the wide grid, the recut made
+    pending (as the autopilot's decision leaves it), steps until none is
+    in flight (the grid must hold through every step that begins with
+    one), then 16 more documents queued on the drained grid before the
+    step that swaps. A request admitted before the swap must finish as on
+    the wide grid, one still queued at it as on the new grid, cut to its
+    widest bucket; each theta must equal its decode alone (see
+    :func:`check_requeued`)."""
+    from repro_torch.serving import LDAEngine, LDAServeConfig
+
+    engine = LDAEngine(model, LDAServeConfig(**base), seed=seed)
+    old, new = engine.bucket_widths, tuple(sorted(grid))
+    tickets = [engine.submit_async(d) for d in docs[:16]]
+    engine.step()
+    engine._pending_buckets = new
+    second, swapped, held = None, None, 0
+    while second is None or not all(engine.request(t).done
+                                    for t in tickets):
+        live = [engine.request(t) for t in tickets]
+        busy = any(r.admitted and not r.done for r in live)
+        if second is None and not busy:
+            second = [engine.submit_async(d) for d in docs[16:32]]
+            tickets += second
+            live += [engine.request(t) for t in second]
+        before = engine.bucket_widths
+        waiting = [r.uid for r in live if not r.admitted]
+        engine.step()
+        if engine.bucket_widths != before:
+            check(not busy and swapped is None and engine.bucket_widths
+                  == new, f"swap_across_traffic: the grid went {before} -> "
+                  f"{engine.bucket_widths} with requests in flight")
+            swapped = set(waiting)
+        elif swapped is None:
+            held += 1
+    check(second is not None and swapped is not None
+          and all(t in swapped for t in second),
+          f"swap_across_traffic: no swap with the second documents queued "
+          f"({engine.bucket_widths})")
+    done = [(engine.request(t), engine.result(t)) for t in tickets]
+    wide = [(r, th) for r, th in done if r.uid not in swapped]
+    cut = [(r, th) for r, th in done if r.uid in swapped]
+    check_requeued(model, base, seed, old, wide, "swap_across_traffic")
+    check_requeued(model, base, seed, new, cut, "swap_across_traffic")
+    return {"from": list(old), "to": list(new), "steps_held": held,
+            "in_flight_before_swap": len(wide), "queued_across": len(cut),
+            "truncated": int(sum(r.truncated for r, _ in cut)),
+            "thetas_equal_alone": len(done)}
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "plain torch versions on the CPU"
         )
     return dev
+
+
+def as_device_tensor(x, device: Optional[Union[str, torch.device]] = None
+                     ) -> torch.Tensor:
+    """``x`` as a tensor. A tensor stays on its own device unless
+    ``device`` is given; host data (numpy, lists) goes to
+    ``resolve_device(device)``: the card unless the caller asks for the
+    CPU."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(resolve_device(device))
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))

@@ -20,8 +20,12 @@ device they were measured on. ``--follow`` makes it the consuming half of
 the live pipeline: a checkpoint watcher polls ``--checkpoint-dir`` every
 ``--watch-period`` seconds and hot-reloads each newer model the trainer
 (``launch.train --stream``) commits, while the load replays for
-``--rounds`` rounds. The reference's ``--mesh-shape``, ``--replicas > 1``,
-``--autopilot`` and ``--metrics-out`` are not ported yet: they exit
+``--rounds`` rounds. ``--metrics-out PATH`` writes windowed
+``serve_window`` telemetry JSONL; ``--autopilot`` derives the tick period,
+the bucket-spill wait and the bucket grid from the measured arrivals
+(``--autopilot-window`` arrivals per window; ``--pace`` makes an arrival
+process to measure) and prints where they settled. The reference's
+``--mesh-shape`` and ``--replicas > 1`` are not ported yet: they exit
 non-zero.
 """
 import argparse
@@ -74,18 +78,21 @@ def main(argv=None) -> int:
                          "model checkpoint while serving (live pipeline)")
     ap.add_argument("--watch-period", type=float, default=0.5,
                     help="checkpoint poll cadence in seconds (--follow)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write windowed serving telemetry JSONL here")
+    ap.add_argument("--autopilot", action="store_true",
+                    help="derive tick_period / max_slot_wait / buckets "
+                         "from the observed arrival process")
+    ap.add_argument("--autopilot-window", type=int, default=0,
+                    help="arrivals per telemetry window (0 = default 64)")
     # the reference's flags whose features are not ported yet
     ap.add_argument("--mesh-shape", default=None)
     ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--metrics-out", default=None)
-    ap.add_argument("--autopilot", action="store_true")
-    ap.add_argument("--autopilot-window", type=int, default=0)
     args = ap.parse_args(argv)
 
     unported = [flag for flag, on in (
         ("--mesh-shape", args.mesh_shape),
-        ("--replicas > 1", args.replicas > 1), ("--autopilot", args.autopilot),
-        ("--metrics-out", args.metrics_out),
+        ("--replicas > 1", args.replicas > 1),
     ) if on]
     if unported:
         print(f"serve_lda: {', '.join(unported)} not ported yet to the "
@@ -138,6 +145,9 @@ def main(argv=None) -> int:
         rtlda_sweeps=args.rtlda_sweeps,
         tick_period=args.tick_period,
         max_slot_wait=args.max_slot_wait,
+        metrics_out=args.metrics_out,
+        autopilot=args.autopilot,
+        autopilot_window=args.autopilot_window,
     )
     engine = LDAEngine(model, cfg, seed=args.seed)
     plan = (f"rtlda_sweeps={cfg.rtlda_sweeps} (deterministic)"
@@ -180,6 +190,13 @@ def main(argv=None) -> int:
               f"max={stats['max']:.2f} on {card}")
         if args.follow and rnd < args.rounds - 1:
             time.sleep(args.watch_period)
+    if args.autopilot:
+        # where the measured knobs settled
+        print(f"autopilot: tick_period={engine.tick_period * 1e3:.2f}ms "
+              f"max_slot_wait={engine.max_slot_wait} "
+              f"buckets={engine.bucket_widths} spills={engine.spills}")
+    if args.metrics_out:
+        print(f"telemetry: {args.metrics_out}")
     if args.follow:
         err = engine.stop_watching()
         if err is not None:

@@ -38,10 +38,20 @@ hot-reloads: the live pipeline. It prints the reference's lines
 ``stream finished at window N``); the single-box plan needs no
 ``--single-box`` there, and ``--rows``/``--cols`` are ignored.
 
-What is not ported yet exits non-zero with the ROADMAP item that waits
-for it: the mesh plan (run without ``--single-box`` or ``--stream``, or
-with ``--rows``/``--cols`` or ``--host-devices``), ``--metrics-out``,
-``--autopilot`` and ``--quality-every``.
+``--quality-every N`` scores the model every N iterations on the card
+(UMass and NPMI coherence over ``--quality-top-n`` words per topic with
+``--npmi-window``, and with ``--l2r-docs`` the left-to-right held-out
+llh); the progress line gains the reference's ``umass``, ``npmi`` and
+``l2r/tok`` fields. ``--metrics-out PATH`` writes one ``train_iter`` JSONL
+record per iteration (tokens/sec, row non-zeros counted on the card, the
+eval metrics); ``--autopilot`` re-picks the backend and row widths from
+those measurements every ``--autopilot-every`` iterations (default: the
+``--rebuild-every`` cadence, else 10) and prints each decision under its
+iteration's line, then a final ``autopilot:`` line.
+
+The mesh plan is not ported yet: run without ``--single-box`` or
+``--stream``, or with ``--rows``/``--cols`` or ``--host-devices``, train
+exits non-zero with the ROADMAP item that waits for it.
 """
 import argparse
 import sys
@@ -94,11 +104,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="eval cadence (llh/perplexity)")
     ap.add_argument("--target-perplexity", type=float, default=None,
                     help="stop once eval perplexity reaches this")
-    ap.add_argument("--quality-every", type=int, default=0)
-    ap.add_argument("--quality-top-n", type=int, default=10)
-    ap.add_argument("--npmi-window", type=int, default=10)
-    ap.add_argument("--l2r-docs", type=int, default=0)
-    ap.add_argument("--l2r-particles", type=int, default=20)
+    ap.add_argument("--quality-every", type=int, default=0,
+                    help="model-quality eval cadence: UMass/NPMI "
+                         "coherence (+ left-to-right with --l2r-docs)")
+    ap.add_argument("--quality-top-n", type=int, default=10,
+                    help="top words per topic entering coherence")
+    ap.add_argument("--npmi-window", type=int, default=10,
+                    help="NPMI sliding-window size (0 = UMass only)")
+    ap.add_argument("--l2r-docs", type=int, default=0,
+                    help="held-out docs for left-to-right eval (0 = skip)")
+    ap.add_argument("--l2r-particles", type=int, default=20,
+                    help="particles per left-to-right document")
     ap.add_argument("--hyper-every", type=int, default=0,
                     help="Alg. 5 hyper-opt cadence: Minka fixed-point "
                          "alpha + beta annealing (0 = off)")
@@ -108,9 +124,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="synthetic corpus size (when --corpus is not given)")
     ap.add_argument("--synthetic-words", type=int, default=2000)
     ap.add_argument("--synthetic-len", type=int, default=80)
-    ap.add_argument("--metrics-out", default=None, metavar="PATH")
-    ap.add_argument("--autopilot", action="store_true")
-    ap.add_argument("--autopilot-every", type=int, default=0)
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write per-iteration telemetry JSONL here")
+    ap.add_argument("--autopilot", action="store_true",
+                    help="re-pick backend + row widths from measured "
+                         "sparsity on the --autopilot-every cadence")
+    ap.add_argument("--autopilot-every", type=int, default=0,
+                    help="autopilot decision cadence "
+                         "(0 = --rebuild-every, else every 10)")
     ap.add_argument("--stream", action="store_true",
                     help="windowed online training (StreamingSession); "
                          "--iters becomes the absolute window budget "
@@ -140,12 +161,6 @@ def unported_flags(args) -> list:
         ("--rows/--cols", (args.rows is not None or args.cols is not None)
          and not args.stream, mesh),
         ("--host-devices", bool(args.host_devices), mesh),
-        ("--metrics-out", args.metrics_out is not None,
-         "telemetry, ROADMAP queue 1 item 5"),
-        ("--autopilot", args.autopilot,
-         "the autopilot, ROADMAP queue 1 item 5"),
-        ("--quality-every", args.quality_every > 0,
-         "quality evaluation, ROADMAP queue 1 item 5"),
     ) if on]
     if not args.config and not args.single_box and not args.stream:
         found.append(("no --single-box", mesh + " (pass --single-box)"))
@@ -259,7 +274,10 @@ def main(argv=None) -> int:
                  or ("replay" if args.corpus else "drift"))
                 if args.stream else None
             ),
+            metrics_out=args.metrics_out,
+            autopilot=args.autopilot,
             autopilot_every=args.autopilot_every,
+            quality_every=args.quality_every,
             quality_top_n=args.quality_top_n,
             quality_npmi_window=args.npmi_window,
             quality_l2r_docs=args.l2r_docs,
@@ -319,6 +337,12 @@ def main(argv=None) -> int:
             line += (f"  llh {metrics['llh']:.1f}"
                      f"  ppl {metrics['perplexity']:.1f}"
                      f"  change {metrics['change_rate']:.3f}")
+        if "coherence_umass" in metrics:
+            line += f"  umass {metrics['coherence_umass']:.3f}"
+        if "coherence_npmi" in metrics:
+            line += f"  npmi {metrics['coherence_npmi']:.3f}"
+        if "l2r_per_token" in metrics:
+            line += f"  l2r/tok {metrics['l2r_per_token']:.3f}"
         if "hyper" in metrics:
             line += (f"  hyper a={metrics['hyper']['alpha']:.4f}"
                      f" b={metrics['hyper']['beta']:.4f}")
@@ -328,11 +352,20 @@ def main(argv=None) -> int:
         now = time.perf_counter()
         line += f"  ({now - t_last[0]:.3f}s on {card})"
         t_last[0] = now
+        for rec in metrics.get("autopilot", ()):
+            line += (f"\n  autopilot {rec['decision']}"
+                     f"{' applied' if rec['applied'] else ' (no-op)'}: "
+                     f"{rec['reason']}")
         print(line, flush=True)
 
     final = session.run(state=state, callback=cb)
     print(f"finished at iteration {int(final.iteration)}; "
           f"final llh {session.llh(final):.1f}")
+    if cfg.autopilot:
+        print(f"autopilot: final backend={session.plan.backend.name} "
+              f"row_pads={session.row_pads}")
+    if cfg.metrics_out:
+        print(f"telemetry: {cfg.metrics_out}")
     if cfg.checkpoint_dir:
         print(f"model checkpoint: {cfg.checkpoint_dir} "
               f"(serve with: python -m repro_torch.launch.serve_lda "

@@ -42,10 +42,19 @@ with the default dense backend and cdf sampling a served theta is
 bit-equal to ``core.inference.cgs_infer`` under the same key. Latency mode
 is deterministic and gives the reference's assignments.
 
-Not ported yet, and refused with a ``ValueError`` when a config sets them:
-sharded serving (``mesh_shape``), telemetry and the autopilot
-(``metrics_out``, ``autopilot``, ``autopilot_window``). The replica router
-(``LDARouter``) is not part of this package yet.
+Telemetry and the autopilot (``metrics_out``, ``autopilot``,
+``autopilot_window``) exist only when a config enables them. A
+``ServeTelemetry`` then stamps every submission and admission tick and
+closes a ``serve_window`` record every ``autopilot_window`` arrivals (or
+4x as many ticks); a ``ServeAutopilot`` turns each closed window into new
+knobs under the engine lock: ``tick_period`` and ``max_slot_wait`` apply
+from the next tick, a new bucket grid only once every bucket has drained,
+so no bucket is reshaped while it decodes, for a reload or otherwise; new
+buckets pin the current model slot at their first admission.
+
+Not ported yet, and refused with a ``ValueError`` when a config sets it:
+sharded serving (``mesh_shape``). The replica router (``LDARouter``) is
+not part of this package yet.
 """
 from __future__ import annotations
 
@@ -135,8 +144,10 @@ class FrozenLDAModel:
 @dataclasses.dataclass(frozen=True)
 class LDAServeConfig:
     """Engine knobs; the same fields and JSON as the reference's, so one
-    file configures both packages (see the module docstring for the
-    fields this engine refuses)."""
+    file configures both packages (``mesh_shape`` is refused: see the
+    module docstring). ``metrics_out`` (telemetry JSONL path),
+    ``autopilot`` and ``autopilot_window`` (arrivals per decision window,
+    0 = 64) are inert at their defaults."""
 
     buckets: Tuple[int, ...] = (32, 64, 128, 256)
     max_batch: int = 32  # slots per bucket
@@ -188,9 +199,6 @@ class LDAServeConfig:
 # config fields whose features this engine does not have yet
 _NOT_PORTED = {
     "mesh_shape": "sharded serving",
-    "metrics_out": "serving telemetry",
-    "autopilot": "the serving autopilot",
-    "autopilot_window": "the serving autopilot",
 }
 
 
@@ -387,8 +395,31 @@ class LDAEngine:
         self.sweeps_run = 0  # bucket sweeps/decodes executed
         self.spills = 0  # max_slot_wait admissions into wider buckets
         self.reloads = 0
+        # runtime knobs: seeded from cfg (the requested setup), retuned in
+        # place by the autopilot
         self._tick_period = cfg.tick_period or 0.001
         self._max_slot_wait = cfg.max_slot_wait
+        self._pending_buckets: Optional[Tuple[int, ...]] = None
+        self._telemetry = None
+        self._autopilot = None
+        if cfg.metrics_out or cfg.autopilot:
+            from repro_torch.observe import (
+                JsonlSink,
+                MetricsRegistry,
+                ServeTelemetry,
+            )
+
+            sink = JsonlSink(cfg.metrics_out) if cfg.metrics_out else None
+            arrivals = cfg.autopilot_window or 64
+            self._telemetry = ServeTelemetry(
+                MetricsRegistry(sink),
+                window_ticks=max(8, 4 * arrivals),
+                window_arrivals=arrivals,
+            )
+        if cfg.autopilot:
+            from repro_torch.autotune import ServeAutopilot
+
+            self._autopilot = ServeAutopilot()
         self._tickets: Dict[int, InferRequest] = {}
         self._cv = threading.Condition(threading.RLock())
         self._ticker: Optional[threading.Thread] = None
@@ -558,6 +589,9 @@ class LDAEngine:
             self._instant.append(req)
         else:
             self.queue.append(req)
+        if self._telemetry is not None:
+            self._telemetry.record_submit(req.t_submit,
+                                          int(req.words.shape[0]))
         return req
 
     def _complete(self, req: InferRequest) -> None:
@@ -642,6 +676,8 @@ class LDAEngine:
             self._stop_evt = threading.Event()
 
             def loop():
+                # the period is re-read every iteration: the autopilot
+                # retunes it in place
                 while not self._stop_evt.is_set():
                     with self._cv:
                         if self._pending():
@@ -673,9 +709,84 @@ class LDAEngine:
         first requests pay no kernel build or allocator warm-up."""
         self.infer_batch([np.zeros(bl, np.int32) for bl in self.bucket_widths])
 
+    # -- runtime SLA knobs (autopilot-visible) --------------------------------
+    @property
+    def tick_period(self) -> float:
+        """The current ticker cadence (cfg seed, autopilot-retuned)."""
+        return self._tick_period
+
+    @property
+    def max_slot_wait(self) -> int:
+        """The current bucket-spill knob (cfg seed, autopilot-retuned)."""
+        return self._max_slot_wait
+
     @property
     def bucket_widths(self) -> Tuple[int, ...]:
+        """The current bucket lengths, ascending."""
         return tuple(sorted(self._buckets))
+
+    def _apply_pending_buckets(self) -> None:
+        """Swap in an autopilot-proposed bucket grid once every bucket has
+        drained, so no slot state is reshaped under a running decode (nor
+        under a bucket still finishing a reloaded-away model). Queued
+        requests survive: they re-bucket at the next admission, and
+        over-long ones truncate to the new widest."""
+        if self._pending_buckets is None:
+            return
+        if any(b.num_active for b in self._buckets.values()):
+            return
+        widths = self._pending_buckets
+        self._pending_buckets = None
+        k = self._current.model.num_topics
+        self._buckets = {
+            length: _Bucket(length, self.cfg.max_batch, k, self.device)
+            for length in sorted(widths)
+        }
+        max_len = max(self._buckets)
+        for req in self.queue:
+            if req.words.shape[0] > max_len:
+                req.words = req.words[:max_len]
+                req.truncated = True
+
+    def _observe_tick(self, finished: List[InferRequest]) -> None:
+        """Measure this tick; when it closes a telemetry window, let the
+        autopilot derive new knobs from the window's summary (period and
+        spill at once, buckets at the next full drain). Under the lock,
+        from :meth:`step`."""
+        summary = self._telemetry.record_tick(
+            queue_depth=len(self.queue),
+            occupancy=sum(b.num_active for b in self._buckets.values()),
+            finished=finished,
+            spills_total=self.spills,
+            tick_period=self._tick_period,
+            max_slot_wait=self._max_slot_wait,
+            bucket_widths=self.bucket_widths,
+            model_version=self._current.version,
+        )
+        if summary is None or self._autopilot is None:
+            return
+        decision = self._autopilot.decide(
+            summary,
+            tick_period=self._tick_period,
+            max_slot_wait=self._max_slot_wait,
+            buckets=self.bucket_widths,
+        )
+        if decision is None:
+            return
+        applied = False
+        if decision.tick_period is not None:
+            self._tick_period = float(decision.tick_period)
+            applied = True
+        if decision.max_slot_wait is not None:
+            self._max_slot_wait = int(decision.max_slot_wait)
+            applied = True
+        if (decision.buckets is not None
+                and tuple(sorted(decision.buckets)) != self.bucket_widths):
+            self._pending_buckets = tuple(sorted(decision.buckets))
+            applied = True
+        rec = decision.to_record()
+        rec["applied"] = applied
+        self._telemetry.emit_decision(rec)
 
     # -- admission ---------------------------------------------------------
     def _bucket_for(self, length: int) -> _Bucket:
@@ -750,8 +861,11 @@ class LDAEngine:
     def step(self) -> List[InferRequest]:
         """Run one admission tick; return the requests it finished."""
         with self._cv:
+            self._apply_pending_buckets()
             finished = (self._latency_step() if self.cfg.mode == "latency"
                         else self._throughput_step())
+            if self._telemetry is not None:
+                self._observe_tick(finished)
             if finished and self._tickets:
                 self._cv.notify_all()
             return finished

@@ -104,7 +104,9 @@ class StreamingSession:
     ``run(rng, callback)``, ``save_model()`` and a metrics dict per window
     (the reference's keys), with ``cfg.num_iterations`` bounding the
     absolute window cursor (0 = until the source ends). ``rng`` is an int
-    seed or two uint32 words (``core.keys``)."""
+    seed or two uint32 words (``core.keys``). The telemetry, autopilot
+    and quality fields of ``cfg`` are accepted and ignored, as the
+    reference's ``StreamingSession`` does."""
 
     def __init__(self, source: CorpusSource, hyper: LDAHyperParams,
                  cfg: RunConfig, device=None):

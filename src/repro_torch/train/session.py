@@ -2,10 +2,9 @@
 
 * ``RunConfig`` — the declarative run description, with the reference's
   fields, defaults and JSON, so one run file means the same run in both
-  packages (``launch/train.py --config run.json``). Features this port
-  has not reached yet are refused when a session is built: a non-default
-  value of one of them raises a ``ValueError`` that names the field and
-  its ROADMAP item. The streaming fields (``window_docs``,
+  packages (``launch/train.py --config run.json``). The mesh plan
+  (``mesh_shape``) is not ported yet and is refused when a session is
+  built, naming its ROADMAP item. The streaming fields (``window_docs``,
   ``stream_source``) drive ``train.online.StreamingSession``;
   ``TrainSession`` ignores them, as the reference's does.
 * ``SingleBoxPlan`` — the whole corpus as one cell on one device: sweep
@@ -13,10 +12,14 @@
   statistics, as the reference's single-box plan does them.
 * ``TrainSession`` — ``init() / step() / run() / llh() / perplexity() /
   metrics() / save_model() / merge_duplicates()``, with the reference's
-  schedule actions: ``exclusion_on``, ``rebuild``, ``repad``, ``hyper``,
-  ``merge``, ``eval``, ``model_checkpoint`` and ``train_checkpoint``;
-  ``run()`` resumes from the newest elastic training checkpoint, the
-  reference's ``{"topic", "iteration"}`` tree included.
+  schedule actions: ``exclusion_on``, ``rebuild``, ``repad``,
+  ``autopilot``, ``hyper``, ``merge``, ``eval``, ``quality``,
+  ``model_checkpoint``, ``train_checkpoint`` and ``telemetry``; ``run()``
+  resumes from the newest elastic training checkpoint, the reference's
+  ``{"topic", "iteration"}`` tree included. Telemetry
+  (``metrics_out``), the autopilot (``autopilot``) and quality evaluation
+  (``quality_every``) are built only when enabled, and read the counts on
+  the card; they change no draw.
 
 Sessions and plans run on ``device`` (default ``cuda``) and raise rather
 than fall back when no card is present. The run key is an int seed or two
@@ -148,11 +151,6 @@ class RunConfig:
 UNPORTED_FIELDS = {
     "mesh_shape": (lambda v: v is not None,
                    "the mesh plan, ROADMAP queue 1 item 7"),
-    "metrics_out": (lambda v: v is not None,
-                    "telemetry, ROADMAP queue 1 item 5"),
-    "autopilot": (bool, "the autopilot, ROADMAP queue 1 item 5"),
-    "quality_every": (lambda v: v > 0,
-                      "quality evaluation, ROADMAP queue 1 item 5"),
 }
 
 
@@ -301,6 +299,17 @@ class SingleBoxPlan:
             self._knobs, max_kw=int(max_kw), max_kd=int(max_kd))
         return True
 
+    def set_backend(self, name: str, state: CGSState) -> bool:
+        """Switch the sweep to backend ``name`` (its tables prepared on the
+        card); True when it changed. The corpus's row orders for kernel 5
+        do not depend on the backend and stay."""
+        if name == self.backend.name:
+            return False
+        self.backend = algorithms.get(name)
+        self._aux = self.backend.prepare(self.corpus, self.hyper,
+                                         self._knobs)
+        return True
+
     def set_hyper(self, hyper: LDAHyperParams) -> None:
         self.hyper = hyper
         self._aux = self.backend.prepare(self.corpus, hyper, self._knobs)
@@ -315,6 +324,12 @@ class SingleBoxPlan:
             prev_topic=tm[state.prev_topic.long()].to(torch.int32),
             n_wk=n_wk, n_kd=n_kd, n_k=n_k,
         )
+
+    def host_n_wk(self, state: CGSState) -> np.ndarray:
+        """N_w|k on the host: the reference's plan surface, kept under
+        its name for code written against it. The port's own telemetry
+        counts the rows on the card and does not call it."""
+        return state.n_wk.cpu().numpy()
 
     # -- checkpoint surfaces -----------------------------------------------
     def model_arrays(self, state: CGSState
@@ -358,6 +373,31 @@ class TrainSession:
         self.backend = algorithms.get(cfg.algorithm)
         self.plan = SingleBoxPlan(corpus, hyper, cfg, device=device)
         self.corpus = self.plan.corpus
+        # telemetry, the autopilot and the quality evaluator exist only
+        # when enabled: off, the schedule is the plain one
+        self.telemetry = None
+        self._autopilot_policy = None
+        if cfg.metrics_out or cfg.autopilot:
+            from repro_torch.observe import (
+                JsonlSink,
+                MetricsRegistry,
+                TrainTelemetry,
+            )
+
+            sink = JsonlSink(cfg.metrics_out) if cfg.metrics_out else None
+            self.telemetry = TrainTelemetry(MetricsRegistry(sink))
+        if cfg.autopilot:
+            from repro_torch.autotune import TrainAutopilot
+
+            self._autopilot_policy = TrainAutopilot(
+                self._autopilot_candidates())
+        self._quality = None
+        if cfg.quality_every > 0:
+            from repro_torch.eval import QualityEval
+
+            # corpus statistics counted once, on the plan's device
+            self._quality = QualityEval.from_run_config(self.corpus, hyper,
+                                                        cfg)
         self.schedule = self._build_schedule()
         self._last_model_save: Optional[int] = None
         self._train_ckpt = None
@@ -444,7 +484,8 @@ class TrainSession:
                 "rebuild", lambda ctx, st: self.plan.rebuild(st),
                 every=cfg.rebuild_every,
             ))
-            # the autopilot (not ported) would own the row widths instead
+            # with the autopilot on, row widths belong to its RowRepad
+            # decisions: two owners would fight over one knob
             if (self.backend.needs_row_pads
                     and not (cfg.max_kw and cfg.max_kd)
                     and not cfg.autopilot):
@@ -456,6 +497,11 @@ class TrainSession:
                 sched.add(ScheduledAction(
                     "repad", _repad, every=cfg.rebuild_every,
                 ))
+        if cfg.autopilot:
+            sched.add(ScheduledAction(
+                "autopilot", self._autopilot_action,
+                every=cfg.autopilot_every or cfg.rebuild_every or 10,
+            ))
         if cfg.hyper_every > 0:
             sched.add(ScheduledAction(
                 "hyper", self._hyper_action, every=cfg.hyper_every,
@@ -475,6 +521,10 @@ class TrainSession:
                 return st
 
             sched.add(ScheduledAction("eval", _eval, every=cfg.eval_every))
+        if cfg.quality_every > 0:
+            sched.add(ScheduledAction(
+                "quality", self._quality_action, every=cfg.quality_every,
+            ))
         if cfg.checkpoint_dir and cfg.checkpoint_every > 0:
             sched.add(ScheduledAction(
                 "model_checkpoint",
@@ -487,7 +537,69 @@ class TrainSession:
                 lambda ctx, st: (self._save_train_ckpt(st), st)[1],
                 every=cfg.train_checkpoint_every,
             ))
+        if self.telemetry is not None:
+            # last, so the record carries what the earlier actions added
+            sched.add(ScheduledAction(
+                "telemetry", self._telemetry_action,
+                every=max(1, cfg.metrics_every),
+            ))
         return sched
+
+    # -- the autopilot, quality and telemetry actions ------------------------
+    def _autopilot_candidates(self) -> Tuple[str, ...]:
+        """The configured backend plus the three decomposition
+        representatives (doc-side, word-side, hybrid)."""
+        cands = [self.cfg.algorithm]
+        for name in ("zen_sparse", "sparselda", "zen_hybrid"):
+            if name not in cands and name in algorithms.registered():
+                cands.append(name)
+        return tuple(cands)
+
+    def _autopilot_action(self, ctx: ActionContext, state: CGSState):
+        """Measure, decide, act at a rebuild point: the counts are rebuilt
+        from the assignments first, so a switch bakes in no drift."""
+        from repro_torch.autotune.policy import BackendSwitch, RowRepad
+
+        state = self.plan.rebuild(state)
+        plan = self.plan
+        # the single box resolves auto pads (0) every sweep already: only
+        # explicit widths are worth tuning
+        pads_tunable = (plan.backend.needs_row_pads
+                        and all(p > 0 for p in plan.row_pads))
+        decisions = self._autopilot_policy.decide(
+            self.telemetry.window(),
+            current_backend=plan.backend.name,
+            current_pads=plan.row_pads,
+            num_topics=self.hyper.num_topics,
+            pads_tunable=pads_tunable,
+        )
+        for d in decisions:
+            if isinstance(d, BackendSwitch):
+                applied = plan.set_backend(d.backend, state)
+                if applied:
+                    self.backend = plan.backend
+            elif isinstance(d, RowRepad):
+                applied = plan.apply_row_pads(d.max_kw, d.max_kd)
+            else:  # pragma: no cover - no other training decision types
+                applied = False
+            rec = d.to_record()
+            rec.update(iteration=int(state.iteration), applied=applied)
+            self.telemetry.emit_decision(rec)
+            ctx.metrics.setdefault("autopilot", []).append(rec)
+        return state
+
+    def _quality_action(self, ctx: ActionContext, state: CGSState):
+        """Score the model snapshot (coherence, left-to-right) into the
+        iteration's metrics; reads the counts on the card, changes
+        nothing."""
+        ctx.metrics.update(self._quality.evaluate(
+            state.n_wk, state.n_k, int(state.iteration)))
+        return state
+
+    def _telemetry_action(self, ctx: ActionContext, state: CGSState):
+        self.telemetry.record_iteration(self.plan, state,
+                                        int(state.iteration), ctx.metrics)
+        return state
 
     def _hyper_action(self, ctx: ActionContext, state: CGSState):
         """One Alg. 5 hyper move against the current doc-topic counts."""
@@ -503,6 +615,8 @@ class TrainSession:
         if new_hyper is not self.hyper:
             self.hyper = new_hyper
             self.plan.set_hyper(new_hyper)
+            if self._quality is not None:
+                self._quality.hyper = new_hyper  # l2r alpha_k follows
             ctx.metrics["hyper"] = {"alpha": new_hyper.alpha,
                                     "beta": new_hyper.beta}
         return state

@@ -924,3 +924,116 @@ def test_stream_entry_points_default_to_cuda_on_card(cuda):
                               "n_k": np.ones(4, np.int32),
                               "rng": np.zeros(2, np.uint32)})
     assert st.topic.device.type == "cuda" and st.n_wk.device.type == "cuda"
+
+
+# -- quality evaluation and telemetry on the card -----------------------------
+
+def _coherence_corpus(seed, d=400, w=300, mean_len=40):
+    rng = np.random.default_rng(seed)
+    lens = rng.poisson(mean_len, d)
+    lens[:3] = (0, 5, 10)
+    doc = np.repeat(np.arange(d), lens).astype(np.int32)
+    zipf = 1.0 / np.arange(1, w + 1) ** 1.1
+    word = rng.choice(w, size=doc.size, p=zipf / zipf.sum()).astype(np.int32)
+    return word, doc, d, w
+
+
+@pytest.mark.parametrize("window", [1, 4, 10])
+def test_coherence_integers_on_card_equal_cpu(cuda, window):
+    from repro_torch.eval import CoherenceStats, top_topic_words
+
+    word, doc, d, w = _coherence_corpus(window)
+    cpu = CoherenceStats(torch.from_numpy(word), torch.from_numpy(doc), d,
+                         window=window, num_words=w)
+    card = CoherenceStats(torch.from_numpy(word).to(cuda),
+                          torch.from_numpy(doc).to(cuda), d, window=window,
+                          num_words=w)
+    assert card.num_windows == cpu.num_windows
+    ids = np.arange(w)
+    np.testing.assert_array_equal(card.doc_freq(ids), cpu.doc_freq(ids))
+    np.testing.assert_array_equal(card.window_count(ids),
+                                  cpu.window_count(ids))
+    rng = np.random.default_rng(window)
+    n_wk = rng.integers(0, 5, (w, 40)).astype(np.int32)
+    top = top_topic_words(torch.from_numpy(n_wk).to(cuda), 10)
+    np.testing.assert_array_equal(
+        top.cpu().numpy(), top_topic_words(torch.from_numpy(n_wk), 10).numpy())
+    # numpy inputs are counted on the card by default
+    assert top_topic_words(n_wk, 10).device.type == "cuda"
+    host_in = CoherenceStats(word, doc, d, window=window, num_words=w)
+    assert host_in.device.type == "cuda"
+    assert host_in.num_windows == cpu.num_windows
+    a = np.repeat(top.cpu().numpy()[:, :1], 9, 1).ravel()
+    b = top.cpu().numpy()[:, 1:].ravel()
+    np.testing.assert_array_equal(card.co_doc_freq(a, b),
+                                  cpu.co_doc_freq(a, b))
+    np.testing.assert_array_equal(card.co_window_count(a, b),
+                                  cpu.co_window_count(a, b))
+
+
+def test_left_to_right_on_card_equals_cpu_but_counted_near_ties(cuda):
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.eval import left_to_right_llh_batch
+
+    rng = np.random.default_rng(5)
+    w, k = 500, 300
+    n_wk = rng.integers(0, 40, (w, k)).astype(np.int32)
+    n_k = n_wk.sum(0).astype(np.int32)
+    hyper = LDAHyperParams(num_topics=k, alpha=0.1, beta=0.01)
+    docs = [rng.integers(0, w, int(n)) for n in rng.integers(0, 24, 30)]
+
+    def run(dev):
+        return left_to_right_llh_batch(
+            torch.from_numpy(n_wk).to(dev), torch.from_numpy(n_k).to(dev),
+            docs, hyper, num_particles=10,
+            rngs=[np.random.default_rng((0, 1, i)) for i in range(len(docs))])
+
+    cpu, cpu_near = run("cpu")
+    card, card_near = run(cuda)
+    assert not cpu_near.any()
+    gap = np.abs(card - cpu) / np.maximum(np.abs(cpu), 1.0)
+    clean = card_near == 0
+    print(f"left-to-right on the card: {int(card_near.sum())} near-ties in "
+          f"{int((~clean).sum())} of {len(docs)} documents, largest "
+          f"relative gap {gap.max():.3e} ({gap[clean].max():.3e} where "
+          f"none)")
+    # a document with no near-tie draws the host's particles exactly
+    assert clean.any() and gap[clean].max() <= 1e-10
+    assert np.isfinite(card).all()
+
+
+def test_nnz_row_stats_from_a_card_tensor_equal_numpy(cuda):
+    from repro_torch.observe.metrics import nnz_row_stats
+
+    rng = np.random.default_rng(2)
+    counts = ((rng.random((3000, 1000)) < 0.07)
+              * rng.integers(1, 9, (3000, 1000))).astype(np.int32)
+    assert nnz_row_stats(torch.from_numpy(counts).to(cuda)) == \
+        nnz_row_stats(counts)
+
+
+def test_quality_and_telemetry_leave_a_card_run_bit_identical(cuda,
+                                                             tmp_path):
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.observe.metrics import read_jsonl
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus = synthetic_corpus(0, num_docs=300, num_words=2000,
+                              avg_doc_len=60)
+    hyper = LDAHyperParams(num_topics=64)
+    base = dict(algorithm="zen_pallas", num_iterations=3, eval_every=1)
+    runs = []
+    for extra in ({}, dict(quality_every=1, quality_l2r_docs=8,
+                           metrics_out=str(tmp_path / "m.jsonl"))):
+        sess = TrainSession(corpus, hyper, RunConfig(**base, **extra),
+                            device=cuda)
+        seen = []
+        st = sess.run(0, callback=lambda s, m: seen.append(m))
+        runs.append((st, seen))
+    (a, ma), (b, mb) = runs
+    assert torch.equal(a.topic, b.topic) and torch.equal(a.n_wk, b.n_wk)
+    assert [m["llh"] for m in ma] == [m["llh"] for m in mb]
+    assert all(np.isfinite(m["coherence_npmi"]) for m in mb)
+    assert [r["iteration"] for r in read_jsonl(str(tmp_path / "m.jsonl"))
+            if r["kind"] == "train_iter"] == [1, 2, 3]

@@ -366,11 +366,27 @@ def test_serve_config_json_loads_in_both_packages():
 @pytest.mark.parametrize("field,value", [
     ("mesh_shape", (1, 2)), ("metrics_out", "m.jsonl"), ("autopilot", True),
     ("autopilot_window", 8)])
-def test_unported_features_are_refused(field, value):
+def test_unported_features_are_refused(field, value, tmp_path):
+    """Sharded serving (``mesh_shape``, item 7) is refused. Telemetry and
+    the autopilot (item 5) are ported: the engine takes their fields, as
+    the reference's does, builds the same hooks and serves."""
     n_wk, n_k = _sharp()
-    _, tm = _both(n_wk, n_k, JHyper(num_topics=4))
-    with pytest.raises(ValueError, match="not ported"):
-        LDAEngine(tm, LDAServeConfig(**{field: value}))
+    jm, tm = _both(n_wk, n_k, JHyper(num_topics=4))
+    if field == "mesh_shape":
+        with pytest.raises(ValueError, match="not ported"):
+            LDAEngine(tm, LDAServeConfig(**{field: value}))
+        return
+    if field == "metrics_out":
+        value = str(tmp_path / value)
+    cfg = LDAServeConfig(**{field: value})
+    eng = LDAEngine(tm, cfg)
+    ref = JEngine(jm, JConfig.from_json(cfg.to_json()))
+    for attr in ("_telemetry", "_autopilot"):
+        assert (getattr(eng, attr) is None) == (getattr(ref, attr) is None)
+    theta = eng.infer_batch([np.arange(10, 20)])[0]
+    assert abs(float(theta.sum()) - 1) < 1e-5 and int(np.argmax(theta)) == 1
+    assert (eng.tick_period, eng.max_slot_wait, eng.bucket_widths) == (
+        ref.tick_period, ref.max_slot_wait, ref.bucket_widths)
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):

@@ -465,7 +465,7 @@ def test_decay_mode_forgets():
     assert nwk.sum() < 2.5 * src.window_docs * src.avg_doc_len
 
 
-def test_streaming_session_validation():
+def test_streaming_session_validation(tmp_path):
     _, _, tc, th = _tiny()
     src = ReplaySource(tc, window_docs=10)
     with pytest.raises(ValueError, match="single-box"):
@@ -474,9 +474,13 @@ def test_streaming_session_validation():
         StreamingSession(src, th, _stream_cfg(decay=1.0), device=CPU)
     with pytest.raises(ValueError, match="window_sweeps"):
         StreamingSession(src, th, _stream_cfg(window_sweeps=0), device=CPU)
-    with pytest.raises(ValueError, match="metrics_out=.*item 5"):
-        StreamingSession(src, th, _stream_cfg(metrics_out="m.jsonl"),
-                         device=CPU)
+    # item 5's fields are accepted and ignored, as the reference's
+    # StreamingSession does: no telemetry file appears
+    ignored = StreamingSession(src, th, _stream_cfg(
+        metrics_out=str(tmp_path / "m.jsonl"), autopilot=True,
+        quality_every=1), device=CPU)
+    ignored.run(1)
+    assert not (tmp_path / "m.jsonl").exists()
     sess = StreamingSession(src, th, _stream_cfg(decay=0.1), device=CPU)
     with pytest.raises(ValueError, match="rotation regime"):
         sess.assembled_state()

@@ -541,17 +541,39 @@ def test_run_config_json_round_trips_between_packages():
     ("metrics_out", "m.jsonl", "item 5"), ("autopilot", True, "item 5"),
     ("quality_every", 2, "item 5"), ("algorithm", "zen_cdf", "item 4"),
     ("algorithm", "std", "item 1")])
-def test_unported_run_config_fields_are_refused(field, value, item):
+def test_unported_run_config_fields_are_refused(field, value, item,
+                                                tmp_path):
     """Fields the port has not reached are refused naming their ROADMAP
-    item. The two backends that once waited (``zen_cdf``, item 4; ``std``,
-    item 1) and the streaming fields (``window_docs``, ``stream_source``,
-    item 6) are ported: their reference RunConfig JSON loads in both
-    packages and trains in ``TrainSession``, which ignores the streaming
-    fields, as the reference's does."""
-    (_, _, _), (tc, _, th) = _corpus_state(12)
+    item: only ``mesh_shape`` (item 7) is left. The two backends that once
+    waited (``zen_cdf``, item 4; ``std``, item 1) and the streaming fields
+    (``window_docs``, ``stream_source``, item 6) are ported: their
+    reference RunConfig JSON loads in both packages and trains in
+    ``TrainSession``, which ignores the streaming fields, as the
+    reference's does. So are item 5's telemetry, autopilot and quality
+    fields: a session takes them, builds the reference's schedule for them
+    and trains with them on."""
+    (jc, _, jh), (tc, _, th) = _corpus_state(12)
+    if field == "metrics_out":
+        value = str(tmp_path / value)
     cfg = RunConfig(**{field: value})
     ref = JRunConfig.from_json(cfg.to_json())  # the reference takes it
     assert getattr(ref, field) == value
+    if item == "item 5":
+        cfg = dataclasses.replace(cfg, num_iterations=2)
+        sess = TrainSession(tc, th, cfg, device="cpu")
+        assert sess.schedule.names() == JSession(
+            jc, jh, dataclasses.replace(ref, num_iterations=2)
+        ).schedule.names()
+        assert field.split("_")[0] in " ".join(sess.schedule.names()) \
+            or field == "metrics_out"
+        st = sess.run(0)
+        st.check_invariants(sess.corpus)
+        assert int(st.iteration) == 2
+        if field == "metrics_out":
+            from repro_torch.observe.metrics import read_jsonl
+
+            assert [r["iteration"] for r in read_jsonl(value)] == [1, 2]
+        return
     if field in ("algorithm", "window_docs", "stream_source"):
         port = RunConfig.from_json(ref.to_json())
         assert port == cfg
@@ -568,7 +590,7 @@ def test_unported_run_config_fields_are_refused(field, value, item):
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
-                                                          capsys):
+                                                          capsys, tmp_path):
     from repro_torch.launch import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -584,13 +606,22 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
         CGSState.from_numpy({"topic": np.zeros(4, np.int32),
                              "rng": np.zeros(2, np.uint32)})
     for argv in (["--algorithm", "zen"],
-                 ["--single-box", "--algorithm", "zen", "--rows", "2"],
-                 ["--single-box", "--algorithm", "zen", "--autopilot"],
-                 ["--single-box", "--algorithm", "zen", "--metrics-out",
-                  "m"],
-                 ["--single-box", "--algorithm", "zen", "--quality-every",
-                  "1"]):
+                 ["--single-box", "--algorithm", "zen", "--rows", "2"]):
         assert train.main(argv + ["--device", "cpu"]) == 2, argv
+    # item 5's flags are ported: each trains on the CPU
+    tiny = ["--single-box", "--algorithm", "zen", "--iters", "2", "--topics",
+            "4", "--synthetic-docs", "5", "--synthetic-words", "9",
+            "--device", "cpu"]
+    for argv in (["--autopilot"],
+                 ["--metrics-out", str(tmp_path / "m")],
+                 ["--quality-every", "1"]):
+        capsys.readouterr()
+        assert train.main(tiny + argv) == 0, argv
+        out = capsys.readouterr().out
+        assert "finished at iteration 2" in out, argv
+        assert ("autopilot: final backend=" in out) == (
+            argv[0] == "--autopilot")
+        assert ("umass" in out) == (argv[0] == "--quality-every")
     # the default algorithm, zen_cdf, is ported: it trains on the CPU
     capsys.readouterr()
     assert train.main(["--single-box", "--iters", "2", "--topics", "6",
