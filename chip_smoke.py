@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card
-and check them.
+"""Drive the PyTorch port's serving and training paths, its mesh plan,
+sharded serving and router on one CUDA card, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -198,13 +198,44 @@ Phases, each printing one JSON line:
    and every theta must equal its document's decode alone with the same
    key on the grid it finished on.
 
+17. mesh_one (runs after the stream phase) — a world of one under NCCL:
+   ``TrainSession`` with ``mesh_shape=(1, 1)`` on the train corpus
+   (``grid_partition`` timed apart), ``zen_pallas`` fused, 3 iterations:
+   count invariants after every step, the change-rate list equal to
+   ``RECORD["train"]``'s first 3 entries and the llh after the third to
+   its record within 1e-12 relative (float64 sums of the same float32
+   terms), kernels 2 and 5 launched 3 and 6 times. Milliseconds per
+   step split into sweep, merge (kernel 5) and the two all-reduces, peak
+   memory;
+18. mesh_four — 4 gloo ranks sharing the card on a (2, 2) grid: the grid
+   partitioned once here and handed to the ranks as memory-mapped
+   ``.npy`` files under ``build/``; 2 iterations; count invariants after
+   every step; the final counts and topics, gathered and un-permuted,
+   equal (by SHA-256, on every rank) a ``zen_pallas`` single box over the
+   corpus declared at (W_pad, D_pad) with the same key. Per rank: seconds
+   per iteration split into sweep, kernel 5 and the N_w|k and N_k|d
+   all-reduces with their bytes, peak memory, launches (2 and 4);
+19. sharded_serve (runs after serve_autopilot) — the fused throughput
+   run's model, documents and keys at ``mesh_shape`` (1, 2) and (1, 4):
+   thetas equal to ``SERVE_RECORD["throughput_fused"]``, kernel 4
+   launched m times the unsharded run's count; docs/sec, p50 / p99;
+20. router — 2 replicas behind ``LDARouter``, each request under the
+   key the single engine derives for it: the same digest, both replicas
+   at work, docs/sec; then a broadcast ``reload`` (the same counts, a
+   new version) while the first admissions decode: nothing dropped,
+   every ticket on the version it was admitted under, the digest again.
+
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
-``std`` (Eq. 3 as written, plain torch) within 1% of ``zen``.
+``std`` (Eq. 3 as written, plain torch) within 1% of ``zen``. The
+train_kernels phase also launches kernels 1-2 with a per-token index (a
+mesh cell's corpus indices): the identity keeps every draw, a permuted
+launch with index pi permutes them, and both are timed.
 
 Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
 with its launches on its own path and on the stream, quality,
-train_autopilot and serve_autopilot phases'), the
+train_autopilot, serve_autopilot, mesh_one, mesh_four, sharded_serve
+and router phases'), the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
 non-zero, before any result, when no CUDA device is present, when the
 repository's ``src/`` is missing, or when any check fails.
@@ -260,6 +291,13 @@ HIST_KERNELS = ("hist_sorted_kernel", "zero_cut_rows_kernel",
                 "zero_fill_kernel")
 CDF_KERNELS = ("cdf_compact_kernel", "cdf_walk_kernel")
 CDF_STRIPS = 4  # strips per pass of the walk's loop (kStrips)
+# the mesh phases: a world of one under NCCL on the train cell, 4 gloo
+# ranks sharing the card on a (2, 2) grid, sharded serving, the router
+MESH_ONE_ITERS, MESH_FOUR_ITERS = 3, 2
+MESH_FOUR_SHAPE = (2, 2)
+MESH_LLH_RTOL = 1e-12  # mesh_one's llh vs RECORD (expected: equal)
+MESH_SERVE_SHARDS = (2, 4)
+ROUTER_REPLICAS = 2
 # The training phases' records, as this script measured them before
 # kernels 5 and 7 were redesigned (NVIDIA H100 80GB HBM3, 700 W; equal in
 # four runs of that tree): no kernel redesign may change them, since every
@@ -1006,6 +1044,10 @@ def main() -> int:
           "margin": margin_premises(dev, kernels="infer")})
     serve_autopilot_launches = phase_serve_autopilot(
         model, base, docs, topics, args.seed, smi)
+    sharded_launches = phase_sharded_serve(
+        model, base, docs, args.seed, launches["zen_fused_infer_sample"],
+        smi)
+    router_launches = phase_router(model, base, docs, args.seed, smi)
 
     # -- training: kernels, the full NYTIMES run, the three backends ------
     train_rows, train_launches, by_phase = run_training(
@@ -1013,6 +1055,8 @@ def main() -> int:
     launches.update(train_launches)
     by_phase["serve_autopilot"] = {
         "zen_fused_infer_sample": serve_autopilot_launches}
+    by_phase["sharded_serve"] = sharded_launches
+    by_phase["router"] = router_launches
     rows = train_rows + rows
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -1449,8 +1493,37 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
         w_beta=w_beta, stats=stats), out_f)), "training: stats run differs")
     forced, cands, fallback = stats.tolist()
 
+    # the per-token index a mesh cell passes (its tokens' corpus
+    # indices): the identity keeps every draw, a permutation pi of the
+    # tokens with index pi permutes them
+    ident = torch.arange(t, dtype=torch.int32, device=z.device)
+
+    def fused_index():
+        return ops.zen_fused_sample(st.n_wk, st.n_kd, word, doc, z, alpha,
+                                    n_k, kseed, beta=beta, w_beta=w_beta,
+                                    token_index=ident)
+
+    def gathered_index():
+        return ops.zen_sample(nwk_rows, nkd_rows, z, alpha, n_k, kseed,
+                              beta=beta, w_beta=w_beta, token_index=ident)
+
+    gen = torch.Generator(device=z.device).manual_seed(seed + 17)
+    perm = torch.randperm(t, generator=gen, device=z.device)
+    pl = perm.long()
+    out_perm = ops.zen_fused_sample(
+        st.n_wk, st.n_kd, word[pl].contiguous(), doc[pl].contiguous(),
+        z[pl].contiguous(), alpha, n_k, kseed, beta=beta, w_beta=w_beta,
+        token_index=perm.to(torch.int32))
+    check(bool(torch.equal(fused_index(), out_f))
+          and bool(torch.equal(gathered_index(), out_g))
+          and bool(torch.equal(out_perm, out_f[pl])),
+          "training kernels: the per-token index changed a draw")
+    del out_perm, pl, perm
+
     ms_f = cuda_ms(fused, reps=5, warmup=1)
     ms_g = cuda_ms(gathered, reps=5, warmup=1)
+    ms_fi = cuda_ms(fused_index, reps=5, warmup=1)
+    ms_gi = cuda_ms(gathered_index, reps=5, warmup=1)
     ms_p = cuda_ms(plain, reps=2, warmup=0)
 
     uniq_w = int(torch.unique(word).numel())
@@ -1477,7 +1550,7 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
                      ("zen_sample", "zen_train_gathered_kernel"))}
     exact_share = (forced + cands + fallback * k) / (t * k)
 
-    def row(name, replaces, ms, nbytes):
+    def row(name, replaces, ms, ms_index, nbytes):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         loop = sass[name]
         issue_ms = issue_bound_ms(
@@ -1490,7 +1563,7 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
             "replaces": replaces, "launches": None,
             "max_abs_err": max(gaps, default=0.0), "mismatches": len(gaps),
             "near_tie_gaps": gaps, "tokens": t,
-            "ms": ms, "plain_ms": ms_p,
+            "ms": ms, "ms_token_index": ms_index, "plain_ms": ms_p,
             "bound_ms": max(bytes_ms, hash_ms),
             "bound_by": "bytes" if bytes_ms >= hash_ms else "operations",
             "bytes": nbytes, "bytes_ms": bytes_ms, "hash_ms": hash_ms,
@@ -1503,14 +1576,17 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
 
     rows = [
         row("zen_fused_sample", "src/repro/kernels/fused_gather.py:46",
-            ms_f, bytes_f),
+            ms_f, ms_fi, bytes_f),
         row("zen_sample", "src/repro/kernels/zen_sampler.py:105", ms_g,
-            bytes_g),
+            ms_gi, bytes_g),
     ]
     emit({"phase": "train_kernels", "W": W_NYT, "K": k, "T": t,
           "unique_words": uniq_w, "unique_docs": uniq_d,
           "fused_equals_gathered": True, "mismatches_vs_plain": len(gaps),
-          "ms": {"fused": ms_f, "gathered": ms_g, "plain": ms_p},
+          "token_index_keeps_draws": True,
+          "ms": {"fused": ms_f, "gathered": ms_g, "plain": ms_p,
+                 "fused_token_index": ms_fi,
+                 "gathered_token_index": ms_gi},
           "sass": sass, "exact_share": exact_share,
           "exact_work": {"forced": forced, "candidates": cands,
                          "exact_loop_tokens": fallback}})
@@ -1748,6 +1824,8 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
     torch.cuda.empty_cache()
     phase_train_sparse_small(seed, dev, smi)
     stream_counts = phase_stream(corpus, seed, dev, smi)
+    mesh_one_counts = phase_mesh_one(corpus, seed, dev, smi)
+    mesh_four_counts = phase_mesh_four(corpus, seed, dev, smi)
     del corpus
     # kernel 5's launches on the delta merge of each full-width path
     merge = {"train": train_counts["topic_histogram"],
@@ -1763,7 +1841,8 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
         "cdf_row_search": cdf_counts["cdf_row_search"],
         "topic_histogram": train_counts["topic_histogram"]}, {
         "stream": stream_counts, "quality": quality_counts,
-        "train_autopilot": autopilot_counts}
+        "train_autopilot": autopilot_counts, "mesh_one": mesh_one_counts,
+        "mesh_four": mesh_four_counts}
 
 
 def phase_train_sparse(corpus, seed: int, smi):
@@ -3391,6 +3470,375 @@ def swap_across_traffic(model, base, docs, grid, seed: int):
             "in_flight_before_swap": len(wide), "queued_across": len(cut),
             "truncated": int(sum(r.truncated for r, _ in cut)),
             "thetas_equal_alone": len(done)}
+
+
+# -- the mesh plan, sharded serving and the router --------------------------
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_step(plan, st, phases):
+    """One mesh step with its phases stamped after a synchronize (sweep,
+    kernel 5's merge, the N_w|k all-reduce, then N_k|d's with N_k's);
+    milliseconds appended to ``phases``."""
+    _sync(plan.device)
+    last = [time.perf_counter()]
+
+    def timer(name):
+        _sync(plan.device)
+        now = time.perf_counter()
+        phases.setdefault(name, []).append((now - last[0]) * 1e3)
+        last[0] = now
+
+    return plan.step(st, timer=timer)
+
+
+def phase_mesh_one(corpus, seed: int, dev, smi):
+    """A world of one under NCCL: the train cell as a (1, 1) mesh, its
+    change-rate list and llh held to ``RECORD["train"]``, kernels 2 and 5
+    launched as on the single box."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.graph import grid_partition
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.kernels import ops
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    t0 = time.perf_counter()
+    grid = grid_partition(corpus, 1, 1)
+    t_grid = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="mesh_one_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            sess = TrainSession(corpus, LDAHyperParams(num_topics=K_NYT),
+                                RunConfig(algorithm="zen_pallas",
+                                          mesh_shape=(1, 1)),
+                                device=dev, grid=grid)
+            plan = sess.plan
+            t0 = time.perf_counter()
+            st = sess.init(seed)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            phases, change, step_ms = {}, [], []
+            for _ in range(MESH_ONE_ITERS):
+                t0 = time.perf_counter()
+                st = _mesh_step(plan, st, phases)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                plan.check_invariants(st)
+                change.append(plan.change_rate(st))
+            counts = ops.launch_counts()
+            t0 = time.perf_counter()
+            llh = sess.llh(st)
+            t_llh = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            backend = plan.comm.backend
+            w_pad, d_pad = plan.num_words_pad, grid.num_docs_padded
+            del sess, plan, st
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want_llh = RECORD["train"]["llh"][MESH_ONE_ITERS]
+    rel = abs(llh / want_llh - 1)
+    emit({"phase": "mesh_one", "backend": backend, "W_pad": w_pad,
+          "D_pad": d_pad, "tokens": corpus.num_tokens,
+          "grid_partition_s": t_grid, "init_s": t_init, "step_ms": step_ms,
+          "phase_ms": phases, "change_rate": change, "llh": llh,
+          "llh_rel_vs_record": rel, "llh_s": t_llh,
+          "peak_device_gb": peak_gb, "launches": counts, "card": smi})
+    check(backend == "nccl", f"mesh_one: process group on {backend}")
+    check((w_pad, d_pad) == (W_NYT, D_NYT),
+          f"mesh_one: a (1, 1) grid padded to {w_pad} x {d_pad}")
+    check(change == RECORD["train"]["change_rate"][:MESH_ONE_ITERS],
+          f"mesh_one: change rate {change} differs from the record")
+    # float64 sums of the same float32 terms: order changes nothing at
+    # this magnitude, so the llh is the single box's up to 1e-12
+    check(rel <= MESH_LLH_RTOL, f"mesh_one: llh {llh} vs the record "
+          f"{want_llh} ({rel:.3e} relative)")
+    check_launches("mesh_one", counts,
+                   {"zen_fused_sample": MESH_ONE_ITERS,
+                    "topic_histogram": 2 * MESH_ONE_ITERS})
+    return counts
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np_contiguous(a).tobytes())
+    return h.hexdigest()
+
+
+def np_contiguous(a):
+    import numpy as np
+
+    if hasattr(a, "cpu"):
+        a = a.cpu().numpy()
+    return np.ascontiguousarray(a)
+
+
+def _save_grid(grid, out_dir) -> None:
+    import numpy as np
+
+    for f in ("word", "doc", "mask", "token", "word_perm", "doc_perm"):
+        np.save(out_dir / f"{f}.npy", getattr(grid, f))
+    (out_dir / "grid.json").write_text(json.dumps({
+        f: int(getattr(grid, f)) for f in (
+            "data_parallel", "model_parallel", "words_per_shard",
+            "docs_per_shard")}))
+
+
+def _load_grid(out_dir):
+    """The parent's grid, memory-mapped: a rank reads its cell's rows."""
+    import numpy as np
+
+    from repro_torch.core.graph import GridPartition
+
+    arrays = {f: np.load(out_dir / f"{f}.npy", mmap_mode="r")
+              for f in ("word", "doc", "mask", "token", "word_perm",
+                        "doc_perm")}
+    return GridPartition(**arrays, **json.loads(
+        (out_dir / "grid.json").read_text()))
+
+
+def mesh_four_rank(out: str, seed: int, want: str, device: str,
+                   num_topics: int) -> None:
+    """One rank of ``mesh_four`` (4 gloo ranks sharing ``device``, the
+    card): its cell of the parent's grid, MESH_FOUR_ITERS steps, then the
+    gathered, un-permuted counts and topics against the oracle's
+    digests."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.kernels import ops
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    out_dir = pathlib.Path(out)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    grid = _load_grid(out_dir)
+    t0 = time.perf_counter()
+    sess = TrainSession(None, LDAHyperParams(num_topics=num_topics),
+                        RunConfig(algorithm="zen_pallas",
+                                  mesh_shape=MESH_FOUR_SHAPE),
+                        device=dev, grid=grid)
+    plan = sess.plan
+    st = sess.init(seed)
+    _sync(dev)
+    t_setup = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    phases, iter_s = {}, []
+    for _ in range(MESH_FOUR_ITERS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        st = _mesh_step(plan, st, phases)
+        iter_s.append(time.perf_counter() - t0)
+        plan.check_invariants(st)
+    counts = ops.launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else None)
+    t0 = time.perf_counter()
+    got = {"topics": _digest(plan.corpus_topics(st)),
+           "n_wk": _digest(plan.host_n_wk(st)),
+           "n_kd": _digest(plan.host_n_kd(st)),
+           "n_k": _digest(st.n_k)}
+    t_gather = time.perf_counter() - t0
+    k = num_topics
+    rec = {"rank": plan.comm.rank, "cell_tokens": plan.data.num_real,
+           "backend": plan.comm.backend, "setup_s": t_setup,
+           "iteration_s": iter_s, "phase_ms": phases,
+           "d_wk_bytes": grid.words_per_shard * k * 4,
+           "d_kd_bytes": grid.docs_per_shard * k * 4,
+           "peak_device_gb": peak_gb, "launches": counts,
+           "gather_s": t_gather, "equal": got == json.loads(want),
+           "digests": got}
+    (out_dir / f"rank{plan.comm.rank}.json").write_text(json.dumps(rec))
+
+
+def phase_mesh_four(corpus, seed: int, dev, smi):
+    """4 gloo ranks on the one card, mesh (2, 2): the grid partitioned
+    once here and memory-mapped by the ranks; the gathered counts and
+    topics against a ``zen_pallas`` single box over the corpus declared
+    at (W_pad, D_pad), same key, bit for bit."""
+    import torch
+
+    from repro_torch.core.graph import grid_partition
+    from repro_torch.core.types import Corpus, LDAHyperParams
+    from repro_torch.launch.mesh import spawn_local
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    out_dir = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    grid = grid_partition(corpus, *MESH_FOUR_SHAPE)
+    t_grid = time.perf_counter() - t0
+    _save_grid(grid, out_dir)
+    w_pad, d_pad = grid.num_words_padded, grid.num_docs_padded
+    w, d = corpus.num_words, corpus.num_docs
+    cells = grid.mask.sum(1).tolist()
+    del grid
+    # the oracle: one cell holding the whole corpus at (W_pad, D_pad)
+    declared = Corpus(corpus.word, corpus.doc, w_pad, d_pad)
+    sess = TrainSession(declared, LDAHyperParams(num_topics=K_NYT),
+                        RunConfig(algorithm="zen_pallas"), device=dev)
+    st = sess.init(seed)
+    for _ in range(MESH_FOUR_ITERS):
+        st = sess.step(st)
+    want = {"topics": _digest(st.topic), "n_wk": _digest(st.n_wk[:w]),
+            "n_kd": _digest(st.n_kd[:d]), "n_k": _digest(st.n_k)}
+    del sess, st
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_local(f"{pathlib.Path(__file__).resolve()}:mesh_four_rank", 4,
+                args=(str(out_dir), seed, json.dumps(want), str(dev), K_NYT))
+    t_world = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(4)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {}
+    for r in ranks:
+        for name, v in r["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    iter_s = [max(r["iteration_s"][i] for r in ranks)
+              for i in range(MESH_FOUR_ITERS)]
+    emit({"phase": "mesh_four", "shape": list(MESH_FOUR_SHAPE),
+          "backend": ranks[0]["backend"], "W_pad": w_pad, "D_pad": d_pad,
+          "cell_tokens": cells, "grid_partition_s": t_grid,
+          "world_s": t_world, "iteration_s": iter_s,
+          "ranks": [{k: r[k] for k in (
+              "rank", "cell_tokens", "setup_s", "iteration_s", "phase_ms",
+              "d_wk_bytes", "d_kd_bytes", "peak_device_gb", "launches",
+              "gather_s", "equal")} for r in ranks],
+          "launches": launches, "equal_to_single_box": all(
+              r["equal"] for r in ranks), "card": smi})
+    check(all(r["equal"] for r in ranks),
+          f"mesh_four: counts or topics differ from the single box at "
+          f"(W_pad, D_pad) = ({w_pad}, {d_pad}): "
+          f"{[r['digests'] for r in ranks]} vs {want}")
+    for r in ranks:
+        check_launches(f"mesh_four rank {r['rank']}", r["launches"],
+                       {"zen_fused_sample": MESH_FOUR_ITERS,
+                        "topic_histogram": 2 * MESH_FOUR_ITERS})
+    return launches
+
+
+def phase_sharded_serve(model, base, docs, seed: int, unsharded: int,
+                        smi):
+    """The fused throughput run's model, documents and keys, sharded over
+    word rows at (1, 2) and (1, 4) on the one card: its thetas' digest,
+    kernel 4 launched m times per bucket sweep."""
+    from repro_torch.observe.metrics import summarize_latencies
+    from repro_torch.serving import LDAServeConfig
+
+    launches = {}
+    kernel = "zen_fused_infer_sample"
+    for m in MESH_SERVE_SHARDS:
+        cfg = LDAServeConfig(mesh_shape=(1, m), **base)
+        thetas, reqs, secs, counts = serve(model, cfg, docs, seed)
+        lat = summarize_latencies((r.t_done - r.t_submit) * 1e3
+                                  for r in reqs)
+        digest = theta_digest(thetas)
+        emit({"phase": "sharded_serve", "mesh_shape": [1, m],
+              "docs": len(docs), "seconds": secs,
+              "docs_per_sec": len(docs) / secs, "p50_ms": lat["p50"],
+              "p99_ms": lat["p99"], "max_ms": lat["max"],
+              "theta_sha256": digest, "launches": counts, "card": smi})
+        check(digest == SERVE_RECORD["throughput_fused"],
+              f"sharded_serve (1, {m}): thetas differ from the unsharded "
+              f"record")
+        check_launches(f"sharded_serve (1, {m})", counts,
+                       {kernel: m * unsharded})
+        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+    return launches
+
+
+def phase_router(model, base, docs, seed: int, smi):
+    """Two replicas on the card behind ``LDARouter``, each request under
+    the key the single engine derives for it: the thetas' digest, both
+    replicas at work; then a broadcast reload under traffic, every
+    ticket finishing on the version it was admitted under."""
+    import torch
+
+    from repro_torch.core.keys import fold_in, key_from_seed
+    from repro_torch.kernels import ops
+    from repro_torch.observe.metrics import summarize_latencies
+    from repro_torch.serving import (
+        FrozenLDAModel,
+        LDARouter,
+        LDAServeConfig,
+    )
+
+    cfg = LDAServeConfig(**base)
+    # the single engine's keys: warm() takes uids 1..len(buckets) first
+    first = len(cfg.buckets) + 1
+    keys = [fold_in(key_from_seed(seed), first + i)
+            for i in range(len(docs))]
+    router = LDARouter(model, cfg, replicas=ROUTER_REPLICAS, seed=seed)
+    router.warm()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = [router.submit_async(d, key=k) for d, k in zip(docs, keys)]
+    owner = [router.engines.index(router._tickets[t][0]) for t in tickets]
+    reqs = [router.request(t) for t in tickets]
+    thetas = [router.result(t) for t in tickets]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    lat = summarize_latencies((r.t_done - r.t_submit) * 1e3 for r in reqs)
+    import numpy as np
+
+    digest = theta_digest(np.stack(thetas))
+    per_replica = [owner.count(i) for i in range(ROUTER_REPLICAS)]
+    # the reload: the same counts as a new model, broadcast while the
+    # first admissions are in flight
+    tickets = [router.submit_async(d, key=k) for d, k in zip(docs, keys)]
+    for engine in router.engines:
+        engine.step()
+    admitted = {t for t in tickets if router.poll(t) == "admitted"}
+    version = router.reload(FrozenLDAModel(model.n_wk.clone(),
+                                           model.n_k.clone(), model.hyper))
+    reqs2 = [router.request(t) for t in tickets]
+    thetas2 = [router.result(t) for t in tickets]
+    versions = [r.model_version for r in reqs2]
+    pinned = all(v == (0 if t in admitted else version)
+                 for t, v in zip(tickets, versions))
+    digest2 = theta_digest(np.stack(thetas2))
+    emit({"phase": "router", "replicas": ROUTER_REPLICAS,
+          "docs": len(docs), "seconds": secs,
+          "docs_per_sec": len(docs) / secs, "p50_ms": lat["p50"],
+          "p99_ms": lat["p99"], "per_replica": per_replica,
+          "theta_sha256": digest, "launches": counts,
+          "reload": {"admitted_before": len(admitted),
+                     "finished": len(thetas2), "version": version,
+                     "versions_pinned": pinned,
+                     "theta_sha256": digest2}, "card": smi})
+    check(digest == SERVE_RECORD["throughput_fused"],
+          "router: thetas differ from the single engine's record")
+    check(all(per_replica), f"router: a replica took no work "
+          f"{per_replica}")
+    check(len(thetas2) == len(docs) and admitted and pinned,
+          f"router: reload under traffic: {len(admitted)} admitted before, "
+          f"versions {sorted(set(versions))}")
+    check(digest2 == SERVE_RECORD["throughput_fused"],
+          "router: thetas across the reload differ from the record")
+    check_launches("router", counts,
+                   {"zen_fused_infer_sample":
+                    counts["zen_fused_infer_sample"] or -1})
+    return counts
 
 
 if __name__ == "__main__":

@@ -8,11 +8,12 @@ A backend trains through
   all tokens against iteration-start counts; the training plan owns masking,
   the delta merge and the state update;
 * ``cell_sweep(seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
-  num_words_pad, knobs) -> (T,)`` — the per-cell form. ``seed`` is the
-  sweep's int31 seed (``core.keys.key_seed``), where the reference passes
-  a ``jax.random`` key; every draw hashes it with the global token index.
-  ``CellBackend`` derives the single-box ``sweep`` from it, treating the
-  whole corpus as one cell.
+  num_words_pad, knobs, token_index=None) -> (T,)`` — the per-cell form.
+  ``seed`` is the sweep's int31 seed (``core.keys.key_seed``), where the
+  reference passes a ``jax.random`` key; every draw hashes it with the
+  global token index: ``token_index[t]`` (a mesh cell passes its tokens'
+  corpus indices), else t. ``CellBackend`` derives the single-box
+  ``sweep`` from it, treating the whole corpus as one cell.
 
 and serves a frozen model through
 
@@ -29,6 +30,8 @@ frozen-phi sweep (:func:`_dense_infer_sweep`), in lockstep with
 
 Capability flags let drivers adapt instead of naming backends:
 
+* ``supports_shard_map`` — has a ``cell_sweep`` the mesh plan can call
+  (the reference's name for it; every ``CellBackend``).
 * ``needs_row_pads`` — the training plan resolves ``max_kw``/``max_kd``
   (0 = auto from the counts, :func:`resolve_row_pads`) before every sweep;
   these are the padded-sparse backends' row widths.
@@ -128,9 +131,13 @@ class SamplerBackend:
     serving derivation."""
 
     name: str = "?"
+    supports_shard_map: bool = False
     native_infer: bool = False
     needs_doc_index: bool = False
     needs_row_pads: bool = False
+    # fields of ``prepare_infer``'s aux indexed by word row (dim 0): built
+    # per shard by sharded serving (``serving.sharded``)
+    infer_aux_word_fields: tuple = ()
 
     def prepare(self, corpus, hyper, knobs: SamplerKnobs) -> Any:
         """Per-run precompute; returns the aux threaded into ``sweep``."""
@@ -142,8 +149,8 @@ class SamplerBackend:
             f"backend {self.name!r} has no single-box sweep")
 
     def cell_sweep(self, seed: int, word, doc, z_old, mask, n_wk, n_kd,
-                   n_k, hyper, num_words_pad: int,
-                   knobs: SamplerKnobs) -> torch.Tensor:
+                   n_k, hyper, num_words_pad: int, knobs: SamplerKnobs,
+                   token_index=None) -> torch.Tensor:
         raise NotImplementedError(
             f"backend {self.name!r} has no cell sweep")
 
@@ -171,8 +178,9 @@ class SamplerBackend:
         )
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
-        flags = [f for f in ("needs_doc_index", "needs_row_pads",
-                             "native_infer") if getattr(self, f)]
+        flags = [f for f in ("supports_shard_map", "needs_doc_index",
+                             "needs_row_pads", "native_infer")
+                 if getattr(self, f)]
         return f"<{type(self).__name__} {self.name!r} {' '.join(flags)}>"
 
 
@@ -191,6 +199,8 @@ def _dense_infer_sweep(keys, words, mask, z_old, n_kd, n_wk, n_k, hyper,
 class CellBackend(SamplerBackend):
     """Single-box sweep derived from the cell sweep: the whole corpus is
     one cell, every id is already local, every token is live."""
+
+    supports_shard_map = True
 
     def resolve_cell_knobs(self, knobs: SamplerKnobs,
                            hyper) -> SamplerKnobs:

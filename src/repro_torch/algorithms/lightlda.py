@@ -49,12 +49,13 @@ class LightLDA(CellBackend):
         )
 
     def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
-                   hyper, num_words_pad, knobs: SamplerKnobs):
+                   hyper, num_words_pad, knobs: SamplerKnobs,
+                   token_index=None):
         knobs = self.resolve_cell_knobs(knobs, hyper)
         doc_index = build_cell_doc_index(doc, mask, n_kd.shape[0])
         return lightlda_cell(
             seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
             num_words_pad, doc_index, knobs.max_kw, num_mh=knobs.num_mh,
             use_kernel=kernel_dispatch(knobs.kernels, word.device),
-            token_chunk=knobs.token_chunk,
+            token_chunk=knobs.token_chunk, token_index=token_index,
         )

@@ -20,9 +20,10 @@ class SparseLDA(CellBackend):
     needs_row_pads = True
 
     def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
-                   hyper, num_words_pad, knobs: SamplerKnobs):
+                   hyper, num_words_pad, knobs: SamplerKnobs,
+                   token_index=None):
         knobs = self.resolve_cell_knobs(knobs, hyper)
         return sparselda_cell(
             seed, word, doc, z_old, n_wk, n_kd, n_k, hyper, num_words_pad,
-            knobs.max_kw, knobs.max_kd, knobs.token_chunk,
+            knobs.max_kw, knobs.max_kd, knobs.token_chunk, token_index,
         )

@@ -221,10 +221,12 @@ def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
                  z_old: torch.Tensor, mask, n_wk: torch.Tensor,
                  n_kd: torch.Tensor, n_k: torch.Tensor,
                  hyper: LDAHyperParams, num_words_pad: int, max_kd: int,
-                 use_kernel: bool = False,
-                 token_chunk: int = 0) -> torch.Tensor:
+                 use_kernel: bool = False, token_chunk: int = 0,
+                 token_index=None) -> torch.Tensor:
     """One precomputed-CDF ZenLDA pass over a cell's tokens (stale counts)
-    -> (T,) int32: the tables once, then the tokens in chunks. Work per
+    -> (T,) int32: the tables once, then the tokens in chunks
+    (``token_index``: the tokens' global indices, default their
+    positions). Work per
     token: O(log K) (term 1, and term 2 off the kernel) + O(max_kd)
     (term 3); kernel 7 walks a term-2 row up to its lower bound."""
     tables = build_cdf_tables(n_wk, n_kd, n_k, hyper, num_words_pad,
@@ -236,7 +238,8 @@ def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
         return zen_cdf_tokens(tables, w, d, z, n_wk, n_kd, hyper, u)
 
     return chunked_token_map(chunk, (word, doc, z_old), token_chunk,
-                             tables.kd_idx.shape[1], CDF_CHUNK_ELEMS)
+                             tables.kd_idx.shape[1], CDF_CHUNK_ELEMS,
+                             token_index)
 
 
 class FrozenCdfTables(NamedTuple):
@@ -308,6 +311,7 @@ class ZenCdf(CellBackend):
     frozen-model serving."""
 
     native_infer = True
+    infer_aux_word_fields = ("a_cdf", "a_mass")
 
     def resolve_cell_knobs(self, knobs: SamplerKnobs, hyper):
         return dataclasses.replace(
@@ -316,12 +320,13 @@ class ZenCdf(CellBackend):
         )
 
     def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
-                   hyper, num_words_pad, knobs: SamplerKnobs):
+                   hyper, num_words_pad, knobs: SamplerKnobs,
+                   token_index=None):
         return zen_cdf_cell(
             seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
             num_words_pad, knobs.max_kd or DEFAULT_MAX_KD,
             use_kernel=kernel_dispatch(knobs.kernels, word.device),
-            token_chunk=knobs.token_chunk,
+            token_chunk=knobs.token_chunk, token_index=token_index,
         )
 
     def prepare_infer(self, n_wk, n_k, hyper, knobs: SamplerKnobs,

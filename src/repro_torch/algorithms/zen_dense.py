@@ -20,6 +20,7 @@ from repro_torch.algorithms.base import (
     chunked_token_map,
 )
 from repro_torch.algorithms.registry import register
+from repro_torch.core.keys import token_rows
 from repro_torch.core.sampler import cgs_sweep_stale, sample_categorical
 
 
@@ -33,9 +34,9 @@ def _searchsorted_rows(cdf: torch.Tensor,
 
 def zen_dense_cell(seed: int, word_l, doc_l, z_old, mask, n_wk_l, n_kd_l,
                    n_k, hyper, num_words_pad: int, method: str,
-                   token_chunk: int) -> torch.Tensor:
+                   token_chunk: int, token_index=None) -> torch.Tensor:
     """Dense per-token (T, K) three-term probabilities; exact ¬dw. Token
-    t's noise hashes (seed, t)."""
+    t's noise hashes (seed, token_index[t]) (default: (seed, t))."""
     k = hyper.num_topics
     alpha_k = hyper.alpha_k(n_k)[None, :]
     w_beta = num_words_pad * hyper.beta
@@ -49,10 +50,11 @@ def zen_dense_cell(seed: int, word_l, doc_l, z_old, mask, n_wk_l, n_kd_l,
         t1 = 1.0 / (nk + w_beta)
         p = (alpha_k * hyper.beta + nw * alpha_k
              + nd * (nw + hyper.beta)) * t1
-        rows = torch.arange(start, start + w.shape[0], device=w.device)
+        rows = token_rows(start, w.shape[0], w.device)
         return sample_categorical(p, seed, rows, method)
 
-    return chunked_token_map(chunk, (word_l, doc_l, z_old), token_chunk, k)
+    return chunked_token_map(chunk, (word_l, doc_l, z_old), token_chunk, k,
+                             token_index=token_index)
 
 
 @register("zen", "zen_dense")
@@ -69,10 +71,12 @@ class ZenDense(CellBackend):
         )
 
     def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
-                   hyper, num_words_pad, knobs: SamplerKnobs):
+                   hyper, num_words_pad, knobs: SamplerKnobs,
+                   token_index=None):
         return zen_dense_cell(
             seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
             num_words_pad, knobs.sampling_method, knobs.token_chunk,
+            token_index,
         )
 
 

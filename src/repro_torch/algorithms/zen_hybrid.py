@@ -32,14 +32,15 @@ class ZenHybrid(CellBackend):
     needs_row_pads = True
 
     def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
-                   hyper, num_words_pad, knobs: SamplerKnobs):
+                   hyper, num_words_pad, knobs: SamplerKnobs,
+                   token_index=None):
         knobs = self.resolve_cell_knobs(knobs, hyper)
         use_zen = hybrid_route_doc_side(n_wk, n_kd, word, doc, knobs.max_kw,
                                         knobs.max_kd)
         z_zen = get("zen_sparse").cell_sweep(
             seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
-            num_words_pad, knobs)
+            num_words_pad, knobs, token_index=token_index)
         z_alt = get("sparselda").cell_sweep(
             seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
-            num_words_pad, knobs)
+            num_words_pad, knobs, token_index=token_index)
         return torch.where(use_zen, z_zen, z_alt)

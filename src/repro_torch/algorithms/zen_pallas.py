@@ -30,6 +30,13 @@ from repro_torch.kernels.ops import (
 GATHER_CHUNK_ELEMS = 1 << 30
 
 
+def _index32(token_index):
+    """A token index as the kernels read it: contiguous int32."""
+    if token_index is None:
+        return None
+    return token_index.to(torch.int32).contiguous()
+
+
 class FrozenPallasModel(NamedTuple):
     """``prepare_infer`` precompute: the per-topic vectors the kernels
     read, derived once per engine."""
@@ -45,9 +52,12 @@ class ZenPallas(CellBackend):
     native_infer = True
 
     def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
-                   hyper, num_words_pad, knobs: SamplerKnobs):
+                   hyper, num_words_pad, knobs: SamplerKnobs,
+                   token_index=None):
         """One training sweep through the kernels: exact ¬dw exclusion on
-        all three counts, noise at (seed, global token index, topic).
+        all three counts, noise at (seed, global token index, topic); the
+        global index is ``token_index[t]`` where given (a mesh cell's
+        corpus indices, int32 on the tokens' device), else t.
 
         With the kernel policy on (``auto`` on CUDA) the fused kernel
         reads ``n_wk[word]``/``n_kd[doc]`` in place: one launch per sweep,
@@ -65,16 +75,19 @@ class ZenPallas(CellBackend):
             check_token_chunk(word.shape[0], knobs.token_chunk)
             return zen_fused_sample(
                 n_wk_i, n_kd_i, word.contiguous(), doc.contiguous(),
-                z_old.contiguous(), alpha_k, n_k_f, seed, **kw)
+                z_old.contiguous(), alpha_k, n_k_f, seed,
+                token_index=_index32(token_index), **kw)
 
         def chunk(start, w, d, z):
+            rows = dict(row_offset=start) if token_index is None \
+                else dict(token_index=_index32(start))
             return zen_sample(n_wk_i[w.long()], n_kd_i[d.long()],
                               z.contiguous(), alpha_k, n_k_f, seed,
-                              row_offset=start, **kw)
+                              **rows, **kw)
 
         return chunked_token_map(chunk, (word, doc, z_old),
                                  knobs.token_chunk, n_k.shape[0],
-                                 GATHER_CHUNK_ELEMS)
+                                 GATHER_CHUNK_ELEMS, token_index)
 
     def prepare_infer(self, n_wk, n_k, hyper, knobs: SamplerKnobs,
                       num_words_total=None):

@@ -107,9 +107,11 @@ def sparselda_tokens(tables: SparseLDATables, word, doc, z_old,
 
 def sparselda_cell(seed: int, word, doc, z_old, n_wk, n_kd, n_k,
                    hyper: LDAHyperParams, num_words: int, max_kw: int,
-                   max_kd: int, token_chunk: int = 0) -> torch.Tensor:
+                   max_kd: int, token_chunk: int = 0,
+                   token_index=None) -> torch.Tensor:
     """One SparseLDA pass over a cell's tokens (stale counts, exact
-    self-exclusion) -> (T,)."""
+    self-exclusion) -> (T,). ``token_index`` (T,): the tokens' global
+    indices the uniforms hash (default: their positions here)."""
     tables = sparselda_tables(n_wk, n_kd, n_k, hyper, num_words, max_kw,
                               max_kd)
 
@@ -118,7 +120,8 @@ def sparselda_cell(seed: int, word, doc, z_old, n_wk, n_kd, n_k,
         return sparselda_tokens(tables, w, d, z, hyper, u[0])
 
     return chunked_token_map(chunk, (word, doc, z_old), token_chunk,
-                             max(max_kw, max_kd), SPARSE_CHUNK_ELEMS)
+                             max(max_kw, max_kd), SPARSE_CHUNK_ELEMS,
+                             token_index)
 
 
 def sparselda_sweep(state: CGSState, corpus: Corpus, hyper: LDAHyperParams,
@@ -306,9 +309,9 @@ def lightlda_cell(seed: int, word, doc, z_old, mask, n_wk, n_kd, n_k,
                   hyper: LDAHyperParams, num_words: int,
                   doc_index: DocIndex, max_kw: int, num_mh: int = 8,
                   use_kernel: bool = False,
-                  token_chunk: int = 0) -> torch.Tensor:
+                  token_chunk: int = 0, token_index=None) -> torch.Tensor:
     """One LightLDA pass over a cell's tokens: ``num_mh`` cycle-MH steps
-    per token -> (T,).
+    per token -> (T,); ``token_index`` as in :func:`sparselda_cell`.
 
     ``use_kernel`` draws the word proposal's sparse branch by CDF inversion
     through kernel 6 over the same N_wk·t1 density, and builds no per-word
@@ -335,7 +338,7 @@ def lightlda_cell(seed: int, word, doc, z_old, mask, n_wk, n_kd, n_k,
         return z
 
     return chunked_token_map(chunk, (word, doc, z_old), token_chunk,
-                             max_kw, SPARSE_CHUNK_ELEMS)
+                             max_kw, SPARSE_CHUNK_ELEMS, token_index)
 
 
 def lightlda_sweep(state: CGSState, corpus: Corpus, hyper: LDAHyperParams,

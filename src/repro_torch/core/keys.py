@@ -25,6 +25,9 @@ init and state keys as the reference's ``jax.random.split`` does, and
 sweep ``i`` draws from the int31 :func:`key_seed` of ``fold_in(state
 key, i)``, hashed with the global token index (and topic). A training
 draw therefore depends only on (run key, iteration, token index). The
+token index is the token's position in the corpus: a mesh cell, whose
+tokens are a reordered subset, passes its tokens' corpus indices
+(:func:`token_rows`), so a mesh draws what the single box draws. The
 padded-sparse samplers take several uniforms per token, one stream each
 (:func:`stream_uniforms`), where the reference splits its key.
 """
@@ -89,9 +92,15 @@ def key_seed(key: torch.Tensor) -> int:
 def uniform_ints(key: torch.Tensor, n: int, high: int,
                  device=None) -> torch.Tensor:
     """(n,) int64 draws in [0, high): entry ``i`` hashes (key, i) only."""
-    pos = torch.arange(n, device=device)
-    k = key.to(device)
-    return mix32(golden_seed(k[0], k[1], pos)) % high
+    return uniform_ints_at(key, torch.arange(n, device=device), high)
+
+
+def uniform_ints_at(key: torch.Tensor, positions: torch.Tensor,
+                    high: int) -> torch.Tensor:
+    """``uniform_ints(key, n, high)[positions]`` without the other draws
+    (a mesh cell's initial topics at its tokens' corpus indices)."""
+    k = key.to(positions.device)
+    return mix32(golden_seed(k[0], k[1], positions)) % high
 
 
 def init_topics(key: torch.Tensor, length: int, num_topics: int,
@@ -114,13 +123,23 @@ def token_uniforms(keys: torch.Tensor, length: int) -> torch.Tensor:
     return hash_uniform(token_seeds(keys, length), 1, 0)
 
 
-def stream_uniforms(seed: int, start: int, n: int, streams: int,
+def token_rows(start, n: int, device=None) -> torch.Tensor:
+    """The global token indices of a chunk of ``n`` tokens: ``start`` is
+    the chunk's first index (the tokens are consecutive) or a (n,) tensor
+    of each token's own index (a mesh cell's corpus indices)."""
+    if isinstance(start, torch.Tensor):
+        return start.to(device=device, dtype=torch.int64)
+    return torch.arange(start, start + n, device=device)
+
+
+def stream_uniforms(seed: int, start, n: int, streams: int,
                     device=None) -> torch.Tensor:
     """(streams, n) float32 U[0, 1), as ``jax.random.uniform`` gives: entry
-    (s, i) is the top 24 bits of ``hash(seed, start + i, s)`` times
-    2^-24, so a draw depends on (sweep seed, global token index, stream)
-    only and no chunking changes it."""
-    rows = torch.arange(start, start + n, device=device)[None, :]
+    (s, i) is the top 24 bits of ``hash(seed, row_i, s)`` times 2^-24,
+    where ``row_i`` is the token's global index (:func:`token_rows` of
+    ``start``), so a draw depends on (sweep seed, global token index,
+    stream) only and no chunking changes it."""
+    rows = token_rows(start, n, device)[None, :]
     cols = torch.arange(streams, device=device)[:, None]
     h = hash_bits(seed, rows, cols)
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -60,18 +60,23 @@ def chunk_size(num_tokens: int, num_topics: int,
 def chunked_token_map(chunk_fn: Callable[..., torch.Tensor],
                       arrays: Sequence[torch.Tensor], token_chunk: int,
                       num_topics: int,
-                      elems: int = DENSE_CHUNK_ELEMS) -> torch.Tensor:
+                      elems: int = DENSE_CHUNK_ELEMS,
+                      token_index: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """``chunk_fn(start, *chunks) -> (chunk,)`` over token chunks of the
     (E,) ``arrays``, concatenated. The chunk is ``token_chunk`` when set
     (E must divide evenly, as in the reference), else a size whose
     (chunk, K) temporaries hold ``elems`` elements. ``start`` is the
-    chunk's first global token index: draws hash it, so the chunking
+    chunk's first global token index, or, with ``token_index`` (E,) (a
+    mesh cell's corpus indices), the chunk's slice of it
+    (``core.keys.token_rows`` reads both): draws hash it, so the chunking
     changes no draw."""
     e = arrays[0].shape[0]
     size = chunk_size(e, num_topics, token_chunk, elems)
     out = torch.empty(e, dtype=torch.int32, device=arrays[0].device)
     for s in range(0, e, size):
-        out[s:s + size] = chunk_fn(s, *(a[s:s + size] for a in arrays))
+        start = s if token_index is None else token_index[s:s + size]
+        out[s:s + size] = chunk_fn(start, *(a[s:s + size] for a in arrays))
     return out
 
 

@@ -248,9 +248,12 @@ def zen_sparse_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
                     z_old: torch.Tensor, n_wk: torch.Tensor,
                     n_kd: torch.Tensor, n_k: torch.Tensor,
                     hyper: LDAHyperParams, num_words: int, max_kw: int,
-                    max_kd: int, token_chunk: int = 0) -> torch.Tensor:
+                    max_kd: int, token_chunk: int = 0,
+                    token_index=None) -> torch.Tensor:
     """One faithful ZenLDA pass over a cell's tokens (stale counts) ->
-    (T,): the tables once, then the tokens in chunks."""
+    (T,): the tables once, then the tokens in chunks. ``token_index``
+    (T,): the tokens' global indices the uniforms hash (default: their
+    positions here)."""
     tables = build_tables(n_wk, n_kd, n_k, hyper, num_words, max_kw, max_kd)
 
     def chunk(start, w, d, z):
@@ -259,7 +262,8 @@ def zen_sparse_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
         return zen_sample_tokens(tables, w, d, z, hyper, u)
 
     return chunked_token_map(chunk, (word, doc, z_old), token_chunk,
-                             max(max_kw, max_kd), SPARSE_CHUNK_ELEMS)
+                             max(max_kw, max_kd), SPARSE_CHUNK_ELEMS,
+                             token_index)
 
 
 def zen_sparse_sweep(state: CGSState, corpus: Corpus, hyper: LDAHyperParams,

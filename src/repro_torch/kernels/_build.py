@@ -53,10 +53,11 @@ SIGNATURES = {
     "zen_infer_global_table": (_I, _P),
     "zen_infer_constants": (_P, _P),
     "zen_infer_fast_error": (_P, _I, _I, _P, _P),
-    "zen_train_gathered": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                           _P, _P, _P),
+    # ..., seed, row0, token_index (null: row0 + t), beta, w_beta, ...
+    "zen_train_gathered": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F,
+                           _F, _P, _P, _P),
     "zen_train_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _F, _F, _P, _P, _P),
+                        _I, _P, _F, _F, _P, _P, _P),
     # where the training table goes: the global scratch a launch needs
     "zen_train_global_table": (_I, _P),
     # the training estimate's margin and its exhaustive check (test-only)

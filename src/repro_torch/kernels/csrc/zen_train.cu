@@ -19,7 +19,8 @@
 // with the token's own old topic subtracted, as a float, from all three
 // counts (exact not-dw exclusion), and h_k the counter hash of the JAX
 // package (kernels/zen_sampler.py: _mix, hash_uniform) at the global
-// token index row0 + t. The first maximum wins, as torch.argmax.
+// token index: token_index[t] where the caller passes one (a mesh cell's
+// corpus indices), else row0 + t. The first maximum wins, as torch.argmax.
 //
 // Numerics of s_k (exact_score): the terms in the reference's order,
 // ((a b + nw a) + nd (nw + b)), an IEEE division, the accurate logf; the
@@ -466,6 +467,15 @@ __device__ __forceinline__ void flush_counts(const Counts& c,
   }
 }
 
+// Token t's noise row: its global index, token_index[t] when the caller
+// gives one (a mesh cell's corpus indices: one 4-byte load per token),
+// else row0 + t.
+__device__ __forceinline__ uint32_t noise_row(const int* token_index,
+                                              int row0, int t) {
+  return token_index ? (uint32_t)__ldg(token_index + t)
+                     : (uint32_t)(row0 + t);
+}
+
 template <int kVec, bool kShared>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 zen_train_gathered_kernel(const int* __restrict__ nwk_rows,
@@ -475,7 +485,8 @@ zen_train_gathered_kernel(const int* __restrict__ nwk_rows,
                           const float* __restrict__ nk,
                           const float4* __restrict__ gtable,
                           int* __restrict__ out, int T, int K, int seed,
-                          int row0, float beta, float w_beta,
+                          int row0, const int* __restrict__ token_index,
+                          float beta, float w_beta,
                           unsigned long long* stats) {
   extern __shared__ float4 stable[];
   const bool exact_only =
@@ -492,7 +503,8 @@ zen_train_gathered_kernel(const int* __restrict__ nwk_rows,
   for (int t = (int)min((long long)T, start) + (threadIdx.x >> 5); t < t_end;
        t += kWarpsPerBlock) {
     const size_t row = (size_t)t * (size_t)K;
-    const uint32_t seed_row = (uint32_t)seed ^ ((uint32_t)(row0 + t) * kGold);
+    const uint32_t seed_row =
+        (uint32_t)seed ^ (noise_row(token_index, row0, t) * kGold);
     int z;
     if (exact_only) {
       if (lane == 0) ++counts.fallback;
@@ -519,8 +531,9 @@ zen_train_fused_kernel(const int* __restrict__ n_wk,
                        const float* __restrict__ nk,
                        const float4* __restrict__ gtable,
                        int* __restrict__ out, int T, int K, int W, int D,
-                       int seed, int row0, float beta, float w_beta,
-                       unsigned long long* stats) {
+                       int seed, int row0,
+                       const int* __restrict__ token_index, float beta,
+                       float w_beta, unsigned long long* stats) {
   extern __shared__ float4 stable[];
   const bool exact_only =
       prepare_block<kVec, kShared>(stable, alpha, nk, K, beta, w_beta);
@@ -541,7 +554,8 @@ zen_train_fused_kernel(const int* __restrict__ n_wk,
     if (w < 0 || w >= W || d < 0 || d >= D) __trap();
     const int* nwk_row = n_wk + (size_t)w * (size_t)K;
     const int* nkd_row = n_kd + (size_t)d * (size_t)K;
-    const uint32_t seed_row = (uint32_t)seed ^ ((uint32_t)(row0 + t) * kGold);
+    const uint32_t seed_row =
+        (uint32_t)seed ^ (noise_row(token_index, row0, t) * kGold);
     int z;
     if (exact_only) {
       if (lane == 0) ++counts.fallback;
@@ -666,7 +680,8 @@ inline cudaError_t table_in_shared(int K, bool& shared) {
 extern "C" int zen_train_gathered(const int* nwk_rows, const int* nkd_rows,
                                   const int* z_old, const float* alpha,
                                   const float* nk, int* out, int T, int K,
-                                  int seed, int row0, float beta,
+                                  int seed, int row0,
+                                  const int* token_index, float beta,
                                   float w_beta, void* table,
                                   unsigned long long* stats, void* stream) {
   if (T <= 0) return (int)cudaGetLastError();
@@ -679,7 +694,7 @@ extern "C" int zen_train_gathered(const int* nwk_rows, const int* nkd_rows,
     return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
   }
 #define ARGS nwk_rows, nkd_rows, z_old, alpha, nk, (const float4*)table, out, \
-             T, K, seed, row0, beta, w_beta, stats
+             T, K, seed, row0, token_index, beta, w_beta, stats
   if (vec && shared)
     ZEN_TRAIN_DISPATCH(zen_train_gathered_kernel, 4, true, ARGS);
   else if (vec)
@@ -696,7 +711,8 @@ extern "C" int zen_train_fused(const int* n_wk, const int* n_kd,
                                const int* word, const int* doc,
                                const int* z_old, const float* alpha,
                                const float* nk, int* out, int T, int K, int W,
-                               int D, int seed, int row0, float beta,
+                               int D, int seed, int row0,
+                               const int* token_index, float beta,
                                float w_beta, void* table,
                                unsigned long long* stats, void* stream) {
   if (T <= 0) return (int)cudaGetLastError();
@@ -709,7 +725,7 @@ extern "C" int zen_train_fused(const int* n_wk, const int* n_kd,
     return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
   }
 #define ARGS n_wk, n_kd, word, doc, z_old, alpha, nk, (const float4*)table, \
-             out, T, K, W, D, seed, row0, beta, w_beta, stats
+             out, T, K, W, D, seed, row0, token_index, beta, w_beta, stats
   if (vec && shared)
     ZEN_TRAIN_DISPATCH(zen_train_fused_kernel, 4, true, ARGS);
   else if (vec)

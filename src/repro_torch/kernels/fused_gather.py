@@ -23,6 +23,7 @@ from repro_torch.kernels.zen_sampler import (
     check_seed,
     infer_argmax_rows,
     infer_launch_extras,
+    noise_rows,
     train_argmax_rows,
     train_launch_extras,
 )
@@ -116,9 +117,11 @@ def zen_infer_exact_cuda(n_wk, n_kd, word, slot, z_old, seeds, alpha_k,
 
 def zen_fused_sample_plain(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
                            seed: int, *, beta: float, w_beta: float,
-                           row_offset: int = 0) -> torch.Tensor:
+                           row_offset: int = 0,
+                           token_index=None) -> torch.Tensor:
     """Plain-torch version of the fused training kernel: gathers one chunk
-    of rows at a time; token t's noise row is ``row_offset + t``."""
+    of rows at a time; token t's noise row is ``token_index[t]`` where
+    given, else ``row_offset + t``."""
     alpha = alpha_k.to(torch.float32)
     nk = n_k.to(torch.float32)
     word, doc = word.long(), doc.long()
@@ -126,8 +129,7 @@ def zen_fused_sample_plain(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
     out = torch.empty(t, dtype=torch.int32, device=n_wk.device)
     for s in range(0, t, PLAIN_CHUNK):
         e = min(s + PLAIN_CHUNK, t)
-        rows = torch.arange(row_offset + s, row_offset + e,
-                            device=n_wk.device)
+        rows = noise_rows(s, e, row_offset, token_index, n_wk.device)
         out[s:e] = train_argmax_rows(
             n_wk[word[s:e]], n_kd[doc[s:e]], z_old[s:e], rows, seed, alpha,
             nk, beta, w_beta,
@@ -137,11 +139,12 @@ def zen_fused_sample_plain(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
 
 def zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
                           seed: int, *, beta: float, w_beta: float,
-                          row_offset: int = 0,
+                          row_offset: int = 0, token_index=None,
                           stats=None) -> torch.Tensor:
     """Launch ``zen_train_fused`` on the current stream; no sync. A word
     or doc id outside its matrix aborts the kernel, and the caller's next
-    synchronize raises. ``stats``: see
+    synchronize raises. ``token_index``: (T,) int32 noise rows, else
+    ``row_offset + t``. ``stats``: see
     :func:`repro_torch.kernels.zen_sampler.train_launch_extras`."""
     from repro_torch.kernels._build import check_launch, library
 
@@ -159,7 +162,9 @@ def zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
             f"{tuple(n_kd.shape)}, token vectors of {t}, alpha_k "
             f"{tuple(alpha_k.shape)}, n_k {tuple(n_k.shape)}"
         )
-    check_seed(seed, row_offset, t)
+    check_seed(seed, row_offset, t, token_index)
+    if token_index is not None:
+        check_cuda_args([("token_index", token_index)], [i32])
     out = torch.empty(t, dtype=i32, device=n_wk.device)
     scratch, extras = train_launch_extras(k, n_wk.device, stats)
     stream = torch.cuda.current_stream(n_wk.device).cuda_stream
@@ -168,7 +173,9 @@ def zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
             n_wk.data_ptr(), n_kd.data_ptr(), word.data_ptr(),
             doc.data_ptr(), z_old.data_ptr(), alpha_k.data_ptr(),
             n_k.data_ptr(), out.data_ptr(), t, k, w, d, int(seed),
-            int(row_offset), ctypes.c_float(beta), ctypes.c_float(w_beta),
+            int(row_offset),
+            None if token_index is None else token_index.data_ptr(),
+            ctypes.c_float(beta), ctypes.c_float(w_beta),
             *extras, stream,
         ))
     return out

@@ -74,33 +74,38 @@ def _route(t) -> str:
 
 def zen_sample(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
                beta: float, w_beta: float, bt: int = 256, bk: int = 512,
-               row_offset: int = 0):
+               row_offset: int = 0, token_index=None):
     """Training draw on gathered (T, K) rows: exact ¬dw exclusion on all
-    three counts, noise at (seed, row_offset + t, topic). Returns (T,)
-    int32. Unlike the reference's padded Pallas grid, no topic id >= K can
-    come out."""
+    three counts, noise at (seed, row_offset + t, topic), or at (seed,
+    token_index[t], topic) when a (T,) int32 ``token_index`` is given (a
+    mesh cell's corpus indices). Returns (T,) int32. Unlike the
+    reference's padded Pallas grid, no topic id >= K can come out."""
     if _route(nwk_rows) == "cpu":
         return zen_sample_plain(nwk_rows, nkd_rows, z_old, alpha_k, n_k,
                                 seed, beta=beta, w_beta=w_beta,
-                                row_offset=row_offset)
+                                row_offset=row_offset,
+                                token_index=token_index)
     out = zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed,
-                          beta=beta, w_beta=w_beta, row_offset=row_offset)
+                          beta=beta, w_beta=w_beta, row_offset=row_offset,
+                          token_index=token_index)
     _count("zen_sample", z_old.shape[0])
     return out
 
 
 def zen_fused_sample(n_wk, n_kd, word, doc, z_old, alpha_k, n_k, seed: int,
                      *, beta: float, w_beta: float, bt: int = 256,
-                     bk: int = 512, row_offset: int = 0):
+                     bk: int = 512, row_offset: int = 0, token_index=None):
     """``zen_sample(n_wk[word], n_kd[doc], ...)`` without the gathered
     rows; bit-identical to it. Returns (T,) int32."""
     if _route(n_wk) == "cpu":
         return zen_fused_sample_plain(n_wk, n_kd, word, doc, z_old, alpha_k,
                                       n_k, seed, beta=beta, w_beta=w_beta,
-                                      row_offset=row_offset)
+                                      row_offset=row_offset,
+                                      token_index=token_index)
     out = zen_fused_sample_cuda(n_wk, n_kd, word, doc, z_old, alpha_k, n_k,
                                 seed, beta=beta, w_beta=w_beta,
-                                row_offset=row_offset)
+                                row_offset=row_offset,
+                                token_index=token_index)
     _count("zen_fused_sample", word.shape[0])
     return out
 

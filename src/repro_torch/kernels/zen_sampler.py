@@ -126,19 +126,27 @@ def train_argmax_rows(nwk_rows, nkd_rows, z_old, rows, seed: int, alpha_k,
     return torch.argmax(score, dim=1).to(torch.int32)
 
 
+def noise_rows(s: int, e: int, row_offset: int, token_index,
+               device) -> torch.Tensor:
+    """The noise rows of tokens [s, e) of a training launch:
+    ``token_index[s:e]`` where given, else ``row_offset + t``."""
+    if token_index is not None:
+        return token_index[s:e].to(torch.int64)
+    return torch.arange(row_offset + s, row_offset + e, device=device)
+
+
 def zen_sample_plain(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
-                     beta: float, w_beta: float,
-                     row_offset: int = 0) -> torch.Tensor:
+                     beta: float, w_beta: float, row_offset: int = 0,
+                     token_index=None) -> torch.Tensor:
     """Plain-torch version of the gathered-row training kernel; token t's
-    noise row is ``row_offset + t``."""
+    noise row is ``token_index[t]`` where given, else ``row_offset + t``."""
     alpha = alpha_k.to(torch.float32)
     nk = n_k.to(torch.float32)
     t = nwk_rows.shape[0]
     out = torch.empty(t, dtype=torch.int32, device=nwk_rows.device)
     for s in range(0, t, PLAIN_CHUNK):
         e = min(s + PLAIN_CHUNK, t)
-        rows = torch.arange(row_offset + s, row_offset + e,
-                            device=nwk_rows.device)
+        rows = noise_rows(s, e, row_offset, token_index, nwk_rows.device)
         out[s:e] = train_argmax_rows(
             nwk_rows[s:e], nkd_rows[s:e], z_old[s:e], rows, seed, alpha, nk,
             beta, w_beta,
@@ -146,10 +154,21 @@ def zen_sample_plain(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
     return out
 
 
-def check_seed(seed: int, row_offset: int, num_tokens: int) -> None:
-    """The kernels take a non-negative int31 seed and int31 noise rows."""
+def check_seed(seed: int, row_offset: int, num_tokens: int,
+               token_index=None) -> None:
+    """The kernels take a non-negative int31 seed and int31 noise rows;
+    a ``token_index`` is a contiguous int32 vector of ``num_tokens`` on
+    the kernel's device (its values are the caller's: any int32)."""
     if not 0 <= int(seed) < 2**31:
         raise ValueError(f"seed {seed} is not a non-negative int31")
+    if token_index is not None:
+        if token_index.dtype != torch.int32 or \
+                token_index.shape != (num_tokens,) or \
+                not token_index.is_contiguous():
+            raise ValueError(f"token_index must be {num_tokens} contiguous "
+                             f"int32, got {token_index.dtype} "
+                             f"{tuple(token_index.shape)}")
+        return
     if row_offset < 0 or row_offset + num_tokens > 2**31:
         raise ValueError(f"noise rows [{row_offset}, "
                          f"{row_offset + num_tokens}) exceed int31")
@@ -302,9 +321,10 @@ def fast_score_errors(device, kernels: str = "train") -> dict:
 
 def zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
                     beta: float, w_beta: float, row_offset: int = 0,
-                    stats=None) -> torch.Tensor:
+                    token_index=None, stats=None) -> torch.Tensor:
     """Launch ``zen_train_gathered`` on the current stream; no sync.
-    ``stats``: see :func:`train_launch_extras`."""
+    ``token_index``: (T,) int32 noise rows on the card, else
+    ``row_offset + t``. ``stats``: see :func:`train_launch_extras`."""
     from repro_torch.kernels._build import check_launch, library
 
     i32, f32 = torch.int32, torch.float32
@@ -321,7 +341,9 @@ def zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
             f"{tuple(nkd_rows.shape)}, z_old {tuple(z_old.shape)}, "
             f"alpha_k {tuple(alpha_k.shape)}, n_k {tuple(n_k.shape)}"
         )
-    check_seed(seed, row_offset, t)
+    check_seed(seed, row_offset, t, token_index)
+    if token_index is not None:
+        check_cuda_args([("token_index", token_index)], [i32])
     out = torch.empty(t, dtype=i32, device=nwk_rows.device)
     scratch, extras = train_launch_extras(k, nwk_rows.device, stats)
     stream = torch.cuda.current_stream(nwk_rows.device).cuda_stream
@@ -329,7 +351,9 @@ def zen_sample_cuda(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
         check_launch("zen_train_gathered", library().zen_train_gathered(
             nwk_rows.data_ptr(), nkd_rows.data_ptr(), z_old.data_ptr(),
             alpha_k.data_ptr(), n_k.data_ptr(), out.data_ptr(), t, k,
-            int(seed), int(row_offset), ctypes.c_float(beta),
+            int(seed), int(row_offset),
+            None if token_index is None else token_index.data_ptr(),
+            ctypes.c_float(beta),
             ctypes.c_float(w_beta), *extras, stream,
         ))
     return out

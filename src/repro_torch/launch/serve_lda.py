@@ -1,8 +1,9 @@
 """LDA serving entry point: restore a trained model and serve documents.
 
 Loads a model checkpoint written by either package (``python -m
-repro.launch.train --checkpoint-dir``, or ``save_lda_model``), builds the
-bucketed :class:`~repro_torch.serving.LDAEngine` in either mode on
+repro.launch.train --checkpoint-dir``, or ``save_lda_model``), builds
+``--replicas`` bucketed :class:`~repro_torch.serving.LDAEngine` replicas
+behind an :class:`~repro_torch.serving.LDARouter` in either mode on
 ``--device`` (default ``cuda``), and pushes a libsvm corpus or a synthetic
 load through the async ticket front:
 
@@ -13,6 +14,7 @@ load through the async ticket front:
         [--buckets 32,64,128,256] [--max-batch 32] [--sweeps 10] \\
         [--rtlda-sweeps 2] [--tick-period 0] [--max-slot-wait 0] \\
         [--rounds 1] [--pace 0] [--eval] [--follow [--watch-period 0.5]]
+        [--mesh-shape 1,2] [--replicas 2]
 
 It prints the reference's ``docs/sec`` (with the model versions the
 round's requests decoded under) and ``latency ms: p50=`` lines, with the
@@ -24,9 +26,10 @@ the live pipeline: a checkpoint watcher polls ``--checkpoint-dir`` every
 ``serve_window`` telemetry JSONL; ``--autopilot`` derives the tick period,
 the bucket-spill wait and the bucket grid from the measured arrivals
 (``--autopilot-window`` arrivals per window; ``--pace`` makes an arrival
-process to measure) and prints where they settled. The reference's
-``--mesh-shape`` and ``--replicas > 1`` are not ported yet: they exit
-non-zero.
+process to measure) and prints where they settled. ``--mesh-shape 1,m``
+shards the model's word rows over m shards in this process (throughput
+mode; on one card all on it) and prints a ``sharded:`` line;
+``--replicas n`` serves through n engines behind the router.
 """
 import argparse
 import sys
@@ -85,20 +88,12 @@ def main(argv=None) -> int:
                          "from the observed arrival process")
     ap.add_argument("--autopilot-window", type=int, default=0,
                     help="arrivals per telemetry window (0 = default 64)")
-    # the reference's flags whose features are not ported yet
-    ap.add_argument("--mesh-shape", default=None)
-    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--mesh-shape", default=None,
+                    help="serve the model sharded over word rows, e.g. 1,2 "
+                         "(data dim must be 1; throughput mode)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the serving router")
     args = ap.parse_args(argv)
-
-    unported = [flag for flag, on in (
-        ("--mesh-shape", args.mesh_shape),
-        ("--replicas > 1", args.replicas > 1),
-    ) if on]
-    if unported:
-        print(f"serve_lda: {', '.join(unported)} not ported yet to the "
-              f"PyTorch engine; use python -m repro.launch.serve_lda",
-              file=sys.stderr)
-        return 2
 
     import numpy as np
 
@@ -111,6 +106,7 @@ def main(argv=None) -> int:
     from repro_torch.serving import (
         FrozenLDAModel,
         LDAEngine,
+        LDARouter,
         LDAServeConfig,
         doc_completion_perplexity,
         docs_from_corpus,
@@ -145,16 +141,24 @@ def main(argv=None) -> int:
         rtlda_sweeps=args.rtlda_sweeps,
         tick_period=args.tick_period,
         max_slot_wait=args.max_slot_wait,
+        mesh_shape=(tuple(int(d) for d in args.mesh_shape.split(","))
+                    if args.mesh_shape else None),
         metrics_out=args.metrics_out,
         autopilot=args.autopilot,
         autopilot_window=args.autopilot_window,
     )
-    engine = LDAEngine(model, cfg, seed=args.seed)
+    engine = LDARouter(model, cfg, replicas=args.replicas, seed=args.seed)
     plan = (f"rtlda_sweeps={cfg.rtlda_sweeps} (deterministic)"
             if args.mode == "latency" else
             f"algorithm={args.algorithm} sweeps={cfg.num_sweeps}")
     print(f"engine: mode={args.mode} {plan} buckets={cfg.buckets} "
-          f"max_batch={cfg.max_batch} device={card}")
+          f"max_batch={cfg.max_batch} replicas={args.replicas} "
+          f"device={card}")
+    if cfg.mesh_shape is not None:
+        sharded = engine.model
+        print(f"sharded: {sharded.num_shards} word shards x "
+              f"{sharded.words_per_shard} rows (W={sharded.num_words} "
+              f"padded to {sharded.num_shards * sharded.words_per_shard})")
 
     # one doc per bucket width first: kernel build and allocator warm-up
     # stay out of the latency distribution
@@ -191,10 +195,12 @@ def main(argv=None) -> int:
         if args.follow and rnd < args.rounds - 1:
             time.sleep(args.watch_period)
     if args.autopilot:
-        # where the measured knobs settled
-        print(f"autopilot: tick_period={engine.tick_period * 1e3:.2f}ms "
-              f"max_slot_wait={engine.max_slot_wait} "
-              f"buckets={engine.bucket_widths} spills={engine.spills}")
+        # where the measured knobs settled (replica 0 speaks for a
+        # homogeneous fleet)
+        e0 = engine.engines[0]
+        print(f"autopilot: tick_period={e0.tick_period * 1e3:.2f}ms "
+              f"max_slot_wait={e0.max_slot_wait} "
+              f"buckets={e0.bucket_widths} spills={e0.spills}")
     if args.metrics_out:
         print(f"telemetry: {args.metrics_out}")
     if args.follow:

@@ -1,9 +1,12 @@
-"""LDA training entry point: one single-box ``TrainSession``.
+"""LDA training entry point: one ``TrainSession``, on the mesh plan or
+the single box.
 
 Takes the reference's flags and defaults (``repro/launch/train.py``), so
 one command line means the same run in both packages, plus ``--device``
 (default ``cuda``, never a silent fallback):
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --rows 2 --cols 2 --host-devices 4 --iters 50 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --single-box \\
         --algorithm zen_pallas --topics 1000 --iters 50 \\
         [--corpus path.libsvm | --synthetic-docs N --synthetic-words W
@@ -49,9 +52,16 @@ those measurements every ``--autopilot-every`` iterations (default: the
 ``--rebuild-every`` cadence, else 10) and prints each decision under its
 iteration's line, then a final ``autopilot:`` line.
 
-The mesh plan is not ported yet: run without ``--single-box`` or
-``--stream``, or with ``--rows``/``--cols`` or ``--host-devices``, train
-exits non-zero with the ROADMAP item that waits for it.
+Without ``--single-box`` the run is the mesh plan (``--rows`` x
+``--cols``, default 2 x 2: one ``torch.distributed`` rank per cell),
+except for backends without a cell sweep (``std``), which fall back to
+the single box as in the reference. ``--host-devices N`` starts the N
+ranks here (``launch.mesh.spawn_local``: gloo, on ``--device``: the CPU,
+or all on one card); without it the ranks come from torchrun (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``; NCCL, one card each). A world whose size
+is not rows x cols exits 2, as a mismatched mesh fails in the reference.
+Rank 0 prints (``mesh RxC  tokens=..  pad=..``, then the progress lines)
+and writes the checkpoints.
 """
 import argparse
 import sys
@@ -66,12 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the resolved RunConfig JSON and exit")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the kernels; cpu their plain versions")
-    ap.add_argument("--rows", type=int, default=None,
-                    help="data-parallel rows (mesh plan: not ported)")
-    ap.add_argument("--cols", type=int, default=None,
-                    help="model-parallel cols (mesh plan: not ported)")
+    ap.add_argument("--rows", type=int, default=2,
+                    help="data-parallel rows (mesh plan)")
+    ap.add_argument("--cols", type=int, default=2,
+                    help="model-parallel cols (mesh plan)")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="simulated host devices (mesh plan: not ported)")
+                    help="start this many local ranks (gloo on --device)")
     ap.add_argument("--corpus", default=None, help="libsvm corpus path")
     ap.add_argument("--topics", type=int, default=64)
     ap.add_argument("--iters", type=int, default=50)
@@ -80,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--list-algorithms", action="store_true",
                     help="print the registered sampler backends and exit")
     ap.add_argument("--single-box", action="store_true",
-                    help="the single-box plan (the only one ported)")
+                    help="force the single-box plan")
     ap.add_argument("--max-kd", type=int, default=None,
                     help="sparse doc-row width (padded-sparse backends, "
                          "zen_cdf)")
@@ -153,18 +163,12 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def unported_flags(args) -> list:
-    """The flags given that ask for what the port has not reached yet,
-    each with the ROADMAP item that waits for it."""
-    mesh = "the mesh plan, ROADMAP queue 1 item 7"
-    found = [(flag, why) for flag, on, why in (
-        ("--rows/--cols", (args.rows is not None or args.cols is not None)
-         and not args.stream, mesh),
-        ("--host-devices", bool(args.host_devices), mesh),
-    ) if on]
-    if not args.config and not args.single_box and not args.stream:
-        found.append(("no --single-box", mesh + " (pass --single-box)"))
-    return [f"{flag} ({why})" for flag, why in found]
+def _rank_main(argv) -> None:
+    """One local rank of ``--host-devices``: the same command line in a
+    world of N (``launch.mesh.spawn_local``)."""
+    code = main(argv)
+    if code:
+        raise SystemExit(code)
 
 
 def run_stream(args, cfg) -> int:
@@ -223,35 +227,67 @@ def main(argv=None) -> int:
     from repro_torch.train.session import (
         RunConfig,
         TrainSession,
+        mesh_rows_cols,
         refuse_unported,
     )
 
     if args.list_algorithms:
-        for name, _backend, aliases in algorithms.describe():
+        for name, backend, aliases in algorithms.describe():
+            mesh = "mesh+single-box" if backend.supports_shard_map \
+                else "single-box"
             alias_s = f" (aliases: {', '.join(aliases)})" if aliases else ""
-            print(f"{name:12s} single-box{alias_s}")
+            print(f"{name:12s} {mesh}{alias_s}")
         return 0
 
-    bad = unported_flags(args)
-    if bad:
-        print(f"train: not ported yet to the PyTorch port: "
-              f"{'; '.join(bad)}; use python -m repro.launch.train",
-              file=sys.stderr)
-        return 2
+    import torch.distributed as dist
+
+    if args.host_devices and not dist.is_initialized():
+        import torch.multiprocessing as mp
+
+        from repro_torch.launch.mesh import spawn_local
+
+        try:
+            spawn_local("repro_torch.launch.train:_rank_main",
+                        args.host_devices,
+                        args=(list(sys.argv[1:] if argv is None else argv),))
+        except mp.ProcessExitedException as e:
+            print(f"train: a rank failed: {e}", file=sys.stderr)
+            return e.exit_code or 1
+        return 0
+    rank_dev = None
+    if not args.host_devices:
+        from repro_torch.launch.mesh import init_from_env
+
+        rank_dev = init_from_env(args.device)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     if args.config:
         with open(args.config) as f:
             cfg = RunConfig.from_json(f.read())
     else:
-        if args.stream and (args.rows is not None or args.cols is not None):
-            print("note: --stream runs the single-box windowed plan; "
-                  "ignoring the mesh shape")
-        if args.delta_dtype != "int32":
-            print("note: single-box plan ignores --delta-dtype")
+        try:
+            backend = algorithms.get(args.algorithm)
+        except ValueError as e:
+            print(f"train: {e}", file=sys.stderr)
+            return 2
+        mesh_shape = None
+        if backend.supports_shard_map and not args.single_box:
+            mesh_shape = (args.rows, args.cols)
+        elif not backend.supports_shard_map and not args.single_box:
+            say(f"note: backend {args.algorithm!r} has no shard_map cell "
+                f"sweep; running the single-box plan")
+        if args.stream and mesh_shape is not None:
+            say("note: --stream runs the single-box windowed plan; "
+                "ignoring the mesh shape")
+            mesh_shape = None
+        if mesh_shape is None and args.delta_dtype != "int32":
+            say("note: single-box plan ignores --delta-dtype")
         cfg = RunConfig(
             algorithm=args.algorithm,
             max_kd=args.max_kd or 0,
             max_kw=args.max_kw or 0,
+            mesh_shape=mesh_shape,
             delta_dtype=args.delta_dtype,
             num_iterations=args.iters,
             eval_every=args.llh_every,
@@ -292,9 +328,10 @@ def main(argv=None) -> int:
         return 2
 
     if args.dump_config:
-        with open(args.dump_config, "w") as f:
-            f.write(cfg.to_json() + "\n")
-        print(f"wrote {args.dump_config}")
+        if rank == 0:
+            with open(args.dump_config, "w") as f:
+                f.write(cfg.to_json() + "\n")
+        say(f"wrote {args.dump_config}")
         return 0
 
     if args.stream or cfg.stream_source:
@@ -313,19 +350,37 @@ def main(argv=None) -> int:
                                   avg_doc_len=args.synthetic_len, zipf_a=1.2)
     hyper = LDAHyperParams(num_topics=args.topics)
 
-    session = TrainSession(corpus, hyper, cfg, device=args.device)
+    try:
+        session = TrainSession(corpus, hyper, cfg,
+                               device=rank_dev or args.device)
+    except RuntimeError as e:
+        if cfg.mesh_shape is None:
+            raise
+        print(f"train: {e}", file=sys.stderr)  # the world does not fit
+        return 2
     dev = session.device
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"single-box  algorithm={cfg.algorithm}  "
-          f"tokens={corpus.num_tokens}  device={card}")
+    if cfg.mesh_shape is None:
+        say(f"single-box  algorithm={cfg.algorithm}  "
+            f"tokens={corpus.num_tokens}  device={card}")
+    else:
+        grid = session.plan.grid
+        rows, cols = mesh_rows_cols(cfg.mesh_shape)
+        say(f"mesh {rows}x{cols}  tokens={session.plan.num_tokens}  "
+            f"pad={grid.padding_overhead:.2%}  algorithm={cfg.algorithm}  "
+            f"ranks={session.plan.comm.size('all')} "
+            f"({session.plan.comm.backend or 'one process'})  "
+            f"device={card}")
     state = session.init(0)
     if session.backend.needs_row_pads:
-        # the reference prints this on its mesh plan, whose widths are
-        # fixed when the step is built; the single box resolves them per
-        # sweep, so this is the first sweep's
-        pads = algorithms.resolve_row_pads(state, cfg.knobs())
-        print(f"padded-row widths: max_kw={pads.max_kw} "
-              f"max_kd={pads.max_kd}")
+        if cfg.mesh_shape is not None:
+            kw, kd = session.row_pads
+        else:
+            # the single box resolves its widths per sweep: these are the
+            # first sweep's
+            pads = algorithms.resolve_row_pads(state, cfg.knobs())
+            kw, kd = pads.max_kw, pads.max_kd
+        say(f"padded-row widths: max_kw={kw} max_kd={kd}")
 
     t_last = [time.perf_counter()]
 
@@ -356,20 +411,21 @@ def main(argv=None) -> int:
             line += (f"\n  autopilot {rec['decision']}"
                      f"{' applied' if rec['applied'] else ' (no-op)'}: "
                      f"{rec['reason']}")
-        print(line, flush=True)
+        say(line, flush=True)
 
     final = session.run(state=state, callback=cb)
-    print(f"finished at iteration {int(final.iteration)}; "
-          f"final llh {session.llh(final):.1f}")
+    final_llh = session.llh(final)  # a collective on a mesh
+    say(f"finished at iteration {int(final.iteration)}; "
+        f"final llh {final_llh:.1f}")
     if cfg.autopilot:
-        print(f"autopilot: final backend={session.plan.backend.name} "
-              f"row_pads={session.row_pads}")
+        say(f"autopilot: final backend={session.plan.backend.name} "
+            f"row_pads={session.row_pads}")
     if cfg.metrics_out:
-        print(f"telemetry: {cfg.metrics_out}")
+        say(f"telemetry: {cfg.metrics_out}")
     if cfg.checkpoint_dir:
-        print(f"model checkpoint: {cfg.checkpoint_dir} "
-              f"(serve with: python -m repro_torch.launch.serve_lda "
-              f"--checkpoint-dir {cfg.checkpoint_dir})")
+        say(f"model checkpoint: {cfg.checkpoint_dir} "
+            f"(serve with: python -m repro_torch.launch.serve_lda "
+            f"--checkpoint-dir {cfg.checkpoint_dir})")
     return 0
 
 

@@ -158,3 +158,11 @@ class ServeTelemetry:
         """Log one applied (or rejected) autopilot decision."""
         self.registry.counter("serve.decisions").inc()
         self.registry.emit(record)
+
+    def emit_router_loads(self, loads: Sequence[int]) -> None:
+        """Per-replica load snapshot (``LDARouter`` admission balance)."""
+        self.registry.emit({
+            "kind": "router_load",
+            "loads": [int(x) for x in loads],
+            "total": int(sum(loads)),
+        })

@@ -52,9 +52,12 @@ from the next tick, a new bucket grid only once every bucket has drained,
 so no bucket is reshaped while it decodes, for a reload or otherwise; new
 buckets pin the current model slot at their first admission.
 
-Not ported yet, and refused with a ``ValueError`` when a config sets it:
-sharded serving (``mesh_shape``). The replica router (``LDARouter``) is
-not part of this package yet.
+Sharded serving: ``mesh_shape = (1, m)`` lays the frozen word rows over
+m shards (``serving.sharded``: one process, the blocks on the engine's
+device) and runs every bucket sweep as m per-shard sweeps whose owned
+draws are summed; thetas equal the unsharded engine's bit for bit.
+Latency mode does not shard, and a data dimension other than 1 is
+refused: replicas come from the router (``serving.router.LDARouter``).
 """
 from __future__ import annotations
 
@@ -75,6 +78,12 @@ from repro_torch.core.keys import as_key, fold_in, init_topics, key_from_seed
 from repro_torch.core.types import LDAHyperParams
 from repro_torch.device import resolve_device
 from repro_torch.observe.metrics import latency_percentile  # noqa: F401
+from repro_torch.serving.sharded import (
+    ShardedFrozenLDAModel,
+    layout_key,
+    make_sharded_sweep_fn,
+    sharded_prepare_infer,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -144,8 +153,8 @@ class FrozenLDAModel:
 @dataclasses.dataclass(frozen=True)
 class LDAServeConfig:
     """Engine knobs; the same fields and JSON as the reference's, so one
-    file configures both packages (``mesh_shape`` is refused: see the
-    module docstring). ``metrics_out`` (telemetry JSONL path),
+    file configures both packages. ``mesh_shape`` ``(1, m)`` shards the
+    word rows (throughput mode only). ``metrics_out`` (telemetry JSONL path),
     ``autopilot`` and ``autopilot_window`` (arrivals per decision window,
     0 = 64) are inert at their defaults."""
 
@@ -196,12 +205,6 @@ class LDAServeConfig:
         return cls(**d)
 
 
-# config fields whose features this engine does not have yet
-_NOT_PORTED = {
-    "mesh_shape": "sharded serving",
-}
-
-
 @dataclasses.dataclass
 class InferRequest:
     """One in-flight (or finished) serving request; ``theta`` (K,) once
@@ -243,6 +246,10 @@ class _ModelSlot:
     aux: Any
     alpha_k: np.ndarray
     version: int
+    # a sharded slot's sweep function (every bucket width), built at first
+    # use; shared across reloads that keep the hyper-parameters and the
+    # layout (``layout_key``)
+    sweep_fn: Optional[Callable[..., torch.Tensor]] = None
 
 
 class _Bucket:
@@ -370,15 +377,24 @@ class LDAEngine:
             raise ValueError("need at least one bucket length")
         if cfg.mode not in ("throughput", "latency"):
             raise ValueError(f"unknown serve mode {cfg.mode!r}")
-        defaults = LDAServeConfig()
-        for name, what in _NOT_PORTED.items():
-            if getattr(cfg, name) != getattr(defaults, name):
-                raise ValueError(
-                    f"LDAServeConfig.{name}={getattr(cfg, name)!r}: {what} "
-                    f"is not ported to the PyTorch engine yet"
-                )
         self.cfg = cfg
         self.device = model.device
+        self._mesh = None
+        if cfg.mesh_shape is not None:
+            if cfg.mode == "latency":
+                raise ValueError(
+                    "latency mode (RT-LDA) does not shard: drop "
+                    "mesh_shape or serve mode='throughput'")
+            if len(cfg.mesh_shape) != 2 or cfg.mesh_shape[0] != 1:
+                raise ValueError(
+                    f"serving mesh_shape must be (1, m) — word rows shard "
+                    f"over the model axis, replicas come from the router "
+                    f"— got {cfg.mesh_shape!r}")
+            from repro_torch.launch.mesh import make_mesh
+
+            m = int(cfg.mesh_shape[1])
+            self._mesh = make_mesh((1, m), ("data", "model"),
+                                   devices=[self.device] * m)
         self.backend = algorithms.get(cfg.algorithm)
         self._knobs = cfg.knobs()
         self._current = self._build_slot(model, version=0)
@@ -449,15 +465,29 @@ class LDAEngine:
             model = FrozenLDAModel(n_wk=model.n_wk.to(self.device),
                                    n_k=model.n_k.to(self.device),
                                    hyper=model.hyper)
+        if self._mesh is not None and not isinstance(
+                model, ShardedFrozenLDAModel):
+            model = ShardedFrozenLDAModel.shard(model, self._mesh)
         # latency mode never runs backend sweeps: no tables
-        aux = None if self.cfg.mode == "latency" else \
-            self.backend.prepare_infer(model.n_wk, model.n_k, model.hyper,
-                                       self._knobs)
+        if self.cfg.mode == "latency":
+            aux = None
+        elif isinstance(model, ShardedFrozenLDAModel):
+            aux = sharded_prepare_infer(self.backend, model, self._knobs)
+        else:
+            aux = self.backend.prepare_infer(model.n_wk, model.n_k,
+                                             model.hyper, self._knobs)
         return _ModelSlot(
             model=model, aux=aux,
             alpha_k=model.hyper.alpha_k(model.n_k).cpu().numpy(),
             version=version,
         )
+
+    def _sweep_fn(self, slot: _ModelSlot):
+        """A sharded slot's sweep function."""
+        if slot.sweep_fn is None:
+            slot.sweep_fn = make_sharded_sweep_fn(self.backend, self._knobs,
+                                                  slot.model)
+        return slot.sweep_fn
 
     def _next_version(self, version: Optional[int]) -> int:
         new_version = (self._current.version + 1 if version is None
@@ -482,6 +512,10 @@ class LDAEngine:
         slot = self._build_slot(model)
         with self._cv:
             slot.version = self._next_version(version)
+            cur = self._current
+            if (cur.model.hyper == slot.model.hyper
+                    and layout_key(cur.model) == layout_key(slot.model)):
+                slot.sweep_fn = cur.sweep_fn
             self._current = slot
             self.reloads += 1
             return slot.version
@@ -704,6 +738,14 @@ class LDAEngine:
             or any(b.num_active for b in self._buckets.values())
         )
 
+    @property
+    def load(self) -> int:
+        """Queued plus in-flight requests: the admission pressure
+        ``serving.router.LDARouter`` balances replicas on."""
+        with self._cv:
+            return len(self.queue) + sum(
+                b.num_active for b in self._buckets.values())
+
     def warm(self) -> None:
         """Run one minimal document per bucket width before traffic, so
         first requests pay no kernel build or allocator warm-up."""
@@ -843,7 +885,13 @@ class LDAEngine:
         l, k = bucket.length, bucket.slot_model.model.num_topics
         n = req.words.shape[0]
         words = torch.zeros(l, dtype=torch.int32)
-        words[:n] = torch.from_numpy(req.words)
+        placed = bucket.slot_model.model
+        if isinstance(placed, ShardedFrozenLDAModel):
+            # shard-space rows, mapped at placement: a request admitted
+            # after a reload relabels through the new model's permutation
+            words[:n] = torch.from_numpy(placed.relabel(req.words))
+        else:
+            words[:n] = torch.from_numpy(req.words)
         bucket.words[slot] = words.to(self.device)
         bucket.mask[slot] = False
         bucket.mask[slot, :n] = True
@@ -910,11 +958,16 @@ class LDAEngine:
                 continue
             sm = bucket.slot_model  # pinned: the admitted model
             m = sm.model
-            z_new = self.backend.infer_sweep(
-                self._sweep_keys(bucket), bucket.words, bucket.mask,
-                bucket.z, bucket.n_kd, m.n_wk, m.n_k, m.hyper, self._knobs,
-                sm.aux,
-            )
+            if isinstance(m, ShardedFrozenLDAModel):
+                z_new = self._sweep_fn(sm)(
+                    self._sweep_keys(bucket), bucket.words, bucket.mask,
+                    bucket.z, bucket.n_kd, m.blocks, m.n_k_blocks, sm.aux)
+            else:
+                z_new = self.backend.infer_sweep(
+                    self._sweep_keys(bucket), bucket.words, bucket.mask,
+                    bucket.z, bucket.n_kd, m.n_wk, m.n_k, m.hyper,
+                    self._knobs, sm.aux,
+                )
             bucket.z = torch.where(bucket.mask, z_new, bucket.z)
             bucket.n_kd = torch.zeros_like(bucket.n_kd).scatter_add_(
                 1, bucket.z.long(), bucket.mask.to(torch.int32))

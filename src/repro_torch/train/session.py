@@ -1,15 +1,22 @@
-"""Training sessions (``repro/train/session.py``), single-box plan.
+"""Training sessions (``repro/train/session.py``): the single-box and
+the mesh plan.
 
 * ``RunConfig`` — the declarative run description, with the reference's
   fields, defaults and JSON, so one run file means the same run in both
-  packages (``launch/train.py --config run.json``). The mesh plan
-  (``mesh_shape``) is not ported yet and is refused when a session is
-  built, naming its ROADMAP item. The streaming fields (``window_docs``,
-  ``stream_source``) drive ``train.online.StreamingSession``;
-  ``TrainSession`` ignores them, as the reference's does.
+  packages (``launch/train.py --config run.json``). ``mesh_shape=None``
+  selects the single box, ``(rows, cols)`` (or ``(pod, data, model)``,
+  pod and data folded into the row) the mesh. The streaming fields
+  (``window_docs``, ``stream_source``) drive
+  ``train.online.StreamingSession``; ``TrainSession`` ignores them, as
+  the reference's does.
 * ``SingleBoxPlan`` — the whole corpus as one cell on one device: sweep
   (the registry backend), exclusion mask, delta merge and exclusion
   statistics, as the reference's single-box plan does them.
+* ``MeshPlan`` — one rank per cell under ``torch.distributed``
+  (``core.distributed``): ``grid_partition``'s layout, the paper's
+  Fig. 2 step, with the reference plan's surface. Every rank runs the
+  same session, so evals, the schedule and the autopilot fire alike on
+  all of them; only rank 0 writes checkpoints.
 * ``TrainSession`` — ``init() / step() / run() / llh() / perplexity() /
   metrics() / save_model() / merge_duplicates()``, with the reference's
   schedule actions: ``exclusion_on``, ``rebuild``, ``repad``,
@@ -22,7 +29,8 @@
   the card; they change no draw.
 
 Sessions and plans run on ``device`` (default ``cuda``) and raise rather
-than fall back when no card is present. The run key is an int seed or two
+than fall back when no card is present; a mesh rank's device is its own
+card under NCCL, or the card its ranks share under gloo. The run key is an int seed or two
 uint32 words (``core.keys``), not a ``jax.random`` key; a reference
 state's initial topics pass in as ``init(seed, init_topics=...)``.
 """
@@ -31,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import signal
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -47,7 +56,7 @@ from repro_torch.core.exclusion import (
     update_exclusion_stats,
 )
 from repro_torch.core.hyper import duplicate_topic_map, merge_topics
-from repro_torch.core.keys import as_key, fold_in
+from repro_torch.core.keys import as_key, fold_in, split, uniform_ints_at
 from repro_torch.core.likelihood import predictive_llh
 from repro_torch.core.types import CGSState, Corpus, LDAHyperParams
 from repro_torch.device import resolve_device
@@ -60,10 +69,11 @@ class RunConfig:
     """Declarative description of one training run; the reference's
     fields and defaults (see ``repro/train/session.py`` for each one).
 
-    ``mesh_shape=None`` selects the single-box plan, the only one ported.
-    Cadences count post-step iterations (the first step is iteration 1);
-    0 disables. ``num_iterations`` is the absolute target iteration.
-    ``sampling_method=None`` resolves to ``cdf`` on the single box.
+    ``mesh_shape=None`` selects the single-box plan, ``(rows, cols)`` the
+    mesh plan. Cadences count post-step iterations (the first step is
+    iteration 1); 0 disables. ``num_iterations`` is the absolute target
+    iteration. ``sampling_method=None`` resolves to ``cdf`` on the single
+    box and ``gumbel`` on the mesh.
     """
 
     # -- algorithm + sampler knobs (one SamplerKnobs derivation) ----------
@@ -147,27 +157,16 @@ class RunConfig:
         return cls(**d)
 
 
-# field -> (is it set?, what waits for it); the ROADMAP's queue-1 items
-UNPORTED_FIELDS = {
-    "mesh_shape": (lambda v: v is not None,
-                   "the mesh plan, ROADMAP queue 1 item 7"),
-}
-
-
 def refuse_unported(cfg: RunConfig) -> None:
-    """Raise a ``ValueError`` naming every field of ``cfg`` whose value
-    asks for a feature the port does not have yet."""
-    bad = [f"{name}={getattr(cfg, name)!r} ({why})"
-           for name, (is_set, why) in UNPORTED_FIELDS.items()
-           if is_set(getattr(cfg, name))]
+    """Raise a ``ValueError`` when ``cfg`` names a backend the port does
+    not have (every RunConfig field of the reference is ported)."""
     try:
         algorithms.get(cfg.algorithm)
     except ValueError:
-        bad.append(f"algorithm={cfg.algorithm!r} (no such backend; ported: "
-                   f"{', '.join(algorithms.registered())})")
-    if bad:
-        raise ValueError("RunConfig asks for what is not ported to the "
-                         "PyTorch port yet: " + "; ".join(bad))
+        raise ValueError(
+            f"RunConfig asks for what is not in the PyTorch port: "
+            f"algorithm={cfg.algorithm!r} (no such backend; ported: "
+            f"{', '.join(algorithms.registered())})") from None
 
 
 class SingleBoxPlan:
@@ -358,20 +357,347 @@ class SingleBoxPlan:
         return self.rebuild(restored)
 
 
-class TrainSession:
-    """One training run behind the reference's interface: resolves the
-    backend once, builds the single-box plan on ``device`` and fires the
-    event schedule after every step."""
+def mesh_rows_cols(mesh_shape) -> Tuple[int, int]:
+    """(rows, cols) of a mesh shape: ``(rows, cols)``, or ``(pod, data,
+    model)`` with pod and data folded into the row, as the reference's
+    step folds them."""
+    shape = tuple(int(x) for x in mesh_shape)
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ValueError(f"mesh_shape must be (rows, cols) or (pod, data, "
+                         f"model) of positive sizes, got {mesh_shape!r}")
+    return int(np.prod(shape[:-1])), shape[-1]
 
-    def __init__(self, corpus: Corpus, hyper: LDAHyperParams, cfg: RunConfig,
-                 device=None):
-        refuse_unported(cfg)
-        if cfg.sampling_method is None:
-            cfg = dataclasses.replace(cfg, sampling_method="cdf")
+
+class MeshPlan:
+    """One rank of the mesh plan: ``grid_partition`` lays the corpus out
+    on a (rows x cols) grid, this rank trains cell ``rank``
+    (``core.distributed``), and structural events (exclusion, row-pad
+    re-resolution, a backend switch) change the step in place.
+
+    ``grid`` may be given (built once by a parent process and, for a
+    large corpus, memory-mapped: a rank reads only its cell's rows); then
+    ``corpus`` may be None unless a sparse init or quality evaluation
+    needs the token lists. ``comm`` defaults to the process group's
+    :class:`~repro_torch.core.distributed.MeshComm`."""
+
+    def __init__(self, corpus: Optional[Corpus], hyper: LDAHyperParams,
+                 cfg: RunConfig, device=None, grid=None, comm=None):
+        from repro_torch.core.distributed import (
+            DistConfig,
+            MeshComm,
+            cell_data,
+        )
+        from repro_torch.core.graph import grid_partition
+
+        self.device = resolve_device(device)
         self.hyper = hyper
         self.cfg = cfg
         self.backend = algorithms.get(cfg.algorithm)
-        self.plan = SingleBoxPlan(corpus, hyper, cfg, device=device)
+        _check_mesh_backend(self.backend, cfg.algorithm)
+        rows, cols = mesh_rows_cols(cfg.mesh_shape)
+        self.comm = comm if comm is not None else MeshComm(rows, cols)
+        if (self.comm.rows, self.comm.cols) != (rows, cols):
+            raise ValueError(f"mesh_shape {cfg.mesh_shape} is a {rows}x{cols}"
+                             f" grid; the process groups are "
+                             f"{self.comm.rows}x{self.comm.cols}")
+        self.grid = grid if grid is not None else grid_partition(
+            corpus, rows, cols)
+        if (self.grid.data_parallel, self.grid.model_parallel) != (rows,
+                                                                   cols):
+            raise ValueError("the grid was partitioned for another mesh")
+        # kept where the caller put it: the cells carry their own tokens
+        self.corpus = corpus
+        self.data = cell_data(self.grid, self.comm.rank, self.device)
+        self.num_words_pad = self.grid.num_words_padded
+        # the user's explicit widths; 0 stays "auto" across re-resolutions
+        self._user_kw, self._user_kd = cfg.max_kw, cfg.max_kd
+        self.dcfg = DistConfig(
+            algorithm=cfg.algorithm, sampling_method=cfg.sampling_method,
+            max_kd=cfg.max_kd, max_kw=cfg.max_kw, num_mh=cfg.num_mh,
+            delta_dtype=cfg.delta_dtype, rebuild_every=cfg.rebuild_every,
+            exclusion_start=cfg.exclusion_start,
+            token_chunk=cfg.token_chunk, kd_dtype=cfg.kd_dtype, bt=cfg.bt,
+            bk=cfg.bk, bs=cfg.bs, kernels=cfg.kernels)
+        self._kd_dtype = torch.int16 if cfg.kd_dtype == "int16" \
+            else torch.int32
+        # warm-up is handled by ``active_mask`` (start_iteration), as on
+        # the single box, so that the two plans draw alike
+        self._excl = cfg.exclusion()
+        self._orders = None
+        real = torch.tensor(self.data.num_real, dtype=torch.int64,
+                            device=self.device)
+        self._num_tokens = int(self.comm.all_reduce(real, "all"))
+
+    @property
+    def _knobs(self) -> SamplerKnobs:
+        """The backend's cell workspace at the current widths."""
+        return self.backend.resolve_cell_knobs(self.dcfg.knobs(), self.hyper)
+
+    # -- lifecycle ---------------------------------------------------------
+    def init(self, rng, init_topics=None):
+        """This rank's initial state. ``init_topics``: the grid layout
+        ``(cells, e_cell)`` (the reference's) or the corpus order ``(E,)``
+        (the single box's); default the session's init, drawn in corpus
+        order as the single box draws it and laid out by token."""
+        from repro_torch.core.distributed import (
+            init_dist_state,
+            resolve_dist_row_pads,
+        )
+
+        grid, cell = self.grid, self.comm.rank
+        key = as_key(rng)
+        if init_topics is not None:
+            cell_topics = self._cell_topics(init_topics)
+            state_key = key
+        elif self.cfg.init == "random":
+            k_init, state_key = split(key)
+            tok = torch.from_numpy(np.array(grid.token[cell]))
+            cell_topics = uniform_ints_at(k_init, tok,
+                                          self.hyper.num_topics).numpy()
+        else:
+            if self.corpus is None:
+                raise ValueError(f"init {self.cfg.init!r} needs the corpus")
+            c = self.corpus.to("cpu")
+            init_fn = {"sparse_word": init_lib.sparse_word_init,
+                       "sparse_doc": init_lib.sparse_doc_init}.get(
+                self.cfg.init)
+            if init_fn is None:
+                raise ValueError(f"unknown init {self.cfg.init!r}")
+            st = init_fn(key, c, self.hyper, self.cfg.sparse_init_degree)
+            cell_topics = st.topic.numpy()[np.asarray(grid.token[cell])]
+            state_key = st.rng
+        state = init_dist_state(state_key, self.data, self.comm, grid,
+                                self.hyper, cell_topics, self._kd_dtype)
+        # shard capacities from the init counts; repad re-resolves them
+        self.dcfg = resolve_dist_row_pads(state, self.dcfg, self.comm)
+        return state
+
+    def _cell_topics(self, topics) -> np.ndarray:
+        """This cell's slots of a grid-layout ``(cells, e_cell)`` or a
+        corpus-order ``(E,)`` topic array."""
+        grid, cell = self.grid, self.comm.rank
+        a = topics.cpu().numpy() if isinstance(topics, torch.Tensor) \
+            else np.asarray(topics)
+        if a.shape == tuple(grid.word.shape):
+            out = np.array(a[cell], np.int32)
+        elif a.shape == (self._num_tokens,):
+            out = a[np.asarray(grid.token[cell])].astype(np.int32)
+        else:
+            raise ValueError(
+                f"topics of shape {a.shape}: expected the grid's "
+                f"{tuple(grid.word.shape)} or the corpus's "
+                f"({self._num_tokens},)")
+        real = out[:self.data.num_real]
+        if real.size and (real.min() < 0
+                          or real.max() >= self.hyper.num_topics):
+            raise ValueError(f"topics outside [0, {self.hyper.num_topics})")
+        return out
+
+    def step(self, state, timer=None):
+        from repro_torch.core.distributed import cell_orders, dist_step
+
+        if self._orders is None and algorithms.kernel_dispatch(
+                self.dcfg.kernels, self.device):
+            self._orders = cell_orders(self.data)
+        return dist_step(state, self.data, self.comm, self.hyper, self.dcfg,
+                         self._knobs, self.num_words_pad, self._excl,
+                         orders=self._orders, timer=timer)
+
+    # -- metrics -----------------------------------------------------------
+    def llh(self, state) -> float:
+        from repro_torch.core.distributed import dist_llh
+
+        return dist_llh(state, self.data, self.comm, self.hyper,
+                        self.num_words_pad,
+                        token_chunk=self.cfg.token_chunk or None)
+
+    def change_rate(self, state) -> float:
+        n = self.data.num_real
+        changed = (state.topic[:n] != state.prev_topic[:n]).sum(
+            dtype=torch.int64)
+        return int(self.comm.all_reduce(changed, "all")) / max(
+            1, self._num_tokens)
+
+    @property
+    def num_tokens(self) -> int:
+        return self._num_tokens
+
+    def check_invariants(self, state) -> None:
+        """Count conservation over the mesh (int64 sums, all-reduced).
+        Raises ``AssertionError`` on every rank alike."""
+        i64 = torch.int64
+        comm = self.comm
+        col_wk = comm.all_reduce(state.n_wk.sum(0, dtype=i64), "model")
+        col_kd = comm.all_reduce(state.n_kd.sum(0, dtype=i64), "data")
+        neg = torch.tensor(int((state.n_wk < 0).any() or
+                               (state.n_kd < 0).any() or
+                               (state.n_k < 0).any()),
+                           dtype=i64, device=self.device)
+        neg = int(comm.all_reduce(neg, "all"))
+        n_k = state.n_k.to(i64)
+        checks = (
+            ("sum n_k == E", int(n_k.sum()) == self._num_tokens),
+            ("n_wk column sums == n_k", bool(torch.equal(col_wk, n_k))),
+            ("n_kd column sums == n_k", bool(torch.equal(col_kd, n_k))),
+            ("counts >= 0", neg == 0),
+        )
+        failed = [name for name, ok in checks if not ok]
+        if failed:
+            raise AssertionError(f"count invariants violated at iteration "
+                                 f"{state.iteration}: {', '.join(failed)}")
+
+    # -- structural events -------------------------------------------------
+    def enable_exclusion(self) -> None:
+        self._excl = self.cfg.exclusion()
+
+    def rebuild(self, state):
+        from repro_torch.core.distributed import rebuild_counts
+
+        return rebuild_counts(state, self.data, self.comm,
+                              self.hyper.num_topics)
+
+    def repad(self, state) -> bool:
+        """Re-resolve the shard row capacities against the current counts
+        (auto widths only); True when they changed."""
+        from repro_torch.core.distributed import resolve_dist_row_pads
+
+        if not self.backend.needs_row_pads or (self._user_kw
+                                               and self._user_kd):
+            return False
+        probe = dataclasses.replace(self.dcfg, max_kw=self._user_kw,
+                                    max_kd=self._user_kd)
+        probe = resolve_dist_row_pads(state, probe, self.comm)
+        if (probe.max_kw, probe.max_kd) == (self.dcfg.max_kw,
+                                            self.dcfg.max_kd):
+            return False
+        self.dcfg = probe
+        return True
+
+    @property
+    def row_pads(self) -> Tuple[int, int]:
+        return (self.dcfg.max_kw, self.dcfg.max_kd)
+
+    def apply_row_pads(self, max_kw: int, max_kd: int) -> bool:
+        if (self.dcfg.max_kw, self.dcfg.max_kd) == (max_kw, max_kd):
+            return False
+        self.dcfg = dataclasses.replace(self.dcfg, max_kw=int(max_kw),
+                                        max_kd=int(max_kd))
+        return True
+
+    def set_backend(self, name: str, state) -> bool:
+        if name == self.dcfg.algorithm:
+            return False
+        backend = algorithms.get(name)
+        _check_mesh_backend(backend, name)
+        self.backend = backend
+        self.dcfg = dataclasses.replace(self.dcfg, algorithm=name)
+        if backend.needs_row_pads and not (self.dcfg.max_kw
+                                           and self.dcfg.max_kd):
+            from repro_torch.core.distributed import resolve_dist_row_pads
+
+            self.dcfg = resolve_dist_row_pads(state, self.dcfg, self.comm)
+        return True
+
+    def set_hyper(self, hyper: LDAHyperParams) -> None:
+        self.hyper = hyper
+
+    def merge(self, state, topic_map):
+        tm = torch.as_tensor(np.asarray(topic_map, np.int64)).to(
+            self.device)
+        state = state._replace(
+            topic=tm[state.topic.long()].to(torch.int32),
+            prev_topic=tm[state.prev_topic.long()].to(torch.int32))
+        # the counts follow the assignments exactly
+        return self.rebuild(state)
+
+    def _all_n_wk(self, state) -> torch.Tensor:
+        """The whole padded N_w|k (W_pad, K) on every rank (the blocks of
+        this rank's row), in the grid's relabeled order."""
+        return self.comm.gather(state.n_wk, "model", self.comm.col,
+                                self.comm.cols)
+
+    def _all_n_kd(self, state) -> torch.Tensor:
+        """The whole padded N_k|d (D_pad, K) int32 on every rank."""
+        return self.comm.gather(state.n_kd.to(torch.int32), "data",
+                                self.comm.row, self.comm.rows)
+
+    def global_counts(self, state) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's global view: (N_w|k (W_pad, K), N_k|d (D_pad,
+        K)) on every rank, relabeled as the grid lays them out."""
+        return self._all_n_wk(state), self._all_n_kd(state)
+
+    def host_n_wk(self, state) -> np.ndarray:
+        """N_w|k (W, K) on the host, in the corpus's word ids."""
+        return self._all_n_wk(state).cpu().numpy()[self.grid.word_perm]
+
+    def host_n_kd(self, state) -> np.ndarray:
+        """N_k|d (D, K) on the host, in the corpus's doc ids."""
+        return self._all_n_kd(state).cpu().numpy()[self.grid.doc_perm]
+
+    # -- checkpoint surfaces -----------------------------------------------
+    def model_arrays(self, state) -> Tuple[np.ndarray, np.ndarray]:
+        return self.host_n_wk(state), state.n_k.cpu().numpy()
+
+    def checkpoint_tree(self, state) -> Dict[str, Any]:
+        """The reference's tree: the global ``(cells, e_cell)`` topics of
+        the grid layout and the iteration."""
+        topic = self.comm.gather(state.topic[None, :], "all",
+                                 self.comm.rank, self.comm.size("all"))
+        return {"topic": topic.cpu().numpy(),
+                "iteration": np.asarray(state.iteration, np.int32)}
+
+    def restore(self, state, tree):
+        """Assignments from a checkpoint tree (grid layout of this mesh,
+        or corpus order), counts rebuilt, exclusion counters reset."""
+        topic = torch.from_numpy(self._cell_topics(tree["topic"])).to(
+            self.device)
+        topic[self.data.num_real:] = 0
+        zeros = torch.zeros_like(topic)
+        state = state._replace(
+            topic=topic, prev_topic=topic.clone(),
+            iteration=int(np.asarray(tree["iteration"])),
+            stale_iters=zeros, same_count=zeros.clone())
+        return self.rebuild(state)
+
+    def corpus_topics(self, state) -> np.ndarray:
+        """The assignments in corpus order, (E,) int32 on every rank."""
+        tree = self.checkpoint_tree(state)["topic"]
+        out = np.zeros(self._num_tokens, np.int32)
+        mask = np.asarray(self.grid.mask)
+        out[np.asarray(self.grid.token)[mask]] = tree[mask]
+        return out
+
+
+def _check_mesh_backend(backend, name: str) -> None:
+    from repro_torch.launch.mesh import mesh_backends
+
+    if not backend.supports_shard_map:
+        raise ValueError(
+            f"backend {name!r} does not support shard_map cells; "
+            f"mesh-capable backends: {', '.join(mesh_backends())}")
+
+
+class TrainSession:
+    """One training run behind the reference's interface: resolves the
+    backend once, builds the plan ``cfg.mesh_shape`` selects on ``device``
+    and fires the event schedule after every step. On a mesh every rank
+    builds the same session (``grid``/``comm``: see :class:`MeshPlan`)."""
+
+    def __init__(self, corpus: Optional[Corpus], hyper: LDAHyperParams,
+                 cfg: RunConfig, device=None, grid=None, comm=None):
+        refuse_unported(cfg)
+        if cfg.sampling_method is None:
+            cfg = dataclasses.replace(
+                cfg, sampling_method="cdf" if cfg.mesh_shape is None
+                else "gumbel")
+        self.hyper = hyper
+        self.cfg = cfg
+        self.backend = algorithms.get(cfg.algorithm)
+        if cfg.mesh_shape is None:
+            self.plan = SingleBoxPlan(corpus, hyper, cfg, device=device)
+        else:
+            self.plan = MeshPlan(corpus, hyper, cfg, device=device,
+                                 grid=grid, comm=comm)
         self.corpus = self.plan.corpus
         # telemetry, the autopilot and the quality evaluator exist only
         # when enabled: off, the schedule is the plain one
@@ -409,6 +735,12 @@ class TrainSession:
     @property
     def device(self) -> torch.device:
         return self.plan.device
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints: the single box, or a
+        mesh's rank 0."""
+        return not isinstance(self.plan, MeshPlan) or self.plan.comm.rank == 0
 
     @property
     def row_pads(self) -> Tuple[int, int]:
@@ -451,18 +783,24 @@ class TrainSession:
         directory = directory or self.cfg.checkpoint_dir
         if not directory:
             raise ValueError("no checkpoint directory configured")
-        n_wk, n_k = self.plan.model_arrays(state)
-        path = save_lda_model(directory, n_wk, n_k, self.hyper,
-                              step=int(state.iteration),
-                              extra_metadata={"algorithm":
-                                              self.cfg.algorithm})
-        self._last_model_save = int(state.iteration)
+        n_wk, n_k = self.plan.model_arrays(state)  # a collective on a mesh
+        extra = {"algorithm": self.cfg.algorithm}
+        if self.cfg.mesh_shape is not None:
+            extra["mesh"] = list(self.cfg.mesh_shape)
+        step = int(state.iteration)
+        path = os.path.join(directory, f"step_{step:08d}")
+        if self.is_writer:
+            path = save_lda_model(directory, n_wk, n_k, self.hyper,
+                                  step=step, extra_metadata=extra)
+        self._last_model_save = step
         return path
 
     def merge_duplicates(self, state: CGSState) -> CGSState:
         """Detect and merge duplicate topics (paper §4.3); a trivial map
         is a no-op."""
-        topic_map = duplicate_topic_map(state.n_wk, self.cfg.merge_threshold)
+        n_wk = self.plan.host_n_wk(state) if isinstance(
+            self.plan, MeshPlan) else state.n_wk
+        topic_map = duplicate_topic_map(n_wk, self.cfg.merge_threshold)
         if (topic_map == np.arange(topic_map.shape[0])).all():
             return state
         return self.plan.merge(state, topic_map)
@@ -548,11 +886,16 @@ class TrainSession:
     # -- the autopilot, quality and telemetry actions ------------------------
     def _autopilot_candidates(self) -> Tuple[str, ...]:
         """The configured backend plus the three decomposition
-        representatives (doc-side, word-side, hybrid)."""
+        representatives (doc-side, word-side, hybrid), restricted to
+        mesh-capable ones on a mesh plan."""
         cands = [self.cfg.algorithm]
         for name in ("zen_sparse", "sparselda", "zen_hybrid"):
-            if name not in cands and name in algorithms.registered():
-                cands.append(name)
+            if name in cands or name not in algorithms.registered():
+                continue
+            if (self.cfg.mesh_shape is not None
+                    and not algorithms.get(name).supports_shard_map):
+                continue
+            cands.append(name)
         return tuple(cands)
 
     def _autopilot_action(self, ctx: ActionContext, state: CGSState):
@@ -562,10 +905,15 @@ class TrainSession:
 
         state = self.plan.rebuild(state)
         plan = self.plan
-        # the single box resolves auto pads (0) every sweep already: only
-        # explicit widths are worth tuning
-        pads_tunable = (plan.backend.needs_row_pads
-                        and all(p > 0 for p in plan.row_pads))
+        if isinstance(plan, MeshPlan):
+            # mesh widths are fixed between re-resolutions: policy-owned
+            # whenever the backend uses padded rows
+            pads_tunable = plan.backend.needs_row_pads
+        else:
+            # the single box resolves auto pads (0) every sweep already:
+            # only explicit widths are worth tuning
+            pads_tunable = (plan.backend.needs_row_pads
+                            and all(p > 0 for p in plan.row_pads))
         decisions = self._autopilot_policy.decide(
             self.telemetry.window(),
             current_backend=plan.backend.name,
@@ -592,12 +940,22 @@ class TrainSession:
         """Score the model snapshot (coherence, left-to-right) into the
         iteration's metrics; reads the counts on the card, changes
         nothing."""
+        n_wk = state.n_wk
+        if isinstance(self.plan, MeshPlan):
+            n_wk = torch.from_numpy(self.plan.host_n_wk(state)).to(
+                self.device)
         ctx.metrics.update(self._quality.evaluate(
-            state.n_wk, state.n_k, int(state.iteration)))
+            n_wk, state.n_k, int(state.iteration)))
         return state
 
     def _telemetry_action(self, ctx: ActionContext, state: CGSState):
-        self.telemetry.record_iteration(self.plan, state,
+        view = state
+        if isinstance(self.plan, MeshPlan):
+            # the record reads the whole padded matrices, as the
+            # reference's global arrays, alike on every rank
+            n_wk, n_kd = self.plan.global_counts(state)
+            view = state._replace(n_wk=n_wk, n_kd=n_kd)
+        self.telemetry.record_iteration(self.plan, view,
                                         int(state.iteration), ctx.metrics)
         return state
 
@@ -606,8 +964,10 @@ class TrainSession:
         from repro_torch.core.hyper import optimize_hyper
 
         cfg = self.cfg
+        n_kd = self.plan.host_n_kd(state) if isinstance(
+            self.plan, MeshPlan) else state.n_kd.cpu().numpy()
         new_hyper = optimize_hyper(
-            self.hyper, state.n_kd.cpu().numpy(),
+            self.hyper, n_kd,
             update_alpha=cfg.hyper_alpha,
             beta_anneal=cfg.hyper_beta_anneal,
             beta_floor=cfg.hyper_beta_floor,
@@ -623,8 +983,9 @@ class TrainSession:
 
     # -- elastic training checkpoints ---------------------------------------
     def _save_train_ckpt(self, state: CGSState) -> None:
-        self._train_ckpt.save(int(state.iteration),
-                              self.plan.checkpoint_tree(state), {})
+        tree = self.plan.checkpoint_tree(state)  # a collective on a mesh
+        if self.is_writer:
+            self._train_ckpt.save(int(state.iteration), tree, {})
 
     def _maybe_restore(self, state: CGSState) -> CGSState:
         if self._train_ckpt is None:

@@ -524,7 +524,29 @@ def test_serve_cli_autopilot_lines_equal_reference(tmp_path, monkeypatch,
 
     assert shapes(got) == shapes(ref) and len(shapes(got)) == 2
     assert any(r["kind"] == "serve_window" for r in read_jsonl(str(path)))
-    assert tserve.main(args + ["--device", "cpu", "--replicas", "2"]) == 2
-    assert tserve.main(args + ["--device", "cpu", "--mesh-shape",
-                               "1,2"]) == 2
+    # replicas (item 7) serve behind the router, with the reference's
+    # lines; the router's fleet records ride on replica 0's telemetry
+    path.unlink()
+    monkeypatch.setattr(sys, "argv", ["serve_lda"] + args
+                        + ["--replicas", "2"])
+    jserve.main()
+    ref = capsys.readouterr().out.splitlines()
+    path.unlink()
+    assert tserve.main(args + ["--device", "cpu", "--replicas", "2"]) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert shapes(got) == shapes(ref) and len(shapes(got)) == 2
+    assert any(r["kind"] == "router_load" for r in read_jsonl(str(path)))
+    # sharded serving does not run in latency mode, in either package;
+    # in throughput mode it serves and prints its layout
+    monkeypatch.setattr(sys, "argv", ["serve_lda"] + args
+                        + ["--mesh-shape", "1,2"])
+    with pytest.raises(ValueError, match="latency mode"):
+        jserve.main()
+    with pytest.raises(ValueError, match="latency mode"):
+        tserve.main(args + ["--device", "cpu", "--mesh-shape", "1,2"])
+    capsys.readouterr()
+    assert tserve.main(args[:args.index("--mode")] + args[
+        args.index("--mode") + 2:] + ["--device", "cpu", "--mesh-shape",
+                                      "1,2"]) == 0
+    assert "sharded: 2 word shards" in capsys.readouterr().out
 

@@ -1037,3 +1037,110 @@ def test_quality_and_telemetry_leave_a_card_run_bit_identical(cuda,
     assert all(np.isfinite(m["coherence_npmi"]) for m in mb)
     assert [r["iteration"] for r in read_jsonl(str(tmp_path / "m.jsonl"))
             if r["kind"] == "train_iter"] == [1, 2, 3]
+
+
+@pytest.mark.parametrize("t,k,w,d,row0", [(8192, 1000, 20000, 40, 1000),
+                                          (333, 37, 50, 3, 0)])
+def test_training_kernels_token_index_equals_row_offset_on_card(
+        cuda, t, k, w, d, row0):
+    """Kernels 1-2 with a per-token index ``row0 + t`` draw what their
+    index-free launch at ``row_offset=row0`` draws (every draw kept)."""
+    a = _train_inputs(cuda, t + k + 1, t, k, w, d)
+    args = (a["n_wk"], a["n_kd"], a["word"], a["doc"], a["z"], a["alpha"],
+            a["n_k"], 777)
+    kw = dict(beta=0.01, w_beta=w * 0.01)
+    index = torch.arange(row0, row0 + t, dtype=torch.int32, device=cuda)
+    rows = (a["n_wk"][a["word"].long()].contiguous(),
+            a["n_kd"][a["doc"].long()].contiguous())
+    before = ops.launch_counts()
+    fused = ops.zen_fused_sample(*args, row_offset=row0, **kw)
+    fused_i = ops.zen_fused_sample(*args, token_index=index, **kw)
+    gathered = ops.zen_sample(*rows, a["z"], a["alpha"], a["n_k"], 777,
+                              row_offset=row0, **kw)
+    gathered_i = ops.zen_sample(*rows, a["z"], a["alpha"], a["n_k"], 777,
+                                token_index=index, **kw)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["zen_fused_sample"] == before["zen_fused_sample"] + 2
+    assert after["zen_sample"] == before["zen_sample"] + 2
+    assert torch.equal(fused_i, fused) and torch.equal(gathered_i, gathered)
+    assert torch.equal(fused, gathered)
+
+
+def test_training_kernels_permuted_tokens_permute_the_draws_on_card(cuda):
+    """Tokens launched in the order pi with index pi draw, each, what it
+    draws at its own place: a mesh cell's reordered tokens keep the single
+    box's draws."""
+    t, k, w, d = 6000, 300, 5000, 30
+    a = _train_inputs(cuda, 99, t, k, w, d)
+    kw = dict(beta=0.01, w_beta=w * 0.01)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    pi = torch.randperm(t, generator=g, device=cuda)
+    base = ops.zen_fused_sample(a["n_wk"], a["n_kd"], a["word"], a["doc"],
+                                a["z"], a["alpha"], a["n_k"], 4242, **kw)
+    p = pi.long()
+    pi32 = pi.to(torch.int32).contiguous()
+    fused = ops.zen_fused_sample(
+        a["n_wk"], a["n_kd"], a["word"][p].contiguous(),
+        a["doc"][p].contiguous(), a["z"][p].contiguous(), a["alpha"],
+        a["n_k"], 4242, token_index=pi32, **kw)
+    gathered = ops.zen_sample(
+        a["n_wk"][a["word"][p].long()].contiguous(),
+        a["n_kd"][a["doc"][p].long()].contiguous(), a["z"][p].contiguous(),
+        a["alpha"], a["n_k"], 4242, token_index=pi32, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, base[p]) and torch.equal(gathered, base[p])
+
+
+_NCCL_WORLD_OF_ONE = """
+import os, tempfile
+import torch, torch.distributed as dist
+from repro_torch.core.types import LDAHyperParams
+from repro_torch.data.corpus import synthetic_corpus
+from repro_torch.kernels import ops
+from repro_torch.train.session import RunConfig, TrainSession
+
+dev = torch.device("cuda", 0)
+rdv = os.path.join(tempfile.mkdtemp(), "rdv")
+dist.init_process_group("nccl", init_method="file://" + rdv, rank=0,
+                        world_size=1, device_id=dev)
+corpus = synthetic_corpus(0, num_docs=300, num_words=2000, avg_doc_len=60)
+hyper = LDAHyperParams(num_topics=64)
+runs = {}
+for shape, kernels in ((None, "auto"), ((1, 1), "auto"), ((1, 1), "off")):
+    sess = TrainSession(corpus, hyper, RunConfig(
+        algorithm="zen_pallas", mesh_shape=shape, exclusion_start=2,
+        kernels=kernels), device=dev)
+    st = sess.init(0)
+    ops.reset_launch_counts()
+    for _ in range(3):
+        st = sess.step(st)
+    runs[shape, kernels] = (sess, st, ops.launch_counts())
+sb, a, ca = runs[None, "auto"]
+for kernels, kernel, merges in (("auto", "zen_fused_sample", 6),
+                                ("off", "zen_sample", 0)):
+    mesh, b, cb = runs[(1, 1), kernels]
+    assert mesh.plan.comm.backend == "nccl"
+    mesh.plan.check_invariants(b)
+    assert (mesh.plan.corpus_topics(b) == a.topic.cpu().numpy()).all()
+    assert (mesh.plan.host_n_wk(b) == a.n_wk.cpu().numpy()).all()
+    assert (mesh.plan.host_n_kd(b) == a.n_kd.cpu().numpy()).all()
+    assert torch.equal(a.n_k, b.n_k) and sb.llh(a) == mesh.llh(b)
+    assert cb[kernel] == 3 and cb["topic_histogram"] == merges, cb
+    assert sum(cb.values()) == 3 + merges, cb
+assert ca == runs[(1, 1), "auto"][2], ca
+dist.destroy_process_group()
+print("NCCL_WORLD_OF_ONE_OK")
+"""
+
+
+def test_world_of_one_under_nccl_equals_the_single_box_on_card(cuda):
+    """A (1, 1) mesh under NCCL, through the fused kernel and (with
+    ``kernels="off"``) the gathered one with the plain merge, draws what
+    the single box draws."""
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run([sys.executable, "-c", _NCCL_WORLD_OF_ONE],
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": src})
+    assert "NCCL_WORLD_OF_ONE_OK" in proc.stdout, \
+        proc.stdout + proc.stderr[-4000:]

@@ -367,14 +367,25 @@ def test_serve_config_json_loads_in_both_packages():
     ("mesh_shape", (1, 2)), ("metrics_out", "m.jsonl"), ("autopilot", True),
     ("autopilot_window", 8)])
 def test_unported_features_are_refused(field, value, tmp_path):
-    """Sharded serving (``mesh_shape``, item 7) is refused. Telemetry and
-    the autopilot (item 5) are ported: the engine takes their fields, as
-    the reference's does, builds the same hooks and serves."""
+    """Every field that once waited is ported. Sharded serving
+    (``mesh_shape``, item 7) serves the reference's theta shape and the
+    unsharded engine's thetas bit for bit; telemetry and the autopilot
+    (item 5): the engine takes their fields, as the reference's does,
+    builds the same hooks and serves."""
     n_wk, n_k = _sharp()
     jm, tm = _both(n_wk, n_k, JHyper(num_topics=4))
     if field == "mesh_shape":
-        with pytest.raises(ValueError, match="not ported"):
-            LDAEngine(tm, LDAServeConfig(**{field: value}))
+        eng = LDAEngine(tm, LDAServeConfig(**{field: value}))
+        ref = JEngine(jm, JConfig())
+        doc = np.arange(10, 20)
+        theta = eng.infer_batch([doc], key=3)[0]
+        assert theta.shape == ref.infer_batch([doc])[0].shape
+        assert eng.model.num_shards == 2
+        np.testing.assert_array_equal(
+            theta, LDAEngine(tm, LDAServeConfig()).infer_batch(
+                [doc], key=3)[0])
+        assert abs(float(theta.sum()) - 1) < 1e-5 \
+            and int(np.argmax(theta)) == 1
         return
     if field == "metrics_out":
         value = str(tmp_path / value)

@@ -56,6 +56,7 @@ from repro_torch.data.stream import (
 from repro_torch.serving import (
     FrozenLDAModel,
     LDAEngine,
+    LDARouter,
     LDAServeConfig,
     docs_from_corpus,
 )
@@ -1026,7 +1027,9 @@ def test_train_stream_and_serve_follow_run_on_cpu(tmp_path, capsys,
 
     n_wk, n_k, hyper, _meta, step = load_lda_model(live)
     assert step == 6
-    real_watch, real_load = LDAEngine.watch_checkpoint_dir, \
+    # serve_lda serves through the router (as the reference's does), whose
+    # one watcher follows the directory for the fleet
+    real_watch, real_load = LDARouter.watch_checkpoint_dir, \
         tckpt.load_lda_model
     polls = []
 
@@ -1044,7 +1047,7 @@ def test_train_stream_and_serve_follow_run_on_cpu(tmp_path, capsys,
 
     monkeypatch.setattr(tckpt, "load_lda_model", counted_load)
 
-    monkeypatch.setattr(LDAEngine, "watch_checkpoint_dir", watch_then_commit)
+    monkeypatch.setattr(LDARouter, "watch_checkpoint_dir", watch_then_commit)
     assert serve_lda.main(
         ["--checkpoint-dir", live, "--device", "cpu", "--follow",
          "--watch-period", "0.05", "--rounds", "20",

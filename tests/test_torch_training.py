@@ -536,22 +536,24 @@ def test_run_config_json_round_trips_between_packages():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mesh_shape", (2, 2), "item 7"), ("window_docs", 64, "item 6"),
+    ("mesh_shape", (1, 1), "item 7"), ("window_docs", 64, "item 6"),
     ("stream_source", "replay", "item 6"),
     ("metrics_out", "m.jsonl", "item 5"), ("autopilot", True, "item 5"),
     ("quality_every", 2, "item 5"), ("algorithm", "zen_cdf", "item 4"),
     ("algorithm", "std", "item 1")])
 def test_unported_run_config_fields_are_refused(field, value, item,
                                                 tmp_path):
-    """Fields the port has not reached are refused naming their ROADMAP
-    item: only ``mesh_shape`` (item 7) is left. The two backends that once
-    waited (``zen_cdf``, item 4; ``std``, item 1) and the streaming fields
-    (``window_docs``, ``stream_source``, item 6) are ported: their
-    reference RunConfig JSON loads in both packages and trains in
-    ``TrainSession``, which ignores the streaming fields, as the
-    reference's does. So are item 5's telemetry, autopilot and quality
-    fields: a session takes them, builds the reference's schedule for them
-    and trains with them on."""
+    """Every field that once waited for a ROADMAP item is ported. The mesh
+    plan (``mesh_shape``, item 7) trains a (1, 1) mesh in this process (a
+    world of one) and its checkpoint tree and model have the shapes of
+    the reference's mesh plan on the same corpus. The two backends that
+    once waited (``zen_cdf``, item 4; ``std``, item 1) and the streaming
+    fields (``window_docs``, ``stream_source``, item 6): their reference
+    RunConfig JSON loads in both packages and trains in ``TrainSession``,
+    which ignores the streaming fields, as the reference's does. So are
+    item 5's telemetry, autopilot and quality fields: a session takes
+    them, builds the reference's schedule for them and trains with them
+    on."""
     (jc, _, jh), (tc, _, th) = _corpus_state(12)
     if field == "metrics_out":
         value = str(tmp_path / value)
@@ -573,6 +575,23 @@ def test_unported_run_config_fields_are_refused(field, value, item,
             from repro_torch.observe.metrics import read_jsonl
 
             assert [r["iteration"] for r in read_jsonl(value)] == [1, 2]
+        return
+    if field == "mesh_shape":
+        cfg = dataclasses.replace(cfg, num_iterations=2)
+        sess = TrainSession(tc, th, cfg, device="cpu")
+        jsess = JSession(jc, jh, dataclasses.replace(ref, num_iterations=2))
+        assert sess.schedule.names() == jsess.schedule.names()
+        assert sess.cfg.sampling_method == jsess.cfg.sampling_method
+        st = sess.run(0)
+        jst = jsess.run(jax.random.key(0))
+        sess.plan.check_invariants(st)
+        assert int(st.iteration) == int(jst.iteration) == 2
+        tree, jtree = (sess.plan.checkpoint_tree(st),
+                       jsess.plan.checkpoint_tree(jst))
+        assert tree["topic"].shape == np.asarray(jtree["topic"]).shape
+        assert [a.shape for a in sess.plan.model_arrays(st)] == \
+            [a.shape for a in jsess.plan.model_arrays(jst)]
+        assert sess.llh(st) < 0 and 0 < sess.metrics(st)["change_rate"] < 1
         return
     if field in ("algorithm", "window_docs", "stream_source"):
         port = RunConfig.from_json(ref.to_json())
@@ -605,9 +624,22 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CGSState.from_numpy({"topic": np.zeros(4, np.int32),
                              "rng": np.zeros(2, np.uint32)})
-    for argv in (["--algorithm", "zen"],
-                 ["--single-box", "--algorithm", "zen", "--rows", "2"]):
-        assert train.main(argv + ["--device", "cpu"]) == 2, argv
+    # the mesh plan is ported: without --single-box a 1x1 mesh trains in
+    # this process, a 2x2 one needs 4 ranks (exit 2 without them, as a
+    # mismatched mesh fails in the reference), and --single-box ignores
+    # --rows
+    mesh_tiny = ["--iters", "1", "--topics", "4", "--synthetic-docs", "5",
+                 "--synthetic-words", "9", "--device", "cpu"]
+    for argv, code, line in (
+            (["--algorithm", "zen", "--rows", "1", "--cols", "1"], 0,
+             "mesh 1x1  tokens="),
+            (["--single-box", "--algorithm", "zen", "--rows", "2"], 0,
+             "single-box  algorithm=zen "),
+            (["--algorithm", "zen"], 2, None)):
+        capsys.readouterr()
+        assert train.main(argv + mesh_tiny) == code, argv
+        if line is not None:
+            assert line in capsys.readouterr().out, argv
     # item 5's flags are ported: each trains on the CPU
     tiny = ["--single-box", "--algorithm", "zen", "--iters", "2", "--topics",
             "4", "--synthetic-docs", "5", "--synthetic-words", "9",
