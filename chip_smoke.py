@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its mesh plan,
-sharded serving and router on one CUDA card, and check them.
+sharded serving and router, the compare CLI and the examples on one CUDA
+card, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -223,7 +224,28 @@ Phases, each printing one JSON line:
    key the single engine derives for it: the same digest, both replicas
    at work, docs/sec; then a broadcast ``reload`` (the same counts, a
    new version) while the first admissions decode: nothing dropped,
-   every ticket on the version it was admitted under, the digest again.
+   every ticket on the version it was admitted under, the digest again;
+21. configs (runs first, after the device line) — NYTIMES's W, K, D and
+   mean document length from ``repro_torch.configs``
+   (``get_config("zenlda-nytimes")``; every phase reads its widths from
+   there), the NYTIMES and WEBCHUNK records and their ``tokens_per_step``;
+22. compare (runs after mesh_four) — ``repro_torch.launch.compare.main``
+   with ``--sessions`` on two RunConfig JSONs, ``zen_pallas`` and
+   ``zen_cdf`` (max_kd 64), 3 iterations each, ``--topics 1000
+   --synthetic-docs 299752 --synthetic-words 101636 --synthetic-len 332
+   --eval-every 1`` and the train cell's seed: the train cell's corpus and
+   init, so its printed llh of iterations 1-3 must equal
+   ``RECORD["train"]`` and ``RECORD["train_cdf"]`` at the table's
+   precision; each session's wall seconds and launches (kernels 2 and 5,
+   kernels 7 and 5) are recorded and checked;
+23. examples — ``examples/quickstart_torch.py`` (the llh rises at every
+   eval, counts conserved), ``examples/distributed_lda_torch.py --devices
+   4`` (four gloo ranks sharing the card, in a process of their own:
+   ``count conservation: True``) and ``examples/train_nytimes_lda_torch.py``
+   at its default size, 100 iterations straight and 50 then resumed to 100
+   (the topics' SHA-256 equal), each on its default device, the card;
+   wall seconds of each; kernel 5 on every step of the two in-process
+   examples (``zen``) and no other kernel.
 
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
@@ -234,8 +256,8 @@ launch with index pi permutes them, and both are timed.
 
 Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
 with its launches on its own path and on the stream, quality,
-train_autopilot, serve_autopilot, mesh_one, mesh_four, sharded_serve
-and router phases'), the
+train_autopilot, serve_autopilot, mesh_one, mesh_four, sharded_serve,
+router, compare and examples phases'), the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
 non-zero, before any result, when no CUDA device is present, when the
 repository's ``src/`` is missing, or when any check fails.
@@ -245,6 +267,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -253,8 +276,9 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-W_NYT, K_NYT = 101_636, 1000  # src/repro/configs/zenlda.py NYTIMES
-D_NYT, LEN_NYT = 299_752, 332  # NYTIMES documents, mean tokens per doc
+# NYTIMES's words, topics, documents and mean tokens per document: set by
+# the configs phase from repro_torch.configs (zenlda-nytimes)
+W_NYT = K_NYT = D_NYT = LEN_NYT = None
 SLOTS, BUCKET = 32, 512
 N_DOCS = 256
 TRAIN_ITERS, SMALL_DOCS, SMALL_ITERS = 5, 4096, 3
@@ -298,6 +322,12 @@ MESH_FOUR_SHAPE = (2, 2)
 MESH_LLH_RTOL = 1e-12  # mesh_one's llh vs RECORD (expected: equal)
 MESH_SERVE_SHARDS = (2, 4)
 ROUTER_REPLICAS = 2
+# the compare phase: compare --sessions at NYTIMES width, zen_pallas
+# against zen_cdf, 3 iterations each with an eval after every one
+COMPARE_ITERS = 3
+# the examples phase: train_nytimes_lda_torch straight for NYT_EX_ITERS
+# iterations, and stopped at half of them then resumed
+NYT_EX_ITERS = 100
 # The training phases' records, as this script measured them before
 # kernels 5 and 7 were redesigned (NVIDIA H100 80GB HBM3, 700 W; equal in
 # four runs of that tree): no kernel redesign may change them, since every
@@ -960,6 +990,8 @@ def main() -> int:
           "max_sm_clock_hz": sm_clock_hz, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    phase_configs()
+
     t0 = time.perf_counter()
     log = _build.build()
     ptxas = [ln.strip() for ln in log.splitlines()
@@ -1052,6 +1084,8 @@ def main() -> int:
     # -- training: kernels, the full NYTIMES run, the three backends ------
     train_rows, train_launches, by_phase = run_training(
         args.seed, dev, props, smi, sm_clock_hz)
+    by_phase["compare"] = phase_compare(args.seed, smi)
+    by_phase["examples"] = phase_examples(smi)
     launches.update(train_launches)
     by_phase["serve_autopilot"] = {
         "zen_fused_infer_sample": serve_autopilot_launches}
@@ -1073,6 +1107,25 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def phase_configs() -> None:
+    """NYTIMES's widths from the port's config registry (the paper's
+    configs): every phase reads them from here."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, list_archs
+
+    global W_NYT, K_NYT, D_NYT, LEN_NYT
+    nyt = get_config("zenlda-nytimes")
+    web = get_config("zenlda-webchunk")
+    W_NYT, K_NYT = nyt.num_words, nyt.num_topics
+    D_NYT, LEN_NYT = nyt.docs_per_step, nyt.avg_doc_len
+    emit({"phase": "configs", "archs": list_archs(),
+          "nytimes": dataclasses.asdict(nyt),
+          "nytimes_tokens_per_step": nyt.tokens_per_step,
+          "webchunk": dataclasses.asdict(web),
+          "webchunk_tokens_per_step": web.tokens_per_step})
 
 
 def sass_function(kernel: str, source: str):
@@ -3839,6 +3892,212 @@ def phase_router(model, base, docs, seed: int, smi):
                    {"zen_fused_infer_sample":
                     counts["zen_fused_infer_sample"] or -1})
     return counts
+
+def _example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _captured(fn, *args):
+    """``fn(*args)``'s result and standard output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_compare(seed: int, smi):
+    """``python -m repro_torch.launch.compare --sessions`` at NYTIMES
+    width on the card: ``zen_pallas`` against ``zen_cdf`` (max_kd
+    CDF_MAX_KD), 3 iterations each, an eval after every one, on the corpus
+    and seed of the train cell. Its printed llh must equal
+    ``RECORD["train"]`` and ``RECORD["train_cdf"]`` for iterations 1-3 at
+    the table's precision; each session's wall seconds and launches
+    (kernels 2, 5 and 7) are recorded. Returns the phase's launches."""
+    import torch
+
+    from repro_torch.algorithms.zen_cdf import CDF_CHUNK_ELEMS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compare
+    from repro_torch.train import session as session_mod
+
+    out_dir = ROOT / "build" / "chip_smoke_compare"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    configs = {"zen_pallas": {"algorithm": "zen_pallas",
+                              "num_iterations": COMPARE_ITERS},
+               "zen_cdf": {"algorithm": "zen_cdf", "max_kd": CDF_MAX_KD,
+                           "num_iterations": COMPARE_ITERS}}
+    paths = []
+    for name, cfg in configs.items():
+        path = out_dir / f"{name}.json"
+        path.write_text(json.dumps(cfg))
+        paths.append(str(path))
+    sessions = []
+    run = session_mod.TrainSession.run
+
+    def timed_run(self, *a, **k):
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        st = run(self, *a, **k)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        sessions.append({
+            "algorithm": self.cfg.algorithm, "tokens": self.plan.num_tokens,
+            "seconds": time.perf_counter() - t0,
+            "launches": {n: after[n] - before[n] for n in after
+                         if after[n] - before[n]}})
+        return st
+
+    argv = ["--sessions", *paths, "--topics", str(K_NYT),
+            "--synthetic-docs", str(D_NYT), "--synthetic-words", str(W_NYT),
+            "--synthetic-len", str(LEN_NYT), "--eval-every", "1",
+            "--seed", str(seed)]
+    torch.cuda.empty_cache()
+    session_mod.TrainSession.run = timed_run
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        runs, table = _captured(compare.main, argv)
+    finally:
+        session_mod.TrainSession.run = run
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rows = [line.strip("|").split("|") for line in table.splitlines()
+            if line.startswith("| ") and not line.startswith("| iter |")]
+    rows = [[c.strip() for c in r] for r in rows]
+    want = [[str(it), f"{RECORD['train']['llh'][it]:.1f}",
+             f"{RECORD['train_cdf']['llh'][it]:.1f}"]
+            for it in range(1, COMPARE_ITERS + 1)]
+    llh = {name: [m["llh"] for m in runs[p]] for name, p in zip(configs,
+                                                                paths)}
+    emit({"phase": "compare", "argv": argv[3:], "table": table.splitlines(),
+          "seconds": wall, "sessions": sessions, "llh": llh,
+          "llh_equal_to_record": {
+              "zen_pallas": llh["zen_pallas"] == RECORD["train"]["llh"][
+                  1:COMPARE_ITERS + 1],
+              "zen_cdf": llh["zen_cdf"] == RECORD["train_cdf"]["llh"][
+                  1:COMPARE_ITERS + 1]},
+          "launches": counts, "card": smi})
+    check([r[:3] for r in rows] == want,
+          f"compare: the printed llh {[r[:3] for r in rows]} differ from "
+          f"RECORD's {want}")
+    check([r["algorithm"] for r in sessions] == list(configs),
+          f"compare: sessions ran {[r['algorithm'] for r in sessions]}")
+    # kernel 2 once a sweep, kernel 5 twice a step (the delta merge),
+    # kernel 7 twice a token chunk
+    chunks = -(-sessions[1]["tokens"] // (CDF_CHUNK_ELEMS // CDF_MAX_KD))
+    for r, want_launches in zip(sessions, (
+            {"zen_fused_sample": COMPARE_ITERS,
+             "topic_histogram": 2 * COMPARE_ITERS},
+            {"cdf_row_search": 2 * chunks * COMPARE_ITERS,
+             "topic_histogram": 2 * COMPARE_ITERS})):
+        check_launches(f"compare {r['algorithm']}", r["launches"],
+                       want_launches)
+    return counts
+
+
+def phase_examples(smi):
+    """The three examples of the port at their own sizes, each on its
+    default device (the card): quickstart (the llh rises at every eval,
+    counts conserved); distributed_lda --devices 4 (four gloo ranks
+    sharing the card, in a process of their own: ``count conservation:
+    True``); train_nytimes_lda at its default NYTimes-shaped size, straight
+    for NYT_EX_ITERS iterations, then stopped at half and resumed: the two
+    final topic arrays' SHA-256 must be equal. Wall seconds of each;
+    returns the launches of the runs in this process."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    out_dir = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    record = {"phase": "examples", "card": smi}
+    ops.reset_launch_counts()
+
+    t0 = time.perf_counter()
+    (sess, st, evals), out = _captured(_example("quickstart_torch").main, [])
+    torch.cuda.synchronize()
+    quick_s = time.perf_counter() - t0
+    quick_counts = ops.launch_counts()
+    llh0 = float(out.split("llh0 = ")[1].split()[0])
+    llh = [llh0] + [m["llh"] for m in evals]
+    st.check_invariants(sess.corpus)
+    record["quickstart"] = {"seconds": quick_s, "llh": llh,
+                            "device": str(sess.device),
+                            "launches": quick_counts}
+    check(sess.device.type == "cuda", "quickstart: not on the card")
+    check(len(evals) == 3 and all(b > a for a, b in zip(llh, llh[1:])),
+          f"quickstart: llh did not rise at every eval: {llh}")
+    del sess, st
+
+    code = ("import importlib.util, sys; spec = importlib.util."
+            "spec_from_file_location('ex', sys.argv[1]); "
+            "m = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(m); m.main(['--devices', '4'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", code,
+         str(ROOT / "examples" / "distributed_lda_torch.py")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    record["distributed"] = {"seconds": time.perf_counter() - t0,
+                             "returncode": res.returncode,
+                             "stdout": res.stdout.splitlines()}
+    check(res.returncode == 0 and "(gloo, cuda)" in res.stdout
+          and "count conservation: True" in res.stdout,
+          f"distributed_lda_torch: rc {res.returncode}, stdout "
+          f"{res.stdout[-2000:]}, stderr {res.stderr[-2000:]}")
+
+    nyt = _example("train_nytimes_lda_torch")
+    half = NYT_EX_ITERS // 2
+    runs = {}
+    for name, iters, ckpt in (("straight", NYT_EX_ITERS, "a"),
+                              ("stop", half, "b"),
+                              ("resume", NYT_EX_ITERS, "b")):
+        t0 = time.perf_counter()
+        (s, state), out = _captured(
+            nyt.main, ["--iters", str(iters), "--ckpt", str(out_dir / ckpt)])
+        torch.cuda.synchronize()
+        runs[name] = {
+            "seconds": time.perf_counter() - t0,
+            "iteration": int(state.iteration),
+            "topic_sha256": hashlib.sha256(
+                state.topic.cpu().numpy().tobytes()).hexdigest(),
+            "last_line": [ln for ln in out.splitlines()
+                          if ln.startswith("iter")][-1],
+            "resumed": "resumed from iteration" in out}
+        state.check_invariants(s.corpus)
+        del s, state
+    counts = ops.launch_counts()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    record["train_nytimes"] = {"iterations": NYT_EX_ITERS, "runs": runs}
+    record["launches"] = counts
+    emit(record)
+    check(runs["resume"]["resumed"] and runs["stop"]["iteration"] == half
+          and runs["resume"]["iteration"] == NYT_EX_ITERS,
+          f"train_nytimes_lda_torch: the stop and resume runs: {runs}")
+    check(runs["resume"]["topic_sha256"] == runs["straight"]["topic_sha256"],
+          "train_nytimes_lda_torch: the resumed run's topics differ from "
+          "the straight run's")
+    # both examples train on zen (plain torch): kernel 5 on every step's
+    # delta merge, twice, and no other kernel
+    check_launches("examples", counts,
+                   {"topic_histogram": 2 * (30 + 2 * NYT_EX_ITERS)})
+    return counts
+
 
 
 if __name__ == "__main__":

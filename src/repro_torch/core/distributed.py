@@ -215,18 +215,20 @@ def cell_data(grid: GridPartition, cell: int, device) -> DistLDAData:
 
 def _compress_all_reduce(delta: torch.Tensor, comm: MeshComm, axis: str,
                          dtype: str) -> torch.Tensor:
-    """Width-compressed all-reduce (§5.2): the reference clips each delta
-    to the narrow type, sums in it and widens. int8 ships int8. Neither
-    NCCL nor gloo sums int16, so int16 sums its clipped values in int32 and
-    wraps the sum to int16: the reference's integers at int32 payload. Any
-    clipped residue is left for the periodic exact rebuild."""
+    """Width-compressed all-reduce (§5.2) as the reference's step does it:
+    each rank's delta is built in the narrow type (its scatter-adds wrap
+    modulo 2^8 or 2^16, they do not saturate), summed in it (wrapping
+    again) and widened, so the result is the exact sum wrapped to the
+    narrow type. int8 ships int8. Neither NCCL nor gloo sums int16, so
+    int16 sums its wrapped values in int32 and wraps the sum: the
+    reference's integers at int32 payload. Whatever the wrap lost is left
+    for the periodic exact rebuild."""
     if dtype == "int32":
         return comm.all_reduce(delta, axis)
-    info = torch.iinfo(torch.int16 if dtype == "int16" else torch.int8)
-    small = torch.clamp(delta, info.min, info.max)
     if dtype == "int8":
-        return comm.all_reduce(small.to(torch.int8), axis).to(torch.int32)
-    return comm.all_reduce(small, axis).to(torch.int16).to(torch.int32)
+        return comm.all_reduce(delta.to(torch.int8), axis).to(torch.int32)
+    wrapped = delta.to(torch.int16).to(torch.int32)
+    return comm.all_reduce(wrapped, axis).to(torch.int16).to(torch.int32)
 
 
 def resolve_dist_row_pads(state: DistLDAState, cfg: DistConfig,

@@ -192,6 +192,17 @@ class CheckpointManager:
             return leaves, manifest["metadata"], step
         return None
 
+    def restore_step(self, step: int) -> Optional[Dict[str, np.ndarray]]:
+        """The named host leaves of committed step ``step``, or None when
+        that step is missing, torn or corrupt."""
+        for s, path in committed_steps(self.directory):
+            if s == step:
+                try:
+                    return _verify_and_load(path)[0]
+                except (IOError, ValueError, KeyError):
+                    return None
+        return None
+
     def restore_latest_named(
         self,
     ) -> Optional[Tuple[Dict[str, np.ndarray], Dict, int]]:

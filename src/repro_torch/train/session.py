@@ -23,7 +23,12 @@ the mesh plan.
   ``autopilot``, ``hyper``, ``merge``, ``eval``, ``quality``,
   ``model_checkpoint``, ``train_checkpoint`` and ``telemetry``; ``run()``
   resumes from the newest elastic training checkpoint, the reference's
-  ``{"topic", "iteration"}`` tree included. Telemetry
+  ``{"topic", "iteration"}`` tree included. With exclusion configured the
+  single box also keeps its exclusion statistics beside that tree (an
+  ``exclusion/`` directory under ``train_checkpoint_dir``, which the
+  reference's restore does not read), so a resumed run draws what the
+  straight run draws; without them they restart at zero, as the
+  reference's do. Telemetry
   (``metrics_out``), the autopilot (``autopilot``) and quality evaluation
   (``quality_every``) are built only when enabled, and read the counts on
   the card; they change no draw.
@@ -155,6 +160,10 @@ class RunConfig:
         if d.get("mesh_shape") is not None:
             d["mesh_shape"] = tuple(int(x) for x in d["mesh_shape"])
         return cls(**d)
+
+
+# the single box's exclusion statistics, beside the reference's tree
+EXCLUSION_CKPT_DIR = "exclusion"
 
 
 def refuse_unported(cfg: RunConfig) -> None:
@@ -341,6 +350,20 @@ class SingleBoxPlan:
         rebuild. The reference's tree, byte for byte."""
         return {"topic": state.topic,
                 "iteration": np.asarray(state.iteration, np.int32)}
+
+    def exclusion_tree(self, state: CGSState) -> Dict[str, Any]:
+        """The exclusion statistics, which the reference's tree does not
+        hold: a resume that reads them back samples the tokens the
+        straight run samples."""
+        return {"same_count": state.same_count,
+                "stale_iters": state.stale_iters}
+
+    def restore_exclusion(self, state: CGSState, tree) -> CGSState:
+        stats = {k: torch.as_tensor(np.asarray(tree[k], np.int32)).to(
+            self.device) for k in ("same_count", "stale_iters")}
+        if any(v.shape != state.topic.shape for v in stats.values()):
+            raise ValueError("exclusion statistics of another corpus")
+        return dataclasses.replace(state, **stats)
 
     def restore(self, state: CGSState, tree) -> CGSState:
         topic = torch.as_tensor(np.asarray(tree["topic"], np.int32)).to(
@@ -726,11 +749,15 @@ class TrainSession:
                                                         cfg)
         self.schedule = self._build_schedule()
         self._last_model_save: Optional[int] = None
-        self._train_ckpt = None
+        self._train_ckpt = self._excl_ckpt = None
         if cfg.train_checkpoint_dir:
             from repro_torch.train.checkpoint import CheckpointManager
 
             self._train_ckpt = CheckpointManager(cfg.train_checkpoint_dir)
+            if cfg.exclusion_start > 0 and isinstance(self.plan,
+                                                      SingleBoxPlan):
+                self._excl_ckpt = CheckpointManager(os.path.join(
+                    cfg.train_checkpoint_dir, EXCLUSION_CKPT_DIR))
 
     @property
     def device(self) -> torch.device:
@@ -872,7 +899,7 @@ class TrainSession:
         if cfg.train_checkpoint_dir and cfg.train_checkpoint_every > 0:
             sched.add(ScheduledAction(
                 "train_checkpoint",
-                lambda ctx, st: (self._save_train_ckpt(st), st)[1],
+                lambda ctx, st: (self.save_train_checkpoint(st), st)[1],
                 every=cfg.train_checkpoint_every,
             ))
         if self.telemetry is not None:
@@ -982,10 +1009,20 @@ class TrainSession:
         return state
 
     # -- elastic training checkpoints ---------------------------------------
-    def _save_train_ckpt(self, state: CGSState) -> None:
+    def save_train_checkpoint(self, state: CGSState) -> None:
+        """Write the elastic training checkpoint of ``state`` (the
+        ``train_checkpoint`` action's save) under
+        ``cfg.train_checkpoint_dir``; the exclusion statistics first,
+        where they are kept, so a committed tree always has them."""
+        if self._train_ckpt is None:
+            raise ValueError("no training checkpoint directory configured")
         tree = self.plan.checkpoint_tree(state)  # a collective on a mesh
         if self.is_writer:
-            self._train_ckpt.save(int(state.iteration), tree, {})
+            step = int(state.iteration)
+            if self._excl_ckpt is not None:
+                self._excl_ckpt.save(step, self.plan.exclusion_tree(state),
+                                     {})
+            self._train_ckpt.save(step, tree, {})
 
     def _maybe_restore(self, state: CGSState) -> CGSState:
         if self._train_ckpt is None:
@@ -993,8 +1030,13 @@ class TrainSession:
         got = self._train_ckpt.restore_latest()
         if got is None:
             return state
-        tree, _meta, _step = got
-        return self.plan.restore(state, tree)
+        tree, _meta, step = got
+        state = self.plan.restore(state, tree)
+        stats = (self._excl_ckpt.restore_step(step)
+                 if self._excl_ckpt is not None else None)
+        if stats is not None:
+            state = self.plan.restore_exclusion(state, stats)
+        return state
 
     # -- the loop ------------------------------------------------------------
     def run(self, rng=None, state: Optional[CGSState] = None,
@@ -1025,7 +1067,7 @@ class TrainSession:
         if cfg.checkpoint_dir and self._last_model_save != int(state.iteration):
             self.save_model(state)
         if self._train_ckpt is not None and ctx.stop:
-            self._save_train_ckpt(state)
+            self.save_train_checkpoint(state)
         return state
 
     def _install_signals(self, ctx: ActionContext):

@@ -16,7 +16,12 @@ JAX package's mesh.
 * Rebuild counts equal the reference's ``init_dist_state`` from the same
   grid-layout topics (bit for bit); the dist llh is within 1e-6
   relative of the reference's ``make_dist_llh``.
-* int16 / int8 reductions equal the clipped sum in the narrow type.
+* int16 / int8 reductions equal the exact sum wrapped to the narrow type,
+  as the reference's step builds and sums its deltas (it wraps; it does
+  not saturate). An int8 run whose deltas pass 127 drifts from the
+  counts of its topics by multiples of 256 until the ``rebuild_every``
+  rebuild, equals them after it, in both packages, and ends within the
+  reference's band of the reference's own int8 run.
 * Elastic restore (2, 2) -> (1, 4), (4, 1); a reference mesh checkpoint
   restores into the port's ``MeshPlan`` and the reverse.
 * ``launch.train --rows 2 --cols 2 --host-devices 4 --device cpu``.
@@ -96,6 +101,30 @@ st = sess.run(jax.random.key(0))
 np.savez(os.path.join(out, 'trained.npz'), n_wk=np.asarray(st.n_wk),
          n_kd=np.asarray(st.n_kd), n_k=np.asarray(st.n_k))
 json.dump({{'iterations': 2}}, open(os.path.join(out, 'meta.json'), 'w'))
+from repro.data import synthetic_lda_corpus
+wc, _ = synthetic_lda_corpus(0, **{wrap_corpus!r})
+wsess = TrainSession(wc, LDAHyperParams(**{wrap_hyper!r}), RunConfig(
+    algorithm='zen_dense', sampling_method='gumbel', mesh_shape=(2, 2),
+    delta_dtype='int8', rebuild_every={wrap_rebuild}, eval_every=1,
+    num_iterations={wrap_iters}))
+wg = wsess.plan.grid
+gm = np.asarray(wg.mask)
+gw, gd = np.asarray(wg.word)[gm], np.asarray(wg.doc)[gm]
+drift = []
+def wcb(st, m):
+    z = np.array(st.topic)[gm]
+    n_wk, n_kd = np.array(st.n_wk), np.array(st.n_kd)
+    want_wk, want_kd = np.zeros_like(n_wk), np.zeros_like(n_kd)
+    np.add.at(want_wk, (gw, z), 1)
+    np.add.at(want_kd, (gd, z), 1)
+    drift.append([n_wk - want_wk, n_kd - want_kd,
+                  np.array(st.n_k) - want_wk.sum(0), m['llh']])
+wsess.run(jax.random.key(0), callback=wcb)
+np.savez(os.path.join(out, 'int8_wrap.npz'),
+         drift_wk=np.stack([d[0] for d in drift]),
+         drift_kd=np.stack([d[1] for d in drift]),
+         drift_k=np.stack([d[2] for d in drift]),
+         llh=np.array([d[3] for d in drift]))
 print('REF_WRITE_OK')
 """
 
@@ -117,9 +146,10 @@ def runs(tmp_path_factory):
     base = tmp_path_factory.mktemp("mesh")
     ref = base / "ref"
     ref.mkdir()
-    out = run_with_devices(_REF_WRITE.format(out=str(ref),
-                                             hyper=worker.HYPER),
-                           n_devices=4, timeout=REF_TIMEOUT)
+    out = run_with_devices(_REF_WRITE.format(
+        out=str(ref), hyper=worker.HYPER, wrap_corpus=worker.WRAP_CORPUS,
+        wrap_hyper=worker.WRAP_HYPER, wrap_rebuild=worker.WRAP_REBUILD,
+        wrap_iters=worker.WRAP_ITERS), n_devices=4, timeout=REF_TIMEOUT)
     assert "REF_WRITE_OK" in out
     dirs = {}
     for world in (1, 2, 4):
@@ -232,8 +262,10 @@ def test_rebuild_and_llh_equal_reference(runs):
 @pytest.mark.parametrize("dtype", ["int32", "int16", "int8"])
 @pytest.mark.parametrize("axis", ["data", "model", "all"])
 def test_compressed_reduction_is_the_clipped_sum(runs, dtype, axis):
-    """Each rank's delta clipped to the narrow type, summed in it (wrapping
-    as the reference's ``psum`` does) and widened."""
+    """Each rank's delta in the narrow type, as the reference's step builds
+    it (its scatter-adds wrap: a delta of 130 is -126 in int8, not the
+    saturated 127), summed in it (wrapping as the reference's ``psum``
+    does) and widened: the exact sum wrapped to the narrow type."""
     got = _load(runs, 4, "compressed")
     deltas = got["deltas"]  # (rank, 6, 5)
     ranks = {"data": [0, 2], "model": [0, 1], "all": [0, 1, 2, 3]}[axis]
@@ -241,12 +273,13 @@ def test_compressed_reduction_is_the_clipped_sum(runs, dtype, axis):
         want = deltas[ranks].sum(0)
     else:
         nt = np.dtype(dtype)
-        info = np.iinfo(nt)
-        clipped = np.clip(deltas[ranks], info.min, info.max).astype(nt)
-        want = np.zeros(clipped.shape[1:], nt)
-        for c in clipped:
+        narrow = deltas[ranks].astype(nt)  # wraps, as the scatter-adds do
+        want = np.zeros(narrow.shape[1:], nt)
+        for c in narrow:
             want = (want + c).astype(nt)  # wraps
         want = want.astype(np.int32)
+        assert (want != np.clip(deltas[ranks], np.iinfo(nt).min,
+                                np.iinfo(nt).max).sum(0)).any()
     np.testing.assert_array_equal(got[f"{dtype}_{axis}"], want)
 
 
@@ -257,6 +290,50 @@ def test_compressed_training_conserves_counts(runs, dtype):
     got = _load(runs, 4, f"delta_{dtype}")
     sess, st = one_cell("zen_pallas", got["w_pad"], got["d_pad"], 3)
     _assert_equals_oracle(got, sess, st)
+
+
+def _wrap_drift(got):
+    """(iterations, 3) drift of N_w|k, N_k|d and N_k from the counts of
+    each iteration's topics, per iteration (one numpy ``add.at`` each)."""
+    c = worker.wrap_corpus()
+    word, doc = c.word.numpy(), c.doc.numpy()
+    k = worker.WRAP_HYPER["num_topics"]
+    out = []
+    for z, n_wk, n_kd, n_k in zip(got["topics"], got["n_wk"], got["n_kd"],
+                                  got["n_k"]):
+        want_wk = np.zeros((c.num_words, k), np.int64)
+        want_kd = np.zeros((c.num_docs, k), np.int64)
+        np.add.at(want_wk, (word, z), 1)
+        np.add.at(want_kd, (doc, z), 1)
+        out.append([n_wk - want_wk, n_kd - want_kd, n_k - want_wk.sum(0)])
+    return out
+
+
+def test_int8_mesh_run_drifts_until_the_rebuild(runs):
+    """The int8 run whose head-word deltas pass 127: before each rebuild
+    the counts drift from ``build_counts`` of the topics, by multiples of
+    256 (the wrap); after each rebuild (iterations 4, 8, 12) they equal
+    them; the reference's own int8 run does the same; the final llh (right
+    after a rebuild) is within the reference's band of the reference's."""
+    got = _load(runs, 4, "int8_wrap")
+    ref = np.load(runs["ref"] / "int8_wrap.npz")
+    ref_drift = [[ref["drift_wk"][i], ref["drift_kd"][i], ref["drift_k"][i]]
+                 for i in range(len(ref["llh"]))]
+    rebuilds = [it % worker.WRAP_REBUILD == 0
+                for it in range(1, worker.WRAP_ITERS + 1)]
+    for name, drift in (("port", _wrap_drift(got)), ("reference", ref_drift)):
+        assert len(drift) == worker.WRAP_ITERS, name
+        moved = [any(d.any() for d in it) for it in drift]
+        for it, (d, rebuilt) in enumerate(zip(drift, rebuilds), 1):
+            assert all((x % 256 == 0).all() for x in d), (name, it)
+            if rebuilt:
+                assert not moved[it - 1], (name, it)
+        # a wrap happened in the iterations before a rebuild
+        assert any(m for m, r in zip(moved, rebuilds) if not r), name
+    port_llh, ref_llh = float(got["llh"][-1]), float(ref["llh"][-1])
+    assert abs(port_llh / ref_llh - 1) < LLH_BAND, (port_llh, ref_llh)
+    llh = got["llh"]
+    assert llh[-1] > llh[0]
 
 
 @pytest.mark.parametrize("shape", ["14", "41"])

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import LDAHyperParams
-from repro_torch.data.corpus import synthetic_corpus
+from repro_torch.data.corpus import synthetic_corpus, synthetic_lda_corpus
 from repro_torch.train.session import RunConfig, TrainSession
 
 HYPER = dict(num_topics=8, alpha=0.1, beta=0.05)
@@ -21,6 +21,17 @@ ITERS = 4
 PADS = dict(max_kw=8, max_kd=8)
 OTHER_BACKENDS = ("zen_cdf", "zen_sparse", "zen_hybrid", "sparselda",
                   "lightlda")
+# the int8 run whose deltas leave the narrow range: 39,842 tokens of 30
+# words and 4 planted topics, so a cell's head-word deltas pass 127 once
+# the topics form (from iteration 3 or so); an exact rebuild every 4
+WRAP_CORPUS = dict(num_docs=400, num_words=30, num_topics=4,
+                   avg_doc_len=100)
+WRAP_HYPER = dict(num_topics=4, alpha=0.1, beta=0.05)
+WRAP_ITERS, WRAP_REBUILD = 12, 4
+
+
+def wrap_corpus():
+    return synthetic_lda_corpus(0, **WRAP_CORPUS)[0]
 
 
 def corpus():
@@ -92,6 +103,32 @@ def compressed(out: str) -> None:
               delta_dtype=dtype)
 
 
+def wrapped_deltas(out: str) -> None:
+    """``delta_dtype="int8"`` on :func:`wrap_corpus` with ``rebuild_every``
+    4, through ``TrainSession.run``: every iteration's topics (corpus
+    order), counts (corpus ids) and llh, for the test to hold against
+    ``build_counts`` of the topics and the reference's own int8 run."""
+    sess = TrainSession(wrap_corpus(), LDAHyperParams(**WRAP_HYPER),
+                        RunConfig(algorithm="zen_dense",
+                                  sampling_method="gumbel",
+                                  mesh_shape=(2, 2), delta_dtype="int8",
+                                  rebuild_every=WRAP_REBUILD,
+                                  num_iterations=WRAP_ITERS, eval_every=1),
+                        device="cpu")
+    rec = {k: [] for k in ("topics", "n_wk", "n_kd", "n_k", "llh")}
+
+    def snapshot(st, metrics):
+        plan = sess.plan
+        rec["topics"].append(plan.corpus_topics(st))
+        rec["n_wk"].append(plan.host_n_wk(st))
+        rec["n_kd"].append(plan.host_n_kd(st))
+        rec["n_k"].append(st.n_k.numpy().copy())
+        rec["llh"].append(metrics["llh"])
+
+    sess.run(0, callback=snapshot)
+    save(out, "int8_wrap", **{k: np.stack(v) for k, v in rec.items()})
+
+
 def elastic(out: str) -> None:
     """(2, 2) -> checkpoint tree -> (1, 4) and (4, 1): counts rebuilt
     from the assignments in corpus order, then training continues."""
@@ -152,6 +189,7 @@ def run(out: str, world: int, ref_dir: str = "") -> None:
         train(out, f"backend_{alg}", (2, 2), alg, iters=3, num_mh=2,
               **PADS)
     compressed(out)
+    wrapped_deltas(out)
     elastic(out)
     if ref_dir:
         cross_package(out, ref_dir)
