@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its mesh plan,
-sharded serving and router, the compare CLI and the examples on one CUDA
-card, and check them.
+sharded serving and router, the compare CLI, the examples and the LM
+zoo's serving path on one CUDA card, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -245,7 +245,22 @@ Phases, each printing one JSON line:
    at its default size, 100 iterations straight and 50 then resumed to 100
    (the topics' SHA-256 equal), each on its default device, the card;
    wall seconds of each; kernel 5 on every step of the two in-process
-   examples (``zen``) and no other kernel.
+   examples (``zen``) and no other kernel;
+24. lm_serve (runs last) — the LM zoo's serving path: qwen3-8b from
+   ``repro_torch.configs`` at its published widths and full depth (36
+   layers, d_model 4096, 32 heads, 8 KV heads, d_ff 12,288, vocab
+   151,936), bf16, random weights from the seed; its parameter count
+   equal to the reference's (``LM_PARAMS``); 16 requests of 16-64 prompt
+   tokens and 32 new tokens each through ``ServingEngine`` (8 slots of
+   1,024 positions, greedy), every decode call recorded: the fed tokens
+   are what the engine's admission rule makes of the prompts and outputs,
+   each output the argmax of its own logits, the shared cache length
+   below 1,024, and a replay from a fresh cache emits every token again;
+   tokens/sec, decode-call ms p50/p99 against the weight-read bound, peak
+   memory, a profiled step, no LDA kernel launched. Then prefill + decode
+   == forward at full width with 4 layers in float32, the ten ``-smoke``
+   configs on the card == on the CPU (forward, 8 decode steps, every
+   cache leaf; 1e-4), and ``examples/serve_lm_torch.py`` on the card.
 
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
@@ -257,7 +272,7 @@ launch with index pi permutes them, and both are timed.
 Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
 with its launches on its own path and on the stream, quality,
 train_autopilot, serve_autopilot, mesh_one, mesh_four, sharded_serve,
-router, compare and examples phases'), the
+router, compare, examples and lm_serve phases'), the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
 non-zero, before any result, when no CUDA device is present, when the
 repository's ``src/`` is missing, or when any check fails.
@@ -328,6 +343,15 @@ COMPARE_ITERS = 3
 # the examples phase: train_nytimes_lda_torch straight for NYT_EX_ITERS
 # iterations, and stopped at half of them then resumed
 NYT_EX_ITERS = 100
+# the lm_serve phase: the LM zoo's serving path at qwen3-8b's published
+# widths and full depth in bf16, random weights from the seed
+LM_ARCH = "qwen3-8b"
+LM_PARAMS = 8_191_783_936  # repro.launch.specs.params_abstract's count
+LM_BATCH, LM_MAX_LEN = 8, 1024
+LM_REQUESTS, LM_PROMPT, LM_MAX_NEW = 16, (16, 64), 32
+LM_CHECK_LAYERS = 4  # prefill + decode == forward at full width, float32
+LM_PREFILL_TOL = 2e-3  # the reference's test_prefill_decode_consistency
+LM_SMOKE_STEPS, LM_SMOKE_TOL = 8, 1e-4  # the -smoke configs, card vs CPU
 # The training phases' records, as this script measured them before
 # kernels 5 and 7 were redesigned (NVIDIA H100 80GB HBM3, 700 W; equal in
 # four runs of that tree): no kernel redesign may change them, since every
@@ -1086,6 +1110,7 @@ def main() -> int:
         args.seed, dev, props, smi, sm_clock_hz)
     by_phase["compare"] = phase_compare(args.seed, smi)
     by_phase["examples"] = phase_examples(smi)
+    by_phase["lm_serve"] = phase_lm_serve(args.seed, dev, smi)
     launches.update(train_launches)
     by_phase["serve_autopilot"] = {
         "zen_fused_infer_sample": serve_autopilot_launches}
@@ -4098,6 +4123,369 @@ def phase_examples(smi):
                    {"topic_histogram": 2 * (30 + 2 * NYT_EX_ITERS)})
     return counts
 
+
+def lm_prompts(seed: int, vocab: int):
+    """LM_REQUESTS prompts of LM_PROMPT[0]..LM_PROMPT[1] tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    return [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def lm_expected_calls(prompts, outs, batch: int, max_new: int):
+    """The decode calls the engine's rules make for ``prompts`` (submitted
+    in order) emitting ``outs``: (fed tokens, fresh cache, [(slot,
+    request, output index)] for a generation step or None for an
+    admission call). Admission feeds a prompt token by token over the
+    whole batch; the cache restarts only when every slot is empty."""
+    import numpy as np
+
+    tokens = np.zeros((batch,), np.int32)
+    active = [None] * batch
+    queue = list(range(len(prompts)))
+    emitted = [0] * len(prompts)
+    calls, fresh = [], False
+    while queue or any(a is not None for a in active):
+        for slot in range(batch):
+            if active[slot] is not None or not queue:
+                continue
+            r = queue.pop(0)
+            fresh = fresh or all(a is None for a in active)
+            for t in prompts[r][:-1]:
+                tokens[slot] = t
+                calls.append((tokens.copy(), fresh, None))
+                fresh = False
+            tokens[slot] = prompts[r][-1]
+            active[slot] = r
+        gen = [(s, r, emitted[r]) for s, r in enumerate(active)
+               if r is not None]
+        calls.append((tokens.copy(), fresh, gen))
+        fresh = False
+        for s, r, k in gen:
+            tokens[s] = outs[r][k]
+            emitted[r] += 1
+            if emitted[r] >= max_new:
+                active[s] = None
+    return calls
+
+
+def lm_spy(engine, dev):
+    """Wrap the engine's decode: every call's fed tokens, whether its
+    cache was fresh (not the one the previous call returned), its device
+    ms (synchronised either side) and its logits (kept on the card)."""
+    import torch
+
+    decode = engine._decode
+    calls, last = [], [None]
+
+    def spy(p, t, c):
+        fresh = c is not last[0]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, caches = decode(p, t, c)
+        torch.cuda.synchronize(dev)
+        calls.append({"fed": t.cpu().numpy(), "fresh": fresh,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "logits": logits})
+        last[0] = caches
+        return logits, caches
+
+    engine._decode = spy
+    return calls
+
+
+def lm_top2_gap(logits):
+    """Per row: the float32 argmax (the first maximum, as ``np.argmax``)
+    and the gap between the top two values."""
+    import torch
+
+    l32 = logits.to(torch.float32)
+    top = torch.topk(l32, 2, dim=-1).values
+    return torch.argmax(l32, dim=-1), top[:, 0] - top[:, 1]
+
+
+def lm_replay(lm, cfg, calls, expected, dev):
+    """Feed the recorded tokens from a fresh cache at every reset: the
+    largest logit difference from the engine's run, and per generation
+    step (slot, request, k) the replay's argmax and top-2 gap."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    caches, max_diff, picks = None, torch.zeros((), device=dev), []
+    with torch.no_grad():
+        for call, (fed, fresh, gen) in zip(calls, expected):
+            if fresh:
+                caches = M.init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
+            logits, caches = M.decode_step(
+                lm, cfg, torch.tensor(fed, device=dev), caches)
+            max_diff = torch.maximum(max_diff, (
+                logits.to(torch.float32)
+                - call["logits"].to(torch.float32)).abs().max())
+            if gen is not None:
+                picks.append((gen, *lm_top2_gap(logits)))
+    return float(max_diff), [
+        (s, r, k, int(idx[s]), float(gap[s]))
+        for gen, idx, gap in [(g, i.cpu(), d.cpu()) for g, i, d in picks]
+        for s, r, k in gen]
+
+
+def lm_card_vs_cpu(seed: int, dev):
+    """Check 4: each -smoke config in float32, the same parameters on the
+    card and on the CPU: forward, then LM_SMOKE_STEPS decode steps (logits
+    and every cache leaf) within LM_SMOKE_TOL. Returns the largest
+    differences per config."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import model as M
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, tuple):
+            return [x for v in tree for x in leaves(v)]
+        return [] if tree is None else [tree]
+
+    out = {}
+    for arch in list_archs(lm_only=True):
+        cfg = dataclasses.replace(get_config(arch + "-smoke"),
+                                  dtype="float32")
+        cpu = M.init_params(seed, cfg, device="cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        rng = np.random.default_rng(seed)
+        kw = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(
+            np.int32)}
+        if cfg.family == "encdec":
+            kw["enc_embeds"] = rng.standard_normal(
+                (2, 16, cfg.d_model)).astype(np.float32)
+        diffs = {}
+        with torch.no_grad():
+            lc, ac = M.forward(cpu, cfg, **{k: torch.from_numpy(v)
+                                            for k, v in kw.items()})
+            lg, ag = M.forward(gpu, cfg, **{k: torch.from_numpy(v).to(dev)
+                                            for k, v in kw.items()})
+            pairs = [("forward", lc, lg.cpu()), ("aux", ac, ag.cpu())]
+            s_enc = 16 if cfg.family == "encdec" else 0
+            cc = M.init_cache(cfg, 2, 32, s_enc=s_enc, device="cpu")
+            cg = M.init_cache(cfg, 2, 32, s_enc=s_enc, device=dev)
+            for i, t in enumerate(rng.integers(
+                    0, cfg.vocab_size, (LM_SMOKE_STEPS, 2)).astype(np.int32)):
+                dc, cc = M.decode_step(cpu, cfg, torch.from_numpy(t), cc)
+                dg, cg = M.decode_step(gpu, cfg, torch.from_numpy(t).to(dev),
+                                       cg)
+                pairs.append((f"decode{i}", dc, dg.cpu()))
+            pairs += [(f"cache{j}", a, b.cpu())
+                      for j, (a, b) in enumerate(zip(leaves(cc), leaves(cg)))]
+        for name, a, b in pairs:
+            check(a.shape == b.shape and torch.allclose(
+                a.to(torch.float32), b.to(torch.float32), rtol=LM_SMOKE_TOL,
+                atol=LM_SMOKE_TOL),
+                f"lm_serve: {arch}-smoke {name} on the card differs from "
+                f"the CPU by {float((a.float() - b.float()).abs().max())}")
+            diffs[name] = float((a.float() - b.float()).abs().max())
+        out[arch] = {"forward": diffs["forward"],
+                     "decode": max(v for k, v in diffs.items()
+                                   if k.startswith("decode")),
+                     "cache": max(v for k, v in diffs.items()
+                                  if k.startswith("cache"))}
+        del cpu, gpu
+    return out
+
+
+def lm_prefill_consistency(seed: int, dev):
+    """Check 3: LM_ARCH at full width, depth cut to LM_CHECK_LAYERS, in
+    float32: prefill_with_cache then decode_step equals forward within
+    LM_PREFILL_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              num_layers=LM_CHECK_LAYERS, dtype="float32")
+    lm = M.init_params(seed, cfg, device=dev)
+    s = 12
+    tokens = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, s + 1)), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        pre, cache = M.prefill_with_cache(lm, cfg, tokens[:, :s], 32)
+        dec, _ = M.decode_step(lm, cfg, tokens[:, s], cache)
+        full, _ = M.forward(lm, cfg, tokens=tokens)
+    d_dec = float((dec - full[:, s, :cfg.vocab_size]).abs().max())
+    d_pre = float((pre - full[:, s - 1]).abs().max())
+    check(torch.allclose(dec, full[:, s, :cfg.vocab_size],
+                         rtol=LM_PREFILL_TOL, atol=LM_PREFILL_TOL)
+          and torch.allclose(pre, full[:, s - 1], rtol=LM_PREFILL_TOL,
+                             atol=LM_PREFILL_TOL),
+          f"lm_serve: prefill + decode differ from forward at full width "
+          f"({d_pre}, {d_dec})")
+    return {"layers": cfg.num_layers, "d_model": cfg.d_model,
+            "prefill_max_abs": d_pre, "decode_max_abs": d_dec,
+            "params": lm.num_params()}
+
+
+def phase_lm_serve(seed: int, dev, smi):
+    """The LM zoo's serving path (``repro_torch.models``,
+    ``repro_torch.serving.ServingEngine``) at LM_ARCH's published widths
+    and full depth in bf16, random weights from ``seed``: the parameter
+    count against the reference's; LM_REQUESTS requests of LM_PROMPT
+    tokens, LM_MAX_NEW new tokens each, greedy, LM_BATCH slots of
+    LM_MAX_LEN positions, every decode call recorded (synchronised either
+    side: its ms; the run's wall clock gives tokens/sec), checked: (1) the engine's
+    bookkeeping (the fed tokens are what its admission rule makes of the
+    prompts and outputs, each output the argmax of its own logits for its
+    slot, the cache reset only when every slot was empty and its length
+    below LM_MAX_LEN), (2) a replay of the fed tokens from a fresh cache
+    reproduces every emitted token (the largest logit difference stated).
+    Peak memory, the step against its weight-read bound, a
+    profiled step. Then (3) prefill + decode == forward at full width
+    (LM_CHECK_LAYERS layers, float32), (4) every -smoke config on the card
+    == on the CPU, and ``examples/serve_lm_torch.py`` on the card.
+    Returns the LM serving runs' kernel launches (none of the seven)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = get_config(LM_ARCH)
+    record = {"phase": "lm_serve", "arch": LM_ARCH, "card": smi,
+              "widths": {k: getattr(cfg, k) for k in (
+                  "num_layers", "d_model", "num_heads", "num_kv_heads",
+                  "resolved_head_dim", "d_ff", "vocab_size",
+                  "padded_vocab_size", "qk_norm", "rope_theta", "dtype")}}
+    torch.zeros((), device=dev)  # the allocator exists before its reset
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lm = M.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                       device=dev)
+    torch.cuda.synchronize(dev)
+    weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    record.update(init_s=time.perf_counter() - t0, params=lm.num_params(),
+                  weight_bytes=weight_bytes)
+    check(lm.num_params() == LM_PARAMS,
+          f"lm_serve: {lm.num_params()} parameters, the reference counts "
+          f"{LM_PARAMS}")
+    prompts = lm_prompts(seed, cfg.vocab_size)
+    engine = ServingEngine(lm, cfg, ServeConfig(max_batch=LM_BATCH,
+                                                max_len=LM_MAX_LEN),
+                           device=dev)
+    calls = lm_spy(engine, dev)
+    for p in prompts:
+        engine.submit(p, max_new=LM_MAX_NEW)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    done = sorted(engine.run_until_done(), key=lambda r: r.uid)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    outs = [r.out for r in done]
+    check(len(done) == LM_REQUESTS
+          and all(len(o) == LM_MAX_NEW for o in outs),
+          f"lm_serve: {len(done)} requests finished, lengths "
+          f"{[len(o) for o in outs]}")
+    # (1) bookkeeping
+    expected = lm_expected_calls(prompts, outs, LM_BATCH, LM_MAX_NEW)
+    check(len(calls) == len(expected)
+          and all(np.array_equal(c["fed"], e[0]) and c["fresh"] == e[1]
+                  for c, e in zip(calls, expected)),
+          "lm_serve: the engine fed other tokens (or reset its cache "
+          "elsewhere) than its admission rule makes of the prompts and "
+          "outputs")
+    gen_calls = [(c, e[2]) for c, e in zip(calls, expected) if e[2]]
+    for c, gen in gen_calls:  # the engine's own choice, on the host
+        host = c["logits"].to(torch.float32).cpu().numpy()
+        check(all(int(np.argmax(host[s])) == outs[r][k] for s, r, k in gen),
+              "lm_serve: an output is not the argmax of the engine's "
+              "logits")
+    rounds, n = [], 0
+    for _, fresh, _ in expected:
+        if fresh and n:
+            rounds.append(n)
+            n = 0
+        n += 1
+    rounds.append(n)
+    check(max(rounds) < LM_MAX_LEN,
+          f"lm_serve: the shared cache length reached {max(rounds)}")
+    # (2) replay from a fresh cache
+    max_diff, picks = lm_replay(lm, cfg, calls, expected, dev)
+    parted = [(s, r, k, i, gap) for s, r, k, i, gap in picks
+              if i != outs[r][k]]
+    check(all(gap <= 2 * max_diff for *_, gap in parted),
+          f"lm_serve: the replay emits other tokens away from near-ties: "
+          f"{parted[:4]} (largest logit difference {max_diff})")
+    ms = np.array([c["ms"] for c in calls])
+    gen_ms = np.array([c["ms"] for c, _ in gen_calls])
+    del calls, gen_calls
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    n_tokens = LM_REQUESTS * LM_MAX_NEW
+    # one decode step profiled, over the last round's cache
+    torch.cuda.synchronize(dev)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        M.decode_step(lm, cfg, torch.tensor(engine.tokens, device=dev),
+                      engine.caches)
+        torch.cuda.synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    record.update(
+        requests=LM_REQUESTS, prompt_tokens=sum(map(len, prompts)),
+        max_new=LM_MAX_NEW, max_batch=LM_BATCH, max_len=LM_MAX_LEN,
+        decode_calls=len(expected),
+        admission_calls=len(expected) - len(gen_ms),
+        generation_steps=len(gen_ms), calls_per_round=rounds,
+        max_cache_length=max(rounds),
+        replay_max_abs_logit_diff=max_diff,
+        replay_parted_at_near_ties=len(parted), wall_s=wall, generated_tokens=n_tokens,
+        tokens_per_s=n_tokens / wall, decode_calls_per_s=len(expected) / wall,
+        decode_ms_p50=float(np.percentile(ms, 50)),
+        decode_ms_p99=float(np.percentile(ms, 99)),
+        generation_ms_p50=float(np.percentile(gen_ms, 50)),
+        generation_ms_p99=float(np.percentile(gen_ms, 99)),
+        weight_read_bound_ms=bound_ms,
+        p50_over_bound=float(np.percentile(ms, 50)) / bound_ms,
+        peak_memory_bytes=peak, kernel_launches=counts,
+        profiled_step=device_summary(prof, wall_us, items=10),
+        first_outputs=outs[:2])
+    del engine, lm, prof
+    torch.cuda.empty_cache()
+    check(not any(counts.values()),
+          f"lm_serve: the LM path launched LDA kernels {counts}")
+    # (3), (4)
+    record["prefill_consistency"] = lm_prefill_consistency(seed, dev)
+    torch.cuda.empty_cache()
+    record["smoke_card_vs_cpu"] = lm_card_vs_cpu(seed, dev)
+    # the example, on its default device (the card)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (ex_done, theta), out = _captured(_example("serve_lm_torch").main, [])
+    torch.cuda.synchronize(dev)
+    ex_counts = ops.launch_counts()
+    record["example"] = {"seconds": time.perf_counter() - t0,
+                         "stdout": out.splitlines(), "launches": ex_counts}
+    emit(record)
+    check("on cuda" in out and [len(r.out) for r in ex_done] == [8] * 4
+          and bool(torch.isfinite(theta).all())
+          and abs(float(theta.sum()) - 1) < 1e-4,
+          f"serve_lm_torch on the card: {out}")
+    # its RT-LDA leg trains 20 zen iterations: kernel 5 twice a step
+    check_launches("serve_lm_torch", ex_counts, {"topic_histogram": 40})
+    return counts
 
 
 if __name__ == "__main__":

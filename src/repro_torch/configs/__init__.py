@@ -5,7 +5,7 @@ One module per LM architecture (the published figures) + the paper's own
 LDA configs (``zenlda.NYTIMES``, ``zenlda.WEBCHUNK``), field for field the
 JAX package's, in the same order. ``get_config('<id>-smoke')`` returns the
 reduced smoke variant. Pure dataclasses: nothing here imports torch or
-JAX. The LM configs are data only until the LM models are ported; where
+JAX. ``repro_torch.models`` builds and serves the LM configs; where
 their docstrings speak of chips, mesh axes and per-chip budgets they
 describe the JAX package's TPU dry-run plan, not anything measured here.
 """

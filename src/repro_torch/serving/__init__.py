@@ -1,5 +1,6 @@
-"""Frozen-model LDA serving (``repro/serving``): the engine, sharded
-serving and the replica router."""
+"""Serving (``repro/serving``): the LM engine, and frozen-model LDA
+serving with its sharded form and the replica router."""
+from repro_torch.serving.engine import ServeConfig, ServingEngine  # noqa: F401
 from repro_torch.serving.lda_engine import (  # noqa: F401
     CheckpointWatcher,
     FrozenLDAModel,

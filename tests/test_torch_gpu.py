@@ -1144,3 +1144,101 @@ def test_world_of_one_under_nccl_equals_the_single_box_on_card(cuda):
                           env={**os.environ, "PYTHONPATH": src})
     assert "NCCL_WORLD_OF_ONE_OK" in proc.stdout, \
         proc.stdout + proc.stderr[-4000:]
+
+
+# -- the LM zoo's serving path (the lm_serve phase's checks, smoke width) --
+
+def _lm(arch="qwen3-8b", **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch + "-smoke"),
+                               **{"dtype": "float32", **changes})
+
+
+def test_lm_engine_bookkeeping_and_replay_on_card(cuda):
+    """The engine on the card: the fed tokens are the prompt then the
+    outputs, each output the argmax of the engine's own logits, and a
+    replay from a fresh cache gives the same logits."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = _lm(num_layers=2)
+    lm = M.init_params(0, cfg, device=cuda)
+    engine = ServingEngine(lm, cfg, ServeConfig(max_batch=2, max_len=32),
+                           device=cuda)
+    decode, calls = engine._decode, []
+
+    def spy(p, t, c):
+        logits, caches = decode(p, t, c)
+        calls.append((t.clone(), logits.float().cpu().numpy()))
+        return logits, caches
+
+    engine._decode = spy
+    prompt = [5, 9, 11]
+    engine.submit(prompt, max_new=4)
+    done = engine.run_until_done()
+    assert engine.caches.k.device.type == "cuda"
+    assert [int(t[0]) for t, _ in calls] == prompt + done[0].out[:-1]
+    for i, tok in enumerate(done[0].out):
+        assert tok == int(np.argmax(calls[len(prompt) - 1 + i][1][0]))
+    cache = M.init_cache(cfg, 2, 32, device=cuda)
+    with torch.no_grad():
+        for fed, logits in calls:
+            replay, cache = M.decode_step(lm, cfg, fed, cache)
+            np.testing.assert_array_equal(replay.float().cpu().numpy(),
+                                          logits)
+
+
+def test_lm_prefill_decode_equals_forward_on_card(cuda):
+    from repro_torch.models import model as M
+
+    cfg = _lm()
+    lm = M.init_params(0, cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 13), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    with torch.no_grad():
+        pre, cache = M.prefill_with_cache(lm, cfg, tokens[:, :12], 32)
+        dec, _ = M.decode_step(lm, cfg, tokens[:, 12], cache)
+        full, _ = M.forward(lm, cfg, tokens=tokens)
+    torch.testing.assert_close(dec, full[:, 12, :cfg.vocab_size],
+                               rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(pre, full[:, 11], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", [
+    "gemma3-4b", "qwen1.5-4b", "qwen3-8b", "minicpm3-4b", "zamba2-1.2b",
+    "whisper-medium", "grok-1-314b", "arctic-480b", "falcon-mamba-7b",
+    "qwen2-vl-2b"])
+def test_lm_forward_and_decode_on_card_equal_cpu(cuda, arch):
+    """Every family (MoE, MLA, M-RoPE, the sliding ring, mamba1/2, hybrid,
+    enc-dec): the same parameters on the card and the CPU, forward and 8
+    decode steps within 1e-4."""
+    import copy
+
+    from repro_torch.models import model as M
+
+    cfg = _lm(arch)
+    cpu = M.init_params(0, cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda)
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                           dtype=torch.int32)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_embeds"] = torch.randn((2, 16, cfg.d_model), generator=g)
+    s_enc = 16 if cfg.family == "encdec" else 0
+    with torch.no_grad():
+        lc, _ = M.forward(cpu, cfg, tokens=tokens, **kw)
+        lg, _ = M.forward(gpu, cfg, tokens=tokens.to(cuda),
+                          **{k: v.to(cuda) for k, v in kw.items()})
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        cc = M.init_cache(cfg, 2, 32, s_enc=s_enc, device="cpu")
+        cg = M.init_cache(cfg, 2, 32, s_enc=s_enc, device=cuda)
+        for t in torch.randint(0, cfg.vocab_size, (8, 2), generator=g,
+                               dtype=torch.int32):
+            dc, cc = M.decode_step(cpu, cfg, t, cc)
+            dg, cg = M.decode_step(gpu, cfg, t.to(cuda), cg)
+            torch.testing.assert_close(dg.cpu(), dc, rtol=1e-4, atol=1e-4)
