@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its mesh plan,
 sharded serving and router, the compare CLI, the examples and the LM
-zoo's serving path on one CUDA card, and check them.
+zoo's serving and training paths on one CUDA card, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -260,7 +260,26 @@ Phases, each printing one JSON line:
    memory, a profiled step, no LDA kernel launched. Then prefill + decode
    == forward at full width with 4 layers in float32, the ten ``-smoke``
    configs on the card == on the CPU (forward, 8 decode steps, every
-   cache leaf; 1e-4), and ``examples/serve_lm_torch.py`` on the card.
+   cache leaf; 1e-4), and ``examples/serve_lm_torch.py`` on the card;
+25. lm_train (runs after lm_serve) — LM training: qwen3-8b at its
+   published widths, depth cut to 16 layers (4,332,855,296 parameters,
+   the reference's count), bf16, the config's AdamW (``OptConfig(
+   learning_rate=1e-3)``, the example's) and ``nothing_saveable`` remat,
+   12 steps of 4 x 1,024 tokens from ``examples/train_lm_torch.py``'s
+   generator: the loss finite at every step and the mean of the last 4
+   below the first; step ms p50 / p99 (synchronised), tokens/sec, MFU
+   (``model_flops``' 6·N·T over the step time and 989 TFLOP/s), peak
+   memory against the 12-byte-a-parameter state, one profiled step. Then
+   (a) at full width, 2 layers, float32: the three remat policies' loss
+   and grads (bit-equal, or the largest gap) and peak memory; (b) the
+   same, 1 against 4 microbatches, parameters after one step within
+   2e-3; (c) the ten ``-smoke`` configs in float32, one train step on the
+   card == on the CPU (loss, every grad, the parameters after it; 1e-4),
+   each with its own optimizer; (d) ``TrainLoop`` on ``qwen3-8b-smoke``
+   with parameters, optimizer state and step in the checkpoint tree:
+   stopped at 6 and resumed to 12 == 12 straight, bit for bit; (e)
+   ``examples/train_lm_torch.py`` on the card at its defaults. None of
+   the seven kernels may launch.
 
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
@@ -272,7 +291,7 @@ launch with index pi permutes them, and both are timed.
 Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
 with its launches on its own path and on the stream, quality,
 train_autopilot, serve_autopilot, mesh_one, mesh_four, sharded_serve,
-router, compare, examples and lm_serve phases'), the
+router, compare, examples, lm_serve and lm_train phases'), the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
 non-zero, before any result, when no CUDA device is present, when the
 repository's ``src/`` is missing, or when any check fails.
@@ -352,6 +371,25 @@ LM_REQUESTS, LM_PROMPT, LM_MAX_NEW = 16, (16, 64), 32
 LM_CHECK_LAYERS = 4  # prefill + decode == forward at full width, float32
 LM_PREFILL_TOL = 2e-3  # the reference's test_prefill_decode_consistency
 LM_SMOKE_STEPS, LM_SMOKE_TOL = 8, 1e-4  # the -smoke configs, card vs CPU
+# the lm_train phase: LM_ARCH at its published widths, depth cut so that
+# AdamW's state fits the card (12 bytes a parameter: bf16 parameters and
+# gradients, float32 m and v), trained on examples/train_lm_torch.py's
+# synthetic tokens
+LM_TRAIN_LAYERS = 16  # of 36: 4.33B parameters, 52.0 GB of state
+LM_TRAIN_PARAMS = 4_332_855_296  # repro.launch.specs.params_abstract's
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 12, 4, 1024
+# OptConfig()'s default learning rate. The example's 1e-3 (set for its
+# smoke widths) is run too at full width and recorded: with no warm-up
+# its loss rises there in the first steps, while at 3e-4 it falls
+# (PERF.md §6)
+LM_TRAIN_LR = 3e-4
+LM_EXAMPLE_LR = 1e-3  # examples/train_lm.py's OptConfig
+LM_STATE_BYTES = 12  # per parameter
+LM_TRAIN_CHECK_LAYERS = 2  # checks (a) and (b): full width, float32
+LM_REMAT_TOL = 1e-5  # (a): grads scaled by the leaf's largest |g|
+LM_MB_TOL = 2e-3  # (b): tests/test_train.py's test_microbatch_equivalence
+LM_SIGN_FLOOR = 1e-6  # (c): AdamW's first step moves ~lr * sign(g)
+LM_LOOP_STEPS, LM_LOOP_STOP = 12, 6  # (d): stop at 6, resume to 12
 # The training phases' records, as this script measured them before
 # kernels 5 and 7 were redesigned (NVIDIA H100 80GB HBM3, 700 W; equal in
 # four runs of that tree): no kernel redesign may change them, since every
@@ -1111,6 +1149,7 @@ def main() -> int:
     by_phase["compare"] = phase_compare(args.seed, smi)
     by_phase["examples"] = phase_examples(smi)
     by_phase["lm_serve"] = phase_lm_serve(args.seed, dev, smi)
+    by_phase["lm_train"] = phase_lm_train(args.seed, dev, smi)
     launches.update(train_launches)
     by_phase["serve_autopilot"] = {
         "zen_fused_infer_sample": serve_autopilot_launches}
@@ -4485,6 +4524,410 @@ def phase_lm_serve(seed: int, dev, smi):
           f"serve_lm_torch on the card: {out}")
     # its RT-LDA leg trains 20 zen iterations: kernel 5 twice a step
     check_launches("serve_lm_torch", ex_counts, {"topic_histogram": 40})
+    return counts
+
+
+def lm_train_batch(cfg, rng, dev, batch: int = LM_TRAIN_BATCH,
+                   seq: int = LM_TRAIN_SEQ):
+    """examples/train_lm_torch.py's synthetic tokens."""
+    return _example("train_lm_torch").make_batch(cfg, rng, batch, seq, dev)
+
+
+def lm_train_steps(state, cfg, opt, seed: int, dev):
+    """LM_TRAIN_STEPS train steps of ``state``, each synchronised and
+    timed, on batches drawn from ``seed``: (the state after them, losses,
+    grad norms, ms)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.train_step import make_train_step
+
+    step = make_train_step(cfg, opt)
+    rng = np.random.default_rng(seed)
+    losses, norms, ms = [], [], []
+    for _ in range(LM_TRAIN_STEPS):
+        b = lm_train_batch(cfg, rng, dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, losses, norms, ms
+
+
+def _grad_gap(grads, base):
+    """(bit-equal?, the largest |difference| scaled by the leaf's largest
+    |g|, that leaf)."""
+    import torch
+
+    worst, leaf = 0.0, None
+    for n, g in base.items():
+        d = float((grads[n] - g).abs().max()) / (float(g.abs().max()) or 1.0)
+        if d > worst:
+            worst, leaf = d, n
+    equal = all(torch.equal(grads[n], g) for n, g in base.items())
+    return equal, worst, leaf
+
+
+def lm_train_remat(seed: int, dev):
+    """Check (a): LM_ARCH at full width, LM_TRAIN_CHECK_LAYERS layers in
+    float32, one batch: loss and grads under the three remat policies
+    against ``none``'s, each policy's peak memory and ms."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import compute_grads
+
+    base = dataclasses.replace(get_config(LM_ARCH), dtype="float32",
+                               num_layers=LM_TRAIN_CHECK_LAYERS)
+    lm = M.init_params(torch.Generator(device=dev).manual_seed(seed), base,
+                       device=dev).requires_grad_(True)
+    b = lm_train_batch(base, np.random.default_rng(seed), dev)
+    out, ref = {}, None
+    for policy in ("none", "nothing_saveable", "dots"):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, _, grads = compute_grads(lm, cfg, b)
+        torch.cuda.synchronize(dev)
+        row = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+        if ref is None:
+            ref = (loss, grads)
+        else:
+            equal, gap, leaf = _grad_gap(grads, ref[1])
+            row.update(bit_equal=equal and bool(torch.equal(loss, ref[0])),
+                       loss_diff=float(loss - ref[0]), max_grad_gap=gap,
+                       max_gap_leaf=leaf)
+            check(float((loss - ref[0]).abs()) <= LM_REMAT_TOL
+                  and gap <= LM_REMAT_TOL,
+                  f"lm_train: remat {policy} differs from none: loss "
+                  f"{row['loss_diff']}, grads {gap} at {leaf}")
+            del grads
+        out[policy] = row
+    return {"layers": base.num_layers, "dtype": base.dtype,
+            "tokens": LM_TRAIN_BATCH * LM_TRAIN_SEQ, **out}
+
+
+def lm_train_microbatch(seed: int, dev):
+    """Check (b): the same config, one step of 1 against 4 microbatches
+    from the same parameters and batch, with the reference test's default
+    ``OptConfig()``: the parameters after it within LM_MB_TOL (AdamW's
+    first step moves an element by up to lr = 3e-4 whatever its |g|, so
+    a sign that the summation order flips costs at most 6e-4)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, \
+        make_train_step
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32",
+                              num_layers=LM_TRAIN_CHECK_LAYERS)
+    opt = OptConfig()
+    b = lm_train_batch(cfg, np.random.default_rng(seed), dev)
+    after, metrics = {}, {}
+    for n_mb in (1, 4):
+        st = init_train_state(torch.Generator(device=dev).manual_seed(seed),
+                              cfg, opt, device=dev)
+        st, m = make_train_step(cfg, opt, num_microbatches=n_mb)(st, b)
+        metrics[n_mb] = {k: float(v) for k, v in m.items()}
+        if n_mb == 1:
+            after = {n: p.detach().clone()
+                     for n, p in st.params.named_parameters()}
+            del st
+            torch.cuda.empty_cache()
+            continue
+        gap = max(float((p.detach() - after[n]).abs().max())
+                  for n, p in st.params.named_parameters())
+    del st, after
+    torch.cuda.empty_cache()
+    check(gap <= LM_MB_TOL,
+          f"lm_train: 4 microbatches end {gap} from 1 (> {LM_MB_TOL})")
+    return {"max_abs_param_gap": gap, "metrics": metrics}
+
+
+def lm_train_card_vs_cpu(seed: int, dev):
+    """Check (c): each -smoke config in float32, the same parameters and
+    batch on the card and on the CPU, one train step with the config's
+    own optimizer: the loss, every gradient (scaled by its leaf's largest
+    |g|) and the parameters after the step within LM_SMOKE_TOL; an element
+    whose CPU gradient is below LM_SIGN_FLOOR of its leaf's largest is
+    left out of the parameters and counted."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+    from repro_torch.train.train_step import TrainState, compute_grads, \
+        make_train_step
+
+    opt = OptConfig(learning_rate=LM_EXAMPLE_LR)
+    out = {}
+    for arch in list_archs(lm_only=True):
+        cfg = dataclasses.replace(get_config(arch + "-smoke"),
+                                  dtype="float32")
+        cpu = M.init_params(seed, cfg, device="cpu").requires_grad_(True)
+        gpu = copy.deepcopy(cpu).to(dev)
+        bc = lm_train_batch(cfg, np.random.default_rng(seed), "cpu", 2, 16)
+        bg = {k: v.to(dev) for k, v in bc.items()}
+        lc, _, gc = compute_grads(cpu, cfg, bc)
+        lg, _, gg = compute_grads(gpu, cfg, bg)
+        _, grad_gap, leaf = _grad_gap({n: g.cpu() for n, g in gg.items()},
+                                      gc)
+        init, _ = make_optimizer(cfg.optimizer, opt)
+        step = make_train_step(cfg, opt)
+        zero = torch.zeros((), dtype=torch.int32)
+        step(TrainState(cpu, init(cpu), zero), bc)
+        step(TrainState(gpu, init(gpu), zero.to(dev)), bg)
+        param_gap, left_out = 0.0, 0
+        for (n, pc), (_, pg) in zip(cpu.named_parameters(),
+                                    gpu.named_parameters()):
+            keep = gc[n].abs() >= LM_SIGN_FLOOR * (float(gc[n].abs().max())
+                                                   or 1.0)
+            left_out += int((~keep).sum())
+            if keep.any():
+                d = (pg.detach().cpu()[keep] - pc.detach()[keep]).abs()
+                param_gap = max(param_gap, float(
+                    (d / (1 + pc.detach()[keep].abs())).max()))
+        loss_gap = abs(float(lg) - float(lc))
+        check(loss_gap <= LM_SMOKE_TOL * (1 + abs(float(lc)))
+              and grad_gap <= LM_SMOKE_TOL and param_gap <= LM_SMOKE_TOL,
+              f"lm_train: {arch}-smoke train step on the card differs from "
+              f"the CPU: loss {loss_gap}, grads {grad_gap} ({leaf}), "
+              f"parameters {param_gap}")
+        out[arch] = {"optimizer": cfg.optimizer, "loss": float(lc),
+                     "loss_gap": loss_gap, "grad_gap": grad_gap,
+                     "grad_gap_leaf": leaf, "param_gap": param_gap,
+                     "params_left_out": left_out,
+                     "params": sum(p.numel() for p in cpu.parameters())}
+        del cpu, gpu, gc, gg
+    return out
+
+
+def _copy_into(dst, src) -> None:
+    """A restored tree's host leaves into the live tensors of ``dst``, a
+    tree of the same structure (NamedTuples come back as tuples)."""
+    import numpy as np
+    import torch
+
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+    else:
+        with torch.no_grad():
+            dst.copy_(torch.from_numpy(np.asarray(src)))
+
+
+def lm_train_loop_resume(seed: int, dev, out_dir):
+    """Check (d): ``TrainLoop`` on LM_ARCH's smoke config (bf16), the
+    checkpoint tree holding the parameters (the reference's layout), the
+    optimizer state and the step: LM_LOOP_STEPS straight against a run
+    stopped at LM_LOOP_STOP and resumed by a new loop and state. Each step
+    draws its batch from a generator seeded by the step, so both runs see
+    the same tokens. Returns the comparison."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import load_into, params_to_reference
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, \
+        make_train_step
+
+    cfg = get_config(LM_ARCH + "-smoke")
+    opt = OptConfig(learning_rate=LM_EXAMPLE_LR)
+    step_fn = make_train_step(cfg, opt)
+
+    def loop_step(st):
+        rng = np.random.default_rng(seed * 1000 + int(st.step))
+        return step_fn(st, lm_train_batch(cfg, rng, dev, 8, 64))
+
+    def tree(st):
+        return {"params": params_to_reference(st.params),
+                "opt": st.opt_state, "step": st.step}
+
+    def restore(st, t):
+        load_into(st.params, t["params"])
+        _copy_into(st.opt_state, t["opt"])
+        _copy_into(st.step, t["step"])
+        return st
+
+    def run(directory, steps, every):
+        loop = TrainLoop(loop_step, LoopConfig(
+            num_steps=steps, checkpoint_every=every,
+            checkpoint_dir=str(directory), log_every=0),
+            checkpoint_tree_fn=tree, restore_fn=restore)
+        return loop.run(init_train_state(
+            torch.Generator(device=dev).manual_seed(seed), cfg, opt,
+            device=dev))
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    straight = run(out_dir / "straight", LM_LOOP_STEPS, LM_LOOP_STEPS)
+    first = run(out_dir / "stopped", LM_LOOP_STOP, LM_LOOP_STOP)
+    check(int(first.step) == LM_LOOP_STOP, "lm_train: the stopped run")
+    resumed = run(out_dir / "stopped", LM_LOOP_STEPS, LM_LOOP_STEPS)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pairs = [(f"params.{n}", a, b) for (n, a), (_, b) in zip(
+        straight.params.named_parameters(), resumed.params.named_parameters())]
+    pairs += [(f"{k}.{n}", getattr(straight.opt_state, k)[n],
+               getattr(resumed.opt_state, k)[n])
+              for k in ("m", "v") for n in straight.opt_state.m]
+    unequal = [(n, float((a.float() - b.float()).abs().max()))
+               for n, a, b in pairs if not torch.equal(a, b)]
+    check(int(resumed.step) == LM_LOOP_STEPS and not unequal,
+          f"lm_train: stopped at {LM_LOOP_STOP} and resumed differs from "
+          f"the straight run: {unequal[:6]}")
+    return {"steps": LM_LOOP_STEPS, "stopped_at": LM_LOOP_STOP,
+            "leaves_compared": len(pairs), "bit_equal": not unequal}
+
+
+def phase_lm_train(seed: int, dev, smi):
+    """LM training (``repro_torch.train``): LM_ARCH at its published widths
+    with LM_TRAIN_LAYERS layers in bf16, the config's AdamW and remat
+    policy, LM_TRAIN_STEPS steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens
+    of examples/train_lm_torch.py's data, synchronised and timed; the
+    parameter count against the reference's, the loss finite and falling,
+    MFU by ``model_flops``, peak memory, a profiled step. Then checks
+    (a)-(d) (``lm_train_remat``, ``lm_train_microbatch``,
+    ``lm_train_card_vs_cpu``, ``lm_train_loop_resume``) and (e)
+    ``examples/train_lm_torch.py`` on the card. Returns the phase's
+    launches of the seven kernels (none may launch)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, \
+        make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              num_layers=LM_TRAIN_LAYERS)
+    record = {"phase": "lm_train", "arch": LM_ARCH, "card": smi,
+              "cut": {"num_layers": [get_config(LM_ARCH).num_layers,
+                                     LM_TRAIN_LAYERS]},
+              "widths": {k: getattr(cfg, k) for k in (
+                  "num_layers", "d_model", "num_heads", "num_kv_heads",
+                  "resolved_head_dim", "d_ff", "vocab_size",
+                  "padded_vocab_size", "qk_norm", "rope_theta", "dtype",
+                  "optimizer", "remat_policy")}}
+    # earlier phases' tensors held only by reference cycles go now: the
+    # state and the step need all but ~15 GB of the card
+    gc.collect()
+    torch.zeros((), device=dev)  # the allocator exists before its reset
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    record["held_at_start_bytes"] = torch.cuda.memory_allocated(dev)
+    ops.reset_launch_counts()
+    opt = OptConfig(learning_rate=LM_TRAIN_LR)
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, opt, device=dev)
+    torch.cuda.synchronize(dev)
+    n = state.params.num_params()
+    record.update(init_s=time.perf_counter() - t0, params=n,
+                  state_bytes=LM_STATE_BYTES * n)
+    check(n == LM_TRAIN_PARAMS,
+          f"lm_train: {n} parameters, the reference counts "
+          f"{LM_TRAIN_PARAMS}")
+    state, losses, norms, ms = lm_train_steps(state, cfg, opt, seed, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    step = make_train_step(cfg, opt)
+    b = lm_train_batch(cfg, np.random.default_rng(seed + 1), dev)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e3 * 1e3
+    profiled = device_summary(prof, wall_us, items=12)
+    del state, prof, b, m
+    torch.cuda.empty_cache()
+    # the example's learning rate at this width, on the same batches
+    ex_opt = OptConfig(learning_rate=LM_EXAMPLE_LR)
+    _, ex_losses, ex_norms, _ = lm_train_steps(init_train_state(
+        torch.Generator(device=dev).manual_seed(seed), cfg, ex_opt,
+        device=dev), cfg, ex_opt, seed, dev)
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(ex_losses)),
+          f"lm_train: at lr {LM_EXAMPLE_LR} a loss is not finite")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = model_flops(cfg, ShapeConfig("lm_train", "train", LM_TRAIN_SEQ,
+                                         LM_TRAIN_BATCH))
+    p50 = float(np.percentile(ms, 50))
+    record.update(
+        steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+        learning_rate=LM_TRAIN_LR, losses=losses, grad_norms=norms,
+        step_ms=ms, step_ms_p50=p50,
+        step_ms_p99=float(np.percentile(ms, 99)),
+        step_ms_p50_after_first=float(np.percentile(ms[1:], 50)),
+        step_ms_p99_after_first=float(np.percentile(ms[1:], 99)),
+        example_lr={"learning_rate": LM_EXAMPLE_LR, "losses": ex_losses,
+                    "grad_norms": ex_norms},
+        tokens_per_s=tokens / (p50 / 1e3), model_flops=flops,
+        mfu=flops / (p50 / 1e3) / PEAK_FLOPS,
+        mfu_convention="6*N*T (launch.roofline.model_flops: N every "
+                       "parameter, T tokens per step; remat's second "
+                       "forward not counted) over the p50 step and one "
+                       "H100's 989 TFLOP/s dense bf16",
+        peak_memory_bytes=peak, peak_over_state=peak / (LM_STATE_BYTES * n),
+        profiled_step=profiled)
+    check(all(np.isfinite(losses)),
+          f"lm_train: a loss is not finite: {losses}")
+    check(float(np.mean(losses[-4:])) < losses[0],
+          f"lm_train: the loss did not fall: {losses}")
+    record["remat"] = lm_train_remat(seed, dev)
+    torch.cuda.empty_cache()
+    record["microbatch"] = lm_train_microbatch(seed, dev)
+    torch.cuda.empty_cache()
+    record["smoke_card_vs_cpu"] = lm_train_card_vs_cpu(seed, dev)
+    record["loop_resume"] = lm_train_loop_resume(
+        seed, dev, ROOT / "build" / "chip_smoke_lm_train")
+    t0 = time.perf_counter()
+    (final, run), out = _captured(_example("train_lm_torch").main, [])
+    torch.cuda.synchronize(dev)
+    record["example"] = {"seconds": time.perf_counter() - t0,
+                         "stdout": out.splitlines(),
+                         "first_losses": run[:3], "last_losses": run[-3:]}
+    check("finished at step 60" in out and int(final.step) == 60
+          and final.step.device.type == "cuda"
+          and float(np.mean(run[-10:])) < float(np.mean(run[:10])),
+          f"train_lm_torch on the card: {out} {run}")
+    del final
+    counts = ops.launch_counts()
+    record.update(kernel_launches=counts,
+                  seconds=time.perf_counter() - t_phase)
+    emit(record)
+    check(not any(counts.values()),
+          f"lm_train: the LM training path launched LDA kernels {counts}")
     return counts
 
 

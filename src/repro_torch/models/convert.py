@@ -32,9 +32,11 @@ def _tree_path(name: str) -> Tuple[List[str], Optional[int]]:
 
 
 def to_torch(a: Any) -> torch.Tensor:
-    """A numpy leaf as a tensor; a bfloat16 leaf through its bits."""
+    """A numpy leaf as a tensor; a bfloat16 leaf through its bits (also as
+    ``np.load`` returns a saved one: a 2-byte void)."""
     a = np.array(a, copy=True)  # writable and contiguous
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
@@ -62,6 +64,8 @@ def load_into(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
         for k in keys:
             leaf = leaf[k]
         t = to_torch(leaf if index is None else np.asarray(leaf)[index])
+        if p.dtype == torch.bfloat16 and t.dtype == torch.uint16:
+            t = t.view(torch.bfloat16)  # the bits ``to_numpy`` writes
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
             raise ValueError(f"{name}: tree leaf {tuple(t.shape)} {t.dtype}, "
                              f"parameter {tuple(p.shape)} {p.dtype}")

@@ -30,8 +30,9 @@ class ParamMaker:
     drawn as the reference draws them (N(0, 1) or U(lo, hi) in float32,
     scaled, then cast); without one (a ``meta`` device, or a tree about to
     be loaded by ``models.convert``) they are left uninitialised. Every
-    leaf is a frozen ``nn.Parameter``: this package serves, it does not
-    train yet."""
+    leaf is an ``nn.Parameter`` made frozen, as serving wants it;
+    ``train.train_step.init_train_state`` makes a model's leaves
+    trainable (``requires_grad_(True)``)."""
 
     def __init__(self, device: torch.device,
                  generator: Optional[torch.Generator] = None):

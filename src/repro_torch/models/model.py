@@ -15,7 +15,9 @@ takes its parameter tree. Families dispatch on the config:
 Everything runs on the card unless the caller asks for another device;
 a ``meta`` device builds a full configuration without memory, to count
 it. Decode writes the caches it is handed in place and returns them with
-their lengths advanced.
+their lengths advanced. Cache construction, prefill and decode run under
+``torch.no_grad()``: a trained model's in-place cache writes would
+otherwise grow an autograd graph across decode steps.
 """
 from __future__ import annotations
 
@@ -173,7 +175,10 @@ def forward(params: LM, cfg: ArchConfig,
 
 def loss_fn(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy (+ MoE aux); forward only in this slice."""
+    """Next-token cross-entropy (+ MoE aux). Differentiable: the train
+    step takes its gradients with ``torch.autograd.grad``. The gold logit
+    is gathered, which equals the reference's one-hot contraction without
+    a (B, S, V) one-hot."""
     logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"),
                           positions=batch.get("positions"),
@@ -201,6 +206,7 @@ def loss_fn(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
 # caches + decode
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, length: int = 0,
                s_enc: int = 0,
                device: Optional[Union[str, torch.device]] = None) -> Any:
@@ -258,6 +264,7 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, length: int = 0,
     raise ValueError(cfg.family)
 
 
+@torch.no_grad()
 def decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor,
                 caches: Any) -> Tuple[torch.Tensor, Any]:
     """One cached decode step, token (B,). Returns (logits (B, vocab_size),
@@ -277,6 +284,7 @@ def decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor,
     return unembed(x[:, 0], params.head)[..., :cfg.vocab_size], caches
 
 
+@torch.no_grad()
 def prefill_with_cache(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
                        s_max: int) -> Tuple[torch.Tensor, KVCache]:
     """Forward plus the KV cache, for plain dense / GQA stacks only.

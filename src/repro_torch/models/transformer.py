@@ -12,14 +12,23 @@ layer through views. Heterogeneous patterns:
            per group)
   whisper  encoder stack, then a decoder with self- and cross-attention
 
-Remat is a training concern and waits for the training slice.
+Remat: while grad is enabled, each stack's layer body (and gemma3's
+global layer, zamba2's shared block) runs under
+``torch.utils.checkpoint`` per ``cfg.remat_policy``, where the reference
+wraps the same bodies in ``jax.checkpoint``; decode and serving run
+without it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (
@@ -43,6 +52,31 @@ from repro_torch.models.ssm import (
     mamba2_block,
     mamba2_decode,
 )
+
+
+# the matrix products ``jax.checkpoint_policies.checkpoint_dots`` saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` recomputed in the backward pass per ``cfg.remat_policy``:
+    ``none`` saves everything, ``dots`` saves the matrix products' outputs
+    and recomputes the rest, anything else (``nothing_saveable``) saves
+    only the inputs. Without grad ``fn`` runs as it is."""
+    if cfg.remat_policy == "none":
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(_DOTS))
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -126,10 +160,11 @@ def decoder_layer_decode(x: torch.Tensor, lp: DecoderLayer, cfg: ArchConfig,
     return x + y, cache, aux
 
 
-def _run_layers(body, x: torch.Tensor, layers) -> Tuple[torch.Tensor,
-                                                         torch.Tensor]:
+def _run_layers(body, x: torch.Tensor, layers,
+                cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``_scan_layers``: an (x, aux) carry through the
-    layers, aux starting at 0."""
+    layers, aux starting at 0, the body under ``_remat``."""
+    body = _remat(body, cfg)
     aux = _zero(x)
     for lp in layers:
         x, a = body(x, lp)
@@ -151,7 +186,7 @@ def dense_forward(params, cfg: ArchConfig, x: torch.Tensor,
     def body(x, lp):
         return decoder_layer(x, lp, cfg, positions, window=cfg.sliding_window)
 
-    return _run_layers(body, x, params.layers)
+    return _run_layers(body, x, params.layers, cfg)
 
 
 def dense_decode(params, cfg: ArchConfig, x: torch.Tensor,
@@ -185,14 +220,17 @@ def patterned_forward(params, cfg: ArchConfig, x: torch.Tensor,
         return decoder_layer(x, lp, cfg, positions,
                              window=cfg.sliding_window, theta=cfg.rope_theta)
 
+    def global_body(x, lp):
+        return decoder_layer(x, lp, cfg, positions, window=0, theta=theta_g)
+
+    global_body = _remat(global_body, cfg)
     aux = _zero(x)
     for g in range(n_groups):
-        x, a1 = _run_layers(local_body, x, local[g * n:(g + 1) * n])
-        x, a2 = decoder_layer(x, glob[g], cfg, positions, window=0,
-                              theta=theta_g)
+        x, a1 = _run_layers(local_body, x, local[g * n:(g + 1) * n], cfg)
+        x, a2 = global_body(x, glob[g])
         aux = aux + a1 + a2
     if rem:
-        x, a3 = _run_layers(local_body, x, local[n_groups * n:])
+        x, a3 = _run_layers(local_body, x, local[n_groups * n:], cfg)
         aux = aux + a3
     return x, aux
 
@@ -239,7 +277,7 @@ def ssm_forward(params, cfg: ArchConfig, x: torch.Tensor):
     def body(x, lp):
         return x + mamba1_block(norm(x, lp.ln, cfg), lp.m, cfg), _zero(x)
 
-    return _run_layers(body, x, params.layers)
+    return _run_layers(body, x, params.layers, cfg)
 
 
 def ssm_decode(params, cfg: ArchConfig, x: torch.Tensor,
@@ -278,15 +316,20 @@ def hybrid_forward(params, cfg: ArchConfig, x: torch.Tensor,
     def mamba_body(x, lp):
         return x + mamba2_block(norm(x, lp.ln, cfg), lp.m, cfg), _zero(x)
 
-    aux = _zero(x)
-    for g in range(n_groups):
-        x, a = _run_layers(mamba_body, x, mamba[g * every:(g + 1) * every])
+    def shared_body(x):
         h = norm(x, shared.ln1, cfg)
         x = x + attn_block(h, shared.attn, cfg, positions, causal=True)
-        x = x + mlp(norm(x, shared.ln2, cfg), shared.mlp, cfg)
+        return x + mlp(norm(x, shared.ln2, cfg), shared.mlp, cfg)
+
+    shared_body = _remat(shared_body, cfg)
+    aux = _zero(x)
+    for g in range(n_groups):
+        x, a = _run_layers(mamba_body, x, mamba[g * every:(g + 1) * every],
+                           cfg)
+        x = shared_body(x)
         aux = aux + a
     if rem:
-        x, a = _run_layers(mamba_body, x, mamba[n_groups * every:])
+        x, a = _run_layers(mamba_body, x, mamba[n_groups * every:], cfg)
         aux = aux + a
     return x, aux
 
@@ -347,7 +390,7 @@ def encdec_forward(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
         x = x + attn_block(h, lp.attn, cfg, enc_positions, causal=False)
         return x + mlp(norm(x, lp.ln2, cfg), lp.mlp, cfg), _zero(x)
 
-    enc, _ = _run_layers(enc_body, enc_embeds, params.encoder)
+    enc, _ = _run_layers(enc_body, enc_embeds, params.encoder, cfg)
     enc = norm(enc, params.enc_norm, cfg)
 
     def dec_body(x, lp):
@@ -360,7 +403,7 @@ def encdec_forward(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
                            cross_kv=kv)
         return x + mlp(norm(x, lp.ln2, cfg), lp.mlp, cfg), _zero(x)
 
-    return _run_layers(dec_body, dec_x, params.decoder)
+    return _run_layers(dec_body, dec_x, params.decoder, cfg)
 
 
 def encdec_decode(params, cfg: ArchConfig, x: torch.Tensor,

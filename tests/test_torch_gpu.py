@@ -1242,3 +1242,86 @@ def test_lm_forward_and_decode_on_card_equal_cpu(cuda, arch):
             dc, cc = M.decode_step(cpu, cfg, t, cc)
             dg, cg = M.decode_step(gpu, cfg, t.to(cuda), cg)
             torch.testing.assert_close(dg.cpu(), dc, rtol=1e-4, atol=1e-4)
+
+
+# -- LM training (the lm_train phase's checks, smoke width) -----------------
+
+def _lm_train_batch(cfg, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                           dtype=torch.int32)
+    b = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.family == "encdec":
+        b["enc_embeds"] = torch.randn((2, 16, cfg.d_model), generator=g)
+    return b
+
+
+@pytest.mark.parametrize("arch", [
+    "gemma3-4b", "qwen1.5-4b", "qwen3-8b", "minicpm3-4b", "zamba2-1.2b",
+    "whisper-medium", "grok-1-314b", "arctic-480b", "falcon-mamba-7b",
+    "qwen2-vl-2b"])
+def test_lm_train_step_on_card_equals_cpu(cuda, arch):
+    """One train step of each family (its own optimizer: Adafactor for
+    grok-1 and arctic) from the same parameters and batch on the card and
+    on the CPU: the loss, every gradient and the parameters after the step
+    within 1e-4 (an element whose CPU gradient is below 1e-6 of its leaf's
+    largest is left out of the parameters: AdamW's first step moves it by
+    lr times a sign that rounding noise decides)."""
+    import copy
+
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+    from repro_torch.train.train_step import (
+        TrainState,
+        compute_grads,
+        make_train_step,
+    )
+
+    cfg = _lm(arch)
+    cpu = M.init_params(0, cfg, device="cpu").requires_grad_(True)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    b = _lm_train_batch(cfg)
+    bg = {k: v.to(cuda) for k, v in b.items()}
+    lc, _, gc = compute_grads(cpu, cfg, b)
+    lg, _, gg = compute_grads(gpu, cfg, bg)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for n in gc:
+        scale = float(gc[n].abs().max()) or 1.0
+        torch.testing.assert_close(gg[n].cpu() / scale, gc[n] / scale,
+                                   rtol=1e-4, atol=1e-4, msg=n)
+    opt = OptConfig(learning_rate=1e-3)
+    init, _ = make_optimizer(cfg.optimizer, opt)
+    step = make_train_step(cfg, opt)
+    zero = torch.zeros((), dtype=torch.int32)
+    step(TrainState(cpu, init(cpu), zero), b)
+    step(TrainState(gpu, init(gpu), zero.to(cuda)), bg)
+    for (n, pc), (_, pg) in zip(cpu.named_parameters(),
+                                gpu.named_parameters()):
+        keep = gc[n].abs() >= 1e-6 * (float(gc[n].abs().max()) or 1.0)
+        torch.testing.assert_close(pg.detach().cpu()[keep],
+                                   pc.detach()[keep], rtol=1e-4, atol=1e-4,
+                                   msg=n)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "grok-1-314b", "zamba2-1.2b",
+                                  "gemma3-4b", "whisper-medium"])
+def test_lm_remat_policies_equal_on_card(cuda, arch):
+    """``none``, ``nothing_saveable`` and ``dots`` on the card: the same
+    loss and gradients (the recomputed forward runs the same kernels on
+    the same inputs)."""
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import compute_grads
+
+    b = {k: v.to(cuda) for k, v in _lm_train_batch(_lm(arch)).items()}
+    out = {}
+    for policy in ("none", "nothing_saveable", "dots"):
+        cfg = _lm(arch, remat_policy=policy)
+        lm = M.init_params(0, cfg, device=cuda).requires_grad_(True)
+        out[policy] = compute_grads(lm, cfg, b)
+    loss0, _, g0 = out["none"]
+    for policy in ("nothing_saveable", "dots"):
+        loss, _, g = out[policy]
+        torch.testing.assert_close(loss, loss0, rtol=0, atol=0)
+        for n in g0:
+            torch.testing.assert_close(g[n], g0[n], rtol=1e-6, atol=1e-7,
+                                       msg=f"{policy} {n}")
