@@ -280,6 +280,23 @@ Phases, each printing one JSON line:
    stopped at 6 and resumed to 12 == 12 straight, bit for bit; (e)
    ``examples/train_lm_torch.py`` on the card at its defaults. None of
    the seven kernels may launch.
+26. lm_dryrun (runs after lm_train) — the torch dry-run
+   (``repro_torch.launch.dryrun``): (a) qwen3-8b's train_4k, prefill_32k
+   and decode_32k cells on the 16 x 16 and 2 x 16 x 16 production meshes
+   and zenlda-nytimes on 16 x 16, each traced as rank 0 of a fake process
+   group on ``meta`` tensors with the mesh's device type ``cuda``: every
+   record (per-device flops, bytes, collective bytes, memory, trace
+   seconds) and the roofline table's rows; (b) lm_train's cell (16
+   layers, 4 x 1,024 tokens, AdamW) traced on a (1, 1) mesh against the
+   real step on the card: its flops == ``FlopCounterMode`` over the
+   first step's forward and backward (AdamW counts none), its peak
+   within 15% of the first step's ``max_memory_allocated``; (c) the
+   same state as DTensors on a one-rank NCCL (1, 1) mesh, two steps: loss
+   and every parameter bit-equal to the plain steps' (or within 1e-5
+   relative, the leaf named), each step timed beside the plain one; (d)
+   the LDA cell at mesh_four's blocks: its collective bytes == the bytes
+   mesh_four's steps all-reduced a rank. None of the seven kernels may
+   launch.
 
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
@@ -291,8 +308,8 @@ launch with index pi permutes them, and both are timed.
 Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
 with its launches on its own path and on the stream, quality,
 train_autopilot, serve_autopilot, mesh_one, mesh_four, sharded_serve,
-router, compare, examples, lm_serve and lm_train phases'), the
-``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
+router, compare, examples, lm_serve, lm_train and lm_dryrun phases'),
+the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
 non-zero, before any result, when no CUDA device is present, when the
 repository's ``src/`` is missing, or when any check fails.
 """
@@ -353,6 +370,7 @@ CDF_STRIPS = 4  # strips per pass of the walk's loop (kStrips)
 # ranks sharing the card on a (2, 2) grid, sharded serving, the router
 MESH_ONE_ITERS, MESH_FOUR_ITERS = 3, 2
 MESH_FOUR_SHAPE = (2, 2)
+MESH_FOUR_SEEN = {}  # mesh_four's blocks and all-reduced bytes (lm_dryrun)
 MESH_LLH_RTOL = 1e-12  # mesh_one's llh vs RECORD (expected: equal)
 MESH_SERVE_SHARDS = (2, 4)
 ROUTER_REPLICAS = 2
@@ -390,6 +408,15 @@ LM_REMAT_TOL = 1e-5  # (a): grads scaled by the leaf's largest |g|
 LM_MB_TOL = 2e-3  # (b): tests/test_train.py's test_microbatch_equivalence
 LM_SIGN_FLOOR = 1e-6  # (c): AdamW's first step moves ~lr * sign(g)
 LM_LOOP_STEPS, LM_LOOP_STOP = 12, 6  # (d): stop at 6, resume to 12
+# the lm_dryrun phase: the production-mesh cells traced on the card (a),
+# the dry-run's peak held to lm_train's measured one within this share
+# (b), and the DTensor step's steps (c)
+LM_DRYRUN_CELLS = [(LM_ARCH, shape, multi)
+                   for shape in ("train_4k", "prefill_32k", "decode_32k")
+                   for multi in (False, True)] + [
+                       ("zenlda-nytimes", "train_lda", False)]
+LM_DRYRUN_PEAK_TOL = 0.15
+LM_DRYRUN_STEPS = 2
 # The training phases' records, as this script measured them before
 # kernels 5 and 7 were redesigned (NVIDIA H100 80GB HBM3, 700 W; equal in
 # four runs of that tree): no kernel redesign may change them, since every
@@ -1150,6 +1177,7 @@ def main() -> int:
     by_phase["examples"] = phase_examples(smi)
     by_phase["lm_serve"] = phase_lm_serve(args.seed, dev, smi)
     by_phase["lm_train"] = phase_lm_train(args.seed, dev, smi)
+    by_phase["lm_dryrun"] = phase_lm_dryrun(args.seed, dev, smi)
     launches.update(train_launches)
     by_phase["serve_autopilot"] = {
         "zen_fused_infer_sample": serve_autopilot_launches}
@@ -3756,11 +3784,20 @@ def mesh_four_rank(out: str, seed: int, want: str, device: str,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    phases, iter_s = {}, []
+    phases, iter_s, sent = {}, [], []
+    all_reduce = plan.comm.all_reduce
+
+    def counted(t, axis="all", op="sum"):
+        sent[-1] += t.numel() * t.element_size()
+        return all_reduce(t, axis, op)
+
     for _ in range(MESH_FOUR_ITERS):
         dist.barrier()
         t0 = time.perf_counter()
+        sent.append(0)
+        plan.comm.all_reduce = counted  # the step's all-reduces alone
         st = _mesh_step(plan, st, phases)
+        plan.comm.all_reduce = all_reduce
         iter_s.append(time.perf_counter() - t0)
         plan.check_invariants(st)
     counts = ops.launch_counts()
@@ -3778,6 +3815,9 @@ def mesh_four_rank(out: str, seed: int, want: str, device: str,
            "iteration_s": iter_s, "phase_ms": phases,
            "d_wk_bytes": grid.words_per_shard * k * 4,
            "d_kd_bytes": grid.docs_per_shard * k * 4,
+           "all_reduce_bytes": sent,
+           "words_per_shard": grid.words_per_shard,
+           "docs_per_shard": grid.docs_per_shard,
            "peak_device_gb": peak_gb, "launches": counts,
            "gather_s": t_gather, "equal": got == json.loads(want),
            "digests": got}
@@ -3837,8 +3877,9 @@ def phase_mesh_four(corpus, seed: int, dev, smi):
           "world_s": t_world, "iteration_s": iter_s,
           "ranks": [{k: r[k] for k in (
               "rank", "cell_tokens", "setup_s", "iteration_s", "phase_ms",
-              "d_wk_bytes", "d_kd_bytes", "peak_device_gb", "launches",
-              "gather_s", "equal")} for r in ranks],
+              "d_wk_bytes", "d_kd_bytes", "all_reduce_bytes",
+              "peak_device_gb", "launches", "gather_s", "equal")}
+              for r in ranks],
           "launches": launches, "equal_to_single_box": all(
               r["equal"] for r in ranks), "card": smi})
     check(all(r["equal"] for r in ranks),
@@ -3849,6 +3890,13 @@ def phase_mesh_four(corpus, seed: int, dev, smi):
         check_launches(f"mesh_four rank {r['rank']}", r["launches"],
                        {"zen_fused_sample": MESH_FOUR_ITERS,
                         "topic_histogram": 2 * MESH_FOUR_ITERS})
+    # what lm_dryrun's LDA cell is held to: a rank's blocks and the bytes
+    # its steps all-reduced
+    MESH_FOUR_SEEN.update(
+        words_per_shard=ranks[0]["words_per_shard"],
+        docs_per_shard=ranks[0]["docs_per_shard"],
+        cell_tokens=cells, all_reduce_bytes=sorted(
+            {b for r in ranks for b in r["all_reduce_bytes"]}))
     return launches
 
 
@@ -4928,6 +4976,242 @@ def phase_lm_train(seed: int, dev, smi):
     emit(record)
     check(not any(counts.values()),
           f"lm_train: the LM training path launched LDA kernels {counts}")
+    return counts
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def lm_dryrun_cells(smi):
+    """(a): LM_DRYRUN_CELLS traced on their production meshes with the
+    mesh's device type ``cuda``; each record, then the table's rows."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.table import LINK_NOTE, build_rows, render
+
+    store = {}
+    for arch, shape, multi in LM_DRYRUN_CELLS:
+        rec = run_cell(arch, shape, multi, "cuda")
+        emit({"phase": "lm_dryrun_cell", "card": smi, **rec})
+        mem = rec["memory_analysis"]
+        check(rec["ok"] and rec["bytes_per_device"] > 0
+              and rec["collective_bytes_per_device"] > 0
+              and mem["peak_memory_in_bytes"] > 0
+              and (rec["flops_per_device"] > 0 or arch.startswith("zenlda")),
+              f"lm_dryrun: {arch} x {shape} ({rec['mesh']}): {rec}")
+        store[f"{arch}|{shape}|{'multi' if multi else 'single'}"] = rec
+    rows = build_rows(store)
+    emit({"phase": "lm_dryrun_table", "note": LINK_NOTE,
+          "rows": [{k: v for k, v in r.items() if k != "mem_analysis"}
+                   for r in rows], "markdown": render(rows).splitlines()})
+    return store
+
+
+def lm_dryrun_vs_step(seed: int, dev):
+    """(b) and (c): lm_train's cell (LM_ARCH, LM_TRAIN_LAYERS layers, bf16,
+    LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, AdamW, the config's remat)
+    traced on a (1, 1) fake mesh, against the real steps on the card:
+    its peak against the first plain step's ``max_memory_allocated``;
+    the same state as DTensors on a one-rank NCCL (1, 1) mesh,
+    LM_DRYRUN_STEPS steps against the plain ones (loss, every parameter),
+    each step timed; its flops against ``FlopCounterMode`` over the first
+    step's forward and backward on the card (the counted loss == the
+    plain step's)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.sharding.partition import batch_sharding, distribute
+    from repro_torch.train.checkpoint import shard_state
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import compute_grads, \
+        init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              num_layers=LM_TRAIN_LAYERS)
+    cell = ShapeConfig("lm_train", "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+    pred = trace_cell(cfg, cell, (1, 1), ("data", "model"), "cuda")
+    opt = OptConfig(learning_rate=LM_TRAIN_LR)
+    step = make_train_step(cfg, opt)
+    rng = np.random.default_rng(seed)
+    batches = [lm_train_batch(cfg, rng, dev)
+               for _ in range(LM_DRYRUN_STEPS)]
+
+    def fresh():
+        return init_train_state(
+            torch.Generator(device=dev).manual_seed(seed), cfg, opt,
+            device=dev)
+
+    def run(state, bs):
+        """Steps on ``bs``, each timed and its peak read (the allocator's
+        peak reset before it)."""
+        losses, ms, peaks = [], [], []
+        for b in bs:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            losses.append(float(m["loss"]))
+        return state, losses, ms, peaks
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+    free()
+    held = torch.cuda.memory_allocated(dev)
+    state, losses, ms, peaks = run(fresh(), batches)
+    plain = {n: p.detach().cpu() for n, p in state.params.named_parameters()}
+    del state
+    free()
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        state = shard_state(fresh(), cfg, mesh)
+        sh = batch_sharding(batches[0], mesh)
+        placed = [{k: distribute(v, sh[k])
+                   for k, v in b.items()} for b in batches]
+        state, d_losses, d_ms, d_peaks = run(state, placed)
+        gaps = {}
+        for n, p in state.params.named_parameters():
+            got = p.to_local().detach().cpu()
+            if not torch.equal(got, plain[n]):
+                want = plain[n].float()
+                gaps[n] = float(((got.float() - want).abs().max()
+                                 / want.abs().max().clamp_min(1e-30)))
+        del state, placed
+    finally:
+        dist.destroy_process_group()
+    free()
+    # FlopCounterMode over the real step's forward and backward, apart,
+    # with the parameters alone resident: the update after them is AdamW,
+    # which holds no product the counter counts, and the whole step under
+    # the mode peaked 25 GB above the plain one (82.3 GB: out of memory
+    # after the earlier phases)
+    lm = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                     device=dev).requires_grad_(True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        fc_loss, _, grads = compute_grads(lm, cfg, batches[0])
+    torch.cuda.synchronize(dev)
+    fc_ms = (time.perf_counter() - t0) * 1e3
+    flops = float(fc.get_total_flops())
+    fc_peak = torch.cuda.max_memory_allocated(dev)
+    fc_loss = float(fc_loss)
+    del lm, grads
+    free()
+    peak = peaks[0] - held
+    pred_peak = pred["memory_analysis"]["peak_memory_in_bytes"]
+    out = {"trace": pred, "flop_counter": flops,
+           "measured_peak_bytes": peak, "held_at_start_bytes": held,
+           "peak_gap": pred_peak / peak - 1.0,
+           "plain": {"losses": losses, "step_ms": ms, "step_peaks": peaks},
+           "sharded": {"losses": d_losses, "step_ms": d_ms,
+                       "step_peaks": d_peaks, "unequal_leaves": gaps,
+                       "placements": "Replicate() on the (1, 1) mesh: "
+                                     "every leaf whole"},
+           "flop_counter_grads": {"loss": fc_loss, "ms": fc_ms,
+                                  "peak": fc_peak}}
+    check(pred["flops_per_device"] == flops,
+          f"lm_dryrun (b): traced flops {pred['flops_per_device']} != "
+          f"FlopCounterMode {flops}")
+    check(fc_loss == losses[0],
+          f"lm_dryrun (b): the counted loss {fc_loss} != {losses[0]}")
+    check(abs(out["peak_gap"]) <= LM_DRYRUN_PEAK_TOL,
+          f"lm_dryrun (b): predicted peak {pred_peak} vs measured {peak}")
+    check(d_losses == losses,
+          f"lm_dryrun (c): DTensor losses {d_losses} != plain {losses}")
+    check(not gaps or max(gaps.values()) <= 1e-5,
+          f"lm_dryrun (c): parameters differ from the plain step's: {gaps}")
+    return out
+
+
+def lm_dryrun_lda(dev):
+    """(d): the LDA cell at mesh_four's (2, 2) grid and padded blocks
+    (K_NYT topics) traced on a fake mesh: its collective bytes against
+    what mesh_four's ranks all-reduced in an iteration. The cell sweeps
+    with NYTIMES's ``zen_cdf`` (mesh_four's ``zen_pallas`` wrappers refuse
+    a ``meta`` tensor); a step's all-reduces are the same for every
+    backend."""
+    from repro_torch.configs.base import LDAArchConfig
+    from repro_torch.launch.dryrun import trace_cell
+
+    seen = MESH_FOUR_SEEN
+    rows, cols = MESH_FOUR_SHAPE
+    dims = {"words_per_shard": seen["words_per_shard"],
+            "docs_per_shard": seen["docs_per_shard"],
+            "e_cell": -(-max(seen["cell_tokens"]) // 8) * 8}
+    cfg = LDAArchConfig(name="mesh_four", num_words=dims[
+        "words_per_shard"] * cols, num_topics=K_NYT,
+        docs_per_step=dims["docs_per_shard"] * rows, avg_doc_len=1,
+        algorithm="zen_cdf", max_kd=128)
+    rec = trace_cell(cfg, "train_lda", MESH_FOUR_SHAPE, ("data", "model"),
+                     "cuda", lda_dims=dims)
+    want = (dims["words_per_shard"] + dims["docs_per_shard"] + 1) \
+        * K_NYT * 4
+    check(seen["all_reduce_bytes"] == [want]
+          and rec["collective_bytes_per_device"] == want,
+          f"lm_dryrun (d): traced {rec['collective_bytes_per_device']} "
+          f"bytes, mesh_four all-reduced {seen['all_reduce_bytes']}, "
+          f"blocks give {want}")
+    return {"dims": dims, "trace": rec,
+            "mesh_four_all_reduce_bytes": seen["all_reduce_bytes"],
+            "d_wk_bytes": dims["words_per_shard"] * K_NYT * 4,
+            "d_kd_bytes": dims["docs_per_shard"] * K_NYT * 4,
+            "d_k_bytes": K_NYT * 4}
+
+
+def phase_lm_dryrun(seed: int, dev, smi):
+    """The torch dry-run on the card (``repro_torch.launch.dryrun``): (a)
+    the production-mesh cells, (b) lm_train's cell against the real step,
+    (c) that step as DTensors on a one-rank NCCL mesh against the plain
+    one, (d) the LDA cell's collective bytes against mesh_four's. Returns
+    the phase's launches of the seven kernels (none may launch)."""
+    import logging
+
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    # DTensor's planner logs a warning per sequential redistribution
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    ops.reset_launch_counts()
+    record = {"phase": "lm_dryrun", "card": smi}
+    t0 = time.perf_counter()
+    lm_dryrun_cells(smi)
+    record["cells_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["vs_step"] = lm_dryrun_vs_step(seed, dev)
+    record["vs_step_s"] = time.perf_counter() - t0
+    record["lda"] = lm_dryrun_lda(dev)
+    counts = ops.launch_counts()
+    record.update(kernel_launches=counts,
+                  seconds=time.perf_counter() - t_phase)
+    emit(record)
+    check(not any(counts.values()),
+          f"lm_dryrun: the dry-run launched LDA kernels {counts}")
     return counts
 
 

@@ -176,7 +176,10 @@ def check_seed(seed: int, row_offset: int, num_tokens: int,
 
 def check_ids(ids: torch.Tensor, bound: int, name: str = "rows") -> None:
     """Raise unless every id lies in ``[0, bound)``: a plain version's
-    indexing would wrap a negative id silently (the kernels trap)."""
+    indexing would wrap a negative id silently (the kernels trap). A
+    ``meta`` tensor (the dry-run's) has no values to check."""
+    if ids.is_meta:
+        return
     if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= bound):
         raise IndexError(f"{name} outside [0, {bound})")
 

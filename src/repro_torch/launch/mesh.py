@@ -12,18 +12,23 @@
   such a world, one rank per cell (``core.distributed``).
 * :func:`init_from_env` — a world from torchrun's ``RANK`` /
   ``WORLD_SIZE`` / ``LOCAL_RANK`` (NCCL on the rank's own card).
-
-The reference's ``make_production_mesh`` describes 256-chip TPU pods; it
-belongs with the dry-run of the LM zoo and is not here.
+* :func:`make_production_mesh` — the dry-run's production meshes,
+  16 x 16 over ``(data, model)`` or 2 x 16 x 16 over ``(pod, data,
+  model)``, as an :class:`AbstractMesh` (sizes and names, no devices: the
+  counterpart of the reference's ``abstract_mesh``, for spec math), and
+  :func:`fake_world` — a ``DeviceMesh`` of any such shape in one process,
+  over a ``"fake"`` process group whose collectives move nothing (this
+  process is rank 0), for the dry-run's traces.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import importlib.util
 import os
 import tempfile
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -154,3 +159,64 @@ def init_from_env(device: str = "cuda") -> Optional[torch.device]:
         return dev
     dist.init_process_group("gloo")
     return torch.device("cpu")
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, no devices (spec math only)."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for x in self.sizes:
+            n *= x
+        return n
+
+
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """16 x 16 = 256 devices per pod; ``multi_pod`` adds a leading 2-pod
+    axis."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh as sizes and names (the reference's
+    ``make_production_mesh``, whose devices no machine here has)."""
+    return AbstractMesh(*production_shape(multi_pod)[::-1])
+
+
+@contextlib.contextmanager
+def fake_world(shape: Sequence[int], axes: Sequence[str],
+               device: str = "cuda") -> Iterator:
+    """A ``DeviceMesh`` of ``shape`` over ``axes`` for one process acting
+    as rank 0 of a ``"fake"`` process group of ``prod(shape)`` ranks: its
+    collectives return at once and move nothing, so a DTensor program
+    runs rank 0's share of the work. ``device`` is the mesh's device type
+    (``cuda`` needs a card). The world is global state: it is created on
+    entry and destroyed on exit, and entering while another process group
+    is live raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    n = 1
+    for x in shape:
+        n *= int(x)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield init_device_mesh(device, tuple(int(x) for x in shape),
+                               mesh_dim_names=tuple(axes))
+    finally:
+        dist.destroy_process_group()

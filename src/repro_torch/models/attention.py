@@ -23,6 +23,12 @@ from repro_torch.models.layers import (
     apply_rope,
     rmsnorm,
 )
+from repro_torch.sharding.dtensor import (
+    is_dtensor,
+    merge_dims,
+    split_dim,
+    write_slot,
+)
 
 
 class KVCache(NamedTuple):
@@ -37,15 +43,18 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
     """Additive mask (B, 1, Sq, Skv): 0 where attended, -1e30 elsewhere."""
     dq = q_pos[:, :, None]
     dk = kv_pos[:, None, :]
-    ok = torch.ones((dq.shape[0], dq.shape[1], dk.shape[2]), dtype=torch.bool,
-                    device=q_pos.device)
+    # built from the positions (not a fresh tensor of the global shape), so
+    # batch-sharded DTensor positions give a batch-sharded mask
+    ok = torch.ones_like(dq, dtype=torch.bool).expand(
+        dq.shape[0], dq.shape[1], dk.shape[2])
     if causal:
-        ok &= dk <= dq
+        ok = ok & (dk <= dq)
     if window > 0:
-        ok &= dk > dq - window
+        ok = ok & (dk > dq - window)
     if kv_valid is not None:
-        ok &= kv_valid[:, None, :]
-    bias = torch.zeros(ok.shape, dtype=torch.float32, device=ok.device)
+        ok = ok & kv_valid[:, None, :]
+    bias = torch.zeros_like(ok, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
     return bias.masked_fill_(~ok, -1e30)[:, None, :, :]
 
 
@@ -58,13 +67,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvh = k.shape[2]
     groups = h // kvh
     scale = scale if scale is not None else d ** -0.5
-    qg = q.reshape(b, sq, kvh, groups, d)
+    qg = split_dim(q, 2, (kvh, groups))
     logits = torch.einsum("bqhgd,bkhd->bhgqk",
                           qg.to(torch.float32) * scale, k.to(torch.float32))
     logits = logits + mask_bias[:, :, None, :, :]
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhe->bqhge", probs, v.to(torch.float32))
-    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    return merge_dims(out, 2, 2).to(q.dtype)
 
 
 def _write_slot(cache: torch.Tensor, new: torch.Tensor,
@@ -72,6 +81,9 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor,
     """``cache[:, slot] = new[:, 0]`` in place, ``slot`` clamped into
     [0, S_max - 1] as ``dynamic_update_slice`` clamps its start."""
     idx = torch.clamp(slot, 0, cache.shape[1] - 1).reshape(1).long()
+    if is_dtensor(cache):
+        write_slot(cache, new, idx)
+        return
     cache.index_copy_(1, idx, new.to(cache.dtype))
 
 
@@ -112,9 +124,9 @@ def _qkv(x: torch.Tensor, params: Attention, cfg: ArchConfig,
         q = q + params.bq
         k = k + params.bk
         v = v + params.bv
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    q = split_dim(q, -1, (h, hd))
+    k = split_dim(k, -1, (kvh, hd))
+    v = split_dim(v, -1, (kvh, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, params.q_norm, cfg.norm_eps)
         k = rmsnorm(k, params.k_norm, cfg.norm_eps)

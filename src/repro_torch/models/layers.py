@@ -16,6 +16,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.dtensor import (
+    as_activation,
+    embed_rows,
+    is_split,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -214,9 +219,13 @@ def mlp(x: torch.Tensor, params: MLP, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    if is_split(table):
+        # each vocab shard looks up the rows it holds
+        return embed_rows(table, tokens)
     return table[tokens.long()]
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits against the (V, D) table (tied or a separate head)."""
-    return torch.matmul(x, table.t())
+    """Logits against the (V, D) table (tied or a separate head); with a
+    vocab-sharded DTensor table, vocab-sharded logits."""
+    return torch.matmul(as_activation(x), table.t())

@@ -62,6 +62,12 @@ from repro_torch.models.transformer import (
     ssm_decode,
     ssm_forward,
 )
+from repro_torch.sharding.dtensor import (
+    dtensor_scope,
+    gather_last,
+    is_split,
+    like_batch,
+)
 
 
 def _stack(n: int, make) -> nn.ModuleList:
@@ -152,10 +158,15 @@ def forward(params: LM, cfg: ArchConfig,
     """Full-sequence forward: tokens (B, S), or embeds (B, S, D) from a
     stub frontend; positions (B, S), or (B, S, 3) for M-RoPE. Returns
     (logits (B, S, padded vocab), aux loss ())."""
+    with dtensor_scope(params.embed):
+        return _forward(params, cfg, tokens, embeds, positions, enc_embeds)
+
+
+def _forward(params, cfg, tokens, embeds, positions, enc_embeds):
     x = embed(tokens, params.embed) if embeds is None else embeds
     b, s = x.shape[:2]
     if positions is None:
-        positions = _positions(b, s, cfg, x.device)
+        positions = like_batch(_positions(b, s, cfg, x.device), x)
     if cfg.family == "encdec":
         assert enc_embeds is not None, "whisper needs frontend embeddings"
         ep = torch.arange(enc_embeds.shape[1], dtype=torch.int32,
@@ -190,8 +201,17 @@ def loss_fn(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
         # vocab-padding columns can never be predicted
         vocab_ids = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(vocab_ids >= cfg.vocab_size, -1e30)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if is_split(logits):
+        # vocab-sharded logits: logsumexp as its max and its sum of
+        # exponentials, each reduced over the vocab shards (a (B, S)
+        # all-reduce, where DTensor's own rule gathers the logits)
+        top = torch.amax(logits, dim=-1, keepdim=True).detach()
+        logz = torch.log(torch.sum(torch.exp(logits - top), dim=-1)) \
+            + top[..., 0]
+        gold = gather_last(logits, labels[..., None])[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
         nll = nll * mask
@@ -269,6 +289,11 @@ def decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor,
                 caches: Any) -> Tuple[torch.Tensor, Any]:
     """One cached decode step, token (B,). Returns (logits (B, vocab_size),
     the caches advanced)."""
+    with dtensor_scope(params.embed):
+        return _decode_step(params, cfg, token, caches)
+
+
+def _decode_step(params, cfg, token, caches):
     x = embed(token[:, None], params.embed)
     if cfg.family == "encdec":
         x, caches = encdec_decode(params, cfg, x, caches)

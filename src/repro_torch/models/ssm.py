@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import ParamMaker, rmsnorm
+from repro_torch.sharding.dtensor import run_local
 
 
 class SSMCache(NamedTuple):
@@ -86,6 +87,19 @@ def _dt(dt_r: torch.Tensor, params: Mamba1) -> torch.Tensor:
         + params.dt_bias)
 
 
+def _selective_scan(da: torch.Tensor, dbx: torch.Tensor,
+                    cmat: torch.Tensor) -> torch.Tensor:
+    """The exact sequential scan: da, dbx (B, L, di, N), cmat (B, L, N)
+    -> y (B, L, di), with a float32 state."""
+    b, l, di, n = da.shape
+    h = torch.zeros((b, di, n), dtype=torch.float32, device=da.device)
+    ys = []
+    for i in range(l):
+        h = da[:, i] * h + dbx[:, i]
+        ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, i]))
+    return torch.stack(ys, dim=1)
+
+
 def _mamba1_core(x: torch.Tensor, z: torch.Tensor, params: Mamba1,
                  cfg: ArchConfig) -> torch.Tensor:
     """Selective scan; x, z (B, L, di)."""
@@ -98,13 +112,8 @@ def _mamba1_core(x: torch.Tensor, z: torch.Tensor, params: Mamba1,
     da = torch.exp(dt[..., None] * a)  # (B, L, di, N) discretised A
     dbx = dt[..., None] * bmat[:, :, None, :] \
         * x.to(torch.float32)[..., None]
-    b, l, di = x.shape
-    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for i in range(l):
-        h = da[:, i] * h + dbx[:, i]
-        ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, i]))
-    y = torch.stack(ys, dim=1)  # (B, L, di)
+    # per sequence: on DTensors each device scans its batch shard
+    y = run_local(_selective_scan, da, dbx, cmat)  # (B, L, di)
     y = y + params.d * x.to(torch.float32)
     y = y * F.silu(z.to(torch.float32))
     return y.to(x.dtype)
@@ -215,6 +224,24 @@ def mamba2_block(x: torch.Tensor, params: Mamba2,
     cc = cmat.reshape(b, nc, cl, n).to(torch.float32)
     dtc = dt.reshape(b, nc, cl, h)
 
+    # per sequence: on DTensors each device runs its batch shard
+    y = run_local(_ssd, dac, xc, bc, cc, dtc).reshape(b, l, h, p)
+    y = y + params.d_h[None, None, :, None] * xs.to(torch.float32)
+    y = y.reshape(b, l, di) * F.silu(z.to(torch.float32))
+    if pad:
+        y = y[:, :l_in]
+    # group norm (simplified to rmsnorm over di, as the reference)
+    y = rmsnorm(y.to(x.dtype), params.norm_scale, cfg.norm_eps)
+    return torch.matmul(y, params.out_proj)
+
+
+def _ssd(dac: torch.Tensor, xc: torch.Tensor, bc: torch.Tensor,
+         cc: torch.Tensor, dtc: torch.Tensor) -> torch.Tensor:
+    """The chunked SSD core: dac (B, nc, H, cl) log-decays, xc (B, nc, cl,
+    H, P), bc and cc (B, nc, cl, N), dtc (B, nc, cl, H) -> the output
+    (B, nc, cl, H, P) before the skip term."""
+    b, nc, h, _ = dac.shape
+    n, p = bc.shape[-1], xc.shape[-1]
     # 1) intra-chunk (quadratic): Y_diag = (L o C B^T) . (dt x)
     lmat = torch.exp(_segsum(dac))  # (B, nc, H, cl, cl)
     cb = torch.einsum("bzin,bzjn->bzij", cc, bc)  # (B, nc, cl, cl)
@@ -229,7 +256,7 @@ def mamba2_block(x: torch.Tensor, params: Mamba2,
                            bc, xc)  # (B, nc, H, N, P)
 
     # 3) inter-chunk recurrence: the state entering each chunk
-    s = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    s = torch.zeros((b, h, n, p), dtype=torch.float32, device=dac.device)
     s_prev = []
     for zi in range(nc):
         s_prev.append(s)
@@ -240,15 +267,7 @@ def mamba2_block(x: torch.Tensor, params: Mamba2,
     # 4) inter-chunk contribution: Y_off = exp(a_cum) C . S_prev
     y_off = torch.einsum("bzhi,bzin,bzhnp->bzihp", torch.exp(a_cum), cc,
                          s_prev)
-
-    y = (y_diag + y_off).reshape(b, l, h, p)
-    y = y + params.d_h[None, None, :, None] * xs.to(torch.float32)
-    y = y.reshape(b, l, di) * F.silu(z.to(torch.float32))
-    if pad:
-        y = y[:, :l_in]
-    # group norm (simplified to rmsnorm over di, as the reference)
-    y = rmsnorm(y.to(x.dtype), params.norm_scale, cfg.norm_eps)
-    return torch.matmul(y, params.out_proj)
+    return y_diag + y_off
 
 
 def mamba2_decode(x: torch.Tensor, params: Mamba2, cfg: ArchConfig,

@@ -11,6 +11,15 @@ One directory per step, ``step_%08d/``, holding
 so a model checkpoint written by either package loads in the other. No
 pytree library is needed: a tree is a nest of dicts, lists and tuples
 whose leaves are tensors, arrays or numbers.
+
+Sharded state (the reference's elastic path): a tree may hold DTensors
+(``sharding.partition``). Saving gathers each to its full tensor, every
+rank taking part in the gathers and rank 0 writing, so a checkpoint
+written at one mesh shape restores at any other;
+``restore_checkpoint(..., shardings=...)`` places each leaf by its
+sharding. :func:`shard_state` places a ``TrainState`` (or an ``LM``) on a
+``DeviceMesh`` by ``param_specs`` and the optimizer-state rules of
+``launch.specs``; :func:`full_state` gathers it back.
 """
 from __future__ import annotations
 
@@ -24,30 +33,46 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.dtensor import is_dtensor
+
 _LDA_MODEL_KIND = "lda_model"
 
 
 def _as_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
-def _flatten(tree: Any, prefix: str = "") -> Tuple[List[Tuple[str, Any]],
-                                                    str]:
+def _writer(flat) -> bool:
+    """False on ranks other than 0 of a live process group when the tree
+    holds DTensors (each rank gathered them; rank 0 writes)."""
+    if not any(is_dtensor(leaf) for _, leaf in flat):
+        return True
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _flatten(tree: Any, prefix: str = "", is_leaf=None
+             ) -> Tuple[List[Tuple[str, Any]], str]:
     """(name, leaf) pairs in jax's flattening order, and the tree's
     description in the form ``str(jax treedef)`` gives it."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix.rstrip("/") or "leaf", tree)], "*"
     if isinstance(tree, dict):
         leaves, parts = [], []
         for key in sorted(tree):
-            sub, desc = _flatten(tree[key], f"{prefix}{key}/")
+            sub, desc = _flatten(tree[key], f"{prefix}{key}/", is_leaf)
             leaves += sub
             parts.append(f"{key!r}: {desc}")
         return leaves, "{" + ", ".join(parts) + "}"
     if isinstance(tree, (list, tuple)):
         leaves, parts = [], []
         for i, item in enumerate(tree):
-            sub, desc = _flatten(item, f"{prefix}{i}/")
+            sub, desc = _flatten(item, f"{prefix}{i}/", is_leaf)
             leaves += sub
             parts.append(desc)
         inner = ", ".join(parts)
@@ -59,13 +84,19 @@ def _flatten(tree: Any, prefix: str = "") -> Tuple[List[Tuple[str, Any]],
 
 def save_checkpoint(directory: str, step: int, tree: Any,
                     metadata: Optional[Dict] = None) -> str:
-    """Atomic, checksummed save of a tree of tensors/arrays."""
+    """Atomic, checksummed save of a tree of tensors/arrays. DTensor
+    leaves are written whole: every rank must call this (the gathers are
+    collectives), and rank 0 writes."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
+    flat, desc = _flatten(tree)
+    if not _writer(flat):
+        for _, leaf in flat:
+            _as_numpy(leaf)  # take part in the gathers
+        return final
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-    flat, desc = _flatten(tree)
     manifest = {
         "step": step,
         "treedef": f"PyTreeDef({desc})",
@@ -117,13 +148,18 @@ def _unflatten(target: Any, leaves: List[Any]) -> Any:
     return leaves.pop(0)
 
 
-def restore_checkpoint(path: str, target: Any,
-                       device=None) -> Tuple[Any, Dict]:
+def restore_checkpoint(path: str, target: Any, device=None,
+                       shardings: Optional[Any] = None) -> Tuple[Any, Dict]:
     """The checkpoint at ``path`` in the structure of ``target``, its
     leaves as torch tensors on ``device`` (default ``cuda``; raises
     without a card), and its metadata. The leaves fill ``target`` in
-    flattening order, as the reference's ``restore_checkpoint`` does."""
+    flattening order, as the reference's ``restore_checkpoint`` does.
+    ``shardings`` (a tree matching ``target`` of
+    ``sharding.partition.NamedSharding`` on a ``DeviceMesh``, or None for
+    a plain leaf) places each leaf as a DTensor; every rank reads the
+    files and keeps its shard."""
     from repro_torch.device import resolve_device
+    from repro_torch.sharding.partition import distribute
 
     dev = resolve_device(device)
     named, manifest = _verify_and_load(path)
@@ -133,7 +169,91 @@ def restore_checkpoint(path: str, target: Any,
                          f"the target {len(flat)}")
     leaves = [torch.from_numpy(np.array(named[entry["name"]])).to(dev)
               for entry in manifest["leaves"]]
+    if shardings is not None:
+        sh, _ = _flatten(shardings, is_leaf=_is_sharding)
+        if len(sh) != len(leaves):
+            raise ValueError(f"{len(sh)} shardings for {len(leaves)} leaves")
+        leaves = [t if s is None else distribute(t, s)
+                  for t, (_, s) in zip(leaves, sh)]
     return _unflatten(target, leaves), manifest["metadata"]
+
+
+def _is_sharding(x) -> bool:
+    from repro_torch.sharding.partition import NamedSharding
+
+    return x is None or isinstance(x, NamedSharding)
+
+
+# ---------------------------------------------------------------------------
+# placing a train state on a mesh and gathering it back
+# ---------------------------------------------------------------------------
+
+def _set_params(lm: torch.nn.Module, fn) -> None:
+    """Replace every parameter ``p`` of ``lm`` by ``fn(name, p)`` (kept
+    trainable as it was)."""
+    for name, p in list(lm.named_parameters()):
+        owner, _, attr = name.rpartition(".")
+        mod = lm.get_submodule(owner) if owner else lm
+        setattr(mod, attr, torch.nn.Parameter(fn(name, p.detach()),
+                                              requires_grad=p.requires_grad))
+
+
+def shard_state(state: Any, cfg, mesh) -> Any:
+    """A ``TrainState`` (or an ``LM``) placed on ``mesh`` (a
+    ``DeviceMesh``): each parameter by ``param_specs``, the optimizer
+    state by ``opt_shardings``, the step counters as they are. Every rank
+    holds the same full state (the same seed, or the same checkpoint) and
+    keeps its shards; nothing is communicated. The module and the
+    state's dicts are changed in place, leaf by leaf."""
+    from repro_torch.sharding.partition import (
+        distribute,
+        opt_shardings,
+        param_shardings,
+    )
+
+    lm = state if isinstance(state, torch.nn.Module) else state.params
+    p_sh = param_shardings(lm, cfg, mesh)
+    _set_params(lm, lambda n, p: distribute(p, p_sh[n]))
+    if isinstance(state, torch.nn.Module):
+        return lm
+    opt_sh = opt_shardings(state.opt_state, lm, cfg, mesh)
+    # scalars (the step counters) stay plain tensors, the same on every
+    # rank
+    opt = _map2(lambda t, s: t if s is None or t.dim() == 0 else
+                distribute(t, s),
+                state.opt_state, opt_sh)
+    return state._replace(params=lm, opt_state=opt)
+
+
+def full_state(state: Any) -> Any:
+    """The inverse of :func:`shard_state`: every DTensor gathered to its
+    full tensor (a collective: every rank calls it)."""
+    def full(t):
+        return t.full_tensor() if is_dtensor(t) else t
+
+    lm = state if isinstance(state, torch.nn.Module) else state.params
+    _set_params(lm, lambda n, p: full(p))
+    if isinstance(state, torch.nn.Module):
+        return lm
+    return state._replace(params=lm,
+                          opt_state=_map2(lambda t, s: full(t),
+                                          state.opt_state, state.opt_state))
+
+
+def _map2(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over a nest of dicts and (named)
+    tuples, ``other`` matching ``tree``'s structure. Dicts are updated in
+    place, entry by entry, so each old leaf can go before the next is
+    made (a full-width optimizer state has no room for two copies)."""
+    if isinstance(tree, dict):
+        for k in list(tree):
+            tree[k] = _map2(fn, tree[k], other[k])
+        return tree
+    if isinstance(tree, tuple):
+        items = [_map2(fn, a, b) for a, b in zip(tree, other)]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    return fn(tree, other)
 
 
 def _parse_step(dirname: str) -> Optional[int]:

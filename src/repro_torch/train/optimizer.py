@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.convert import _tree_path
+from repro_torch.sharding.dtensor import local, reduce_partials
 
 Params = Union[nn.Module, Dict[str, Any]]
 
@@ -87,24 +88,33 @@ class AdamWState(NamedTuple):
     v: Dict[str, torch.Tensor]
 
 
+def _moment(p: torch.Tensor) -> torch.Tensor:
+    """A float32 zero moment of ``p``'s shape (a DTensor parameter's in
+    its placements)."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
 def adamw_init(params: Params) -> AdamWState:
     leaves = named_leaves(params)
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=_device(leaves)),
-        m={n: _zeros(p.shape, p.device) for n, p in leaves},
-        v={n: _zeros(p.shape, p.device) for n, p in leaves})
+        m={n: _moment(p) for n, p in leaves},
+        v={n: _moment(p) for n, p in leaves})
 
 
 def _global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in grads))
+    return torch.sqrt(sum(local(reduce_partials(torch.sum(torch.square(
+        g.to(torch.float32))))) for g in grads))
 
 
 def _clip(grads, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scale, global norm before clipping). The reference returns ``g *
     scale`` for every leaf, which promotes a bf16 gradient to float32; the
     updates form that product leaf by leaf (``g.float() * scale``), so no
-    float32 copy of every gradient is held at once."""
+    float32 copy of every gradient is held at once. A DTensor gradient's
+    square sum is reduced over its shards first, so both are plain
+    tensors, the same on every rank."""
     gn = _global_norm(grads)
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
     return scale, gn
@@ -120,8 +130,11 @@ def adamw_update(params: Params, grads: Params, state: AdamWState,
     bc1 = 1.0 - cfg.beta1 ** t
     bc2 = 1.0 - cfg.beta2 ** t
     for name, p in named_leaves(params):
-        for pc, gc, m, v in zip(*(x.view(-1).split(_CHUNK) for x in (
-                p, g_by[name].reshape(-1), state.m[name], state.v[name]))):
+        # a DTensor's update runs on this rank's shard: the parameter, its
+        # gradient and moments share placements, and the update is
+        # elementwise
+        for pc, gc, m, v in zip(*(local(x).view(-1).split(_CHUNK) for x in (
+                p, g_by[name], state.m[name], state.v[name]))):
             g = gc.to(torch.float32) * scale
             m.mul_(cfg.beta1).add_(g * (1 - cfg.beta1))
             v.mul_(cfg.beta2).add_((g * (1 - cfg.beta2)).mul_(g))

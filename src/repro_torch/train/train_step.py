@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import LM, init_params, loss_fn
+from repro_torch.sharding.dtensor import dtensor_scope, is_dtensor
 from repro_torch.train.optimizer import OptConfig, make_optimizer
 
 
@@ -48,13 +49,22 @@ def compute_grads(params: LM, cfg: ArchConfig,
     """(loss, metrics, {parameter name: gradient}); a parameter the loss
     does not reach gets zeros, as ``jax.grad`` gives it."""
     named = list(params.named_parameters())
-    with torch.enable_grad():
+    with torch.enable_grad(), dtensor_scope(params.embed):
         loss, metrics = loss_fn(params, cfg, batch)
         grads = torch.autograd.grad(loss, [p for _, p in named],
                                     allow_unused=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, {
-        n: torch.zeros_like(p) if g is None else g
+        n: torch.zeros_like(p) if g is None else _placed_as(g, p)
         for (n, p), g in zip(named, grads)}
+
+
+def _placed_as(g, p):
+    """A DTensor parameter's gradient in the parameter's placements (a
+    replicated parameter's gradient comes back partial over the axes that
+    shard the batch); a plain gradient as it is."""
+    if not is_dtensor(p) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: Optional[OptConfig] = None,
@@ -94,6 +104,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[OptConfig] = None,
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
+        # a DTensor metric (partial over the batch shards) as its value
+        metrics = {k: v.full_tensor() if is_dtensor(v) else v
+                   for k, v in metrics.items()}
         return (TrainState(params=params, opt_state=new_opt,
                            step=state.step + 1), metrics)
 
