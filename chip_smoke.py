@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its mesh plan,
-sharded serving and router, the compare CLI, the examples and the LM
-zoo's serving and training paths on one CUDA card, and check them.
+sharded serving and router, the compare CLI, the examples, the LM zoo's
+serving and training paths, the kernels' launch shapes and the
+``LDATrainer`` shims on one CUDA card, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -297,6 +298,25 @@ Phases, each printing one JSON line:
    the LDA cell at mesh_four's blocks: its collective bytes == the bytes
    mesh_four's steps all-reduced a rank. None of the seven kernels may
    launch.
+27. autotune — each kernel's block shape against the others, each built
+   from its source with ``-D`` (``_build.variant``, all built at once
+   after the main build): kernels 1-2 at 8, 16 and 32 warps per block on
+   train_kernels' inputs (T = 1,048,576, K = 1000), kernel 6 at 2, 4, 8
+   and 16 warps on sparse_kernels' term-3 rows, kernel 7 at 128, 256 and
+   512 threads on cdf_kernels' path targets (each leg runs inside its
+   phase, on its inputs): every shape's draws (and kernels 1-2's
+   exact-work stats) equal to the default shape's, CUDA-event times per
+   shape; ``autotune_fused`` / ``autotune_sparse`` / ``autotune_cdf`` on
+   the same inputs (one launch each: no knob reaches a kernel); then
+   ``apply_best``'s knobs train the train_small corpus for 2 iterations
+   of ``zen_pallas`` fused and gathered, ``zen_sparse`` and ``zen_cdf``,
+   each state equal to the default knobs' run. Kernels 1, 2, 6 and 7 must
+   launch;
+28. trainer (runs after train) — ``LDATrainer`` at NYTIMES width on the
+   train cell's corpus, ``zen_pallas`` fused, 2 iterations: its state's
+   SHA-256 (topics and counts) equal to ``TrainSession.run``'s from the
+   same key, ``train(key, 1)`` then ``train(key, 1, state=...)`` equal to
+   ``train(key, 2)``, kernels 2 and 5 (and no other) launched.
 
 The serving phase also serves 64 documents with ``zen_cdf`` (throughput
 mode on its frozen per-word CDFs: no kernel), and train_small also runs
@@ -308,7 +328,8 @@ launch with index pi permutes them, and both are timed.
 Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
 with its launches on its own path and on the stream, quality,
 train_autopilot, serve_autopilot, mesh_one, mesh_four, sharded_serve,
-router, compare, examples, lm_serve, lm_train and lm_dryrun phases'),
+router, compare, examples, lm_serve, lm_train, lm_dryrun, autotune and
+trainer phases'),
 the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. It exits
 non-zero, before any result, when no CUDA device is present, when the
 repository's ``src/`` is missing, or when any check fails.
@@ -417,6 +438,17 @@ LM_DRYRUN_CELLS = [(LM_ARCH, shape, multi)
                        ("zenlda-nytimes", "train_lda", False)]
 LM_DRYRUN_PEAK_TOL = 0.15
 LM_DRYRUN_STEPS = 2
+# the autotune phase: each swept source's block-shape macro, its default
+# and the other values it is rebuilt at (_build.variant); its legs run
+# inside train_kernels, sparse_kernels and cdf_kernels on their inputs,
+# then apply_best's knobs train the train_small corpus for AUTOTUNE_ITERS
+SHAPES = {"zen_train.cu": ("ZEN_TRAIN_WARPS", 32, (8, 16)),
+          "sparse_row.cu": ("SPARSE_ROW_WARPS", 8, (2, 4, 16)),
+          "cdf_search.cu": ("CDF_SEARCH_THREADS", 256, (128, 512))}
+AUTOTUNE_ITERS = 2
+AUTOTUNE = {"sweeps": {}, "timings": [], "launches": {}, "seconds": 0.0}
+# the trainer phase: LDATrainer at NYTIMES width, zen_pallas fused
+TRAINER_ITERS = 2
 # The training phases' records, as this script measured them before
 # kernels 5 and 7 were redesigned (NVIDIA H100 80GB HBM3, 700 W; equal in
 # four runs of that tree): no kernel redesign may change them, since every
@@ -476,6 +508,50 @@ def check_launches(phase: str, counts, want) -> None:
     """``counts`` must be ``want`` (kernel -> launches) and 0 elsewhere."""
     got = {n: v for n, v in counts.items() if v or n in want}
     check(got == want, f"{phase}: expected launches {want}, got {counts}")
+
+
+def autotune_leg(fn):
+    """One leg of the autotune phase, with every launch count at 0 just
+    before it; its launches are added to ``AUTOTUNE["launches"]`` and its
+    seconds to ``AUTOTUNE["seconds"]``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    AUTOTUNE["seconds"] += time.perf_counter() - t0
+    for name, n in ops.launch_counts().items():
+        AUTOTUNE["launches"][name] = AUTOTUNE["launches"].get(name, 0) + n
+    return out
+
+
+def shape_variants():
+    """(source, defines) of every shape :data:`SHAPES` sweeps but the
+    defaults, for ``_build.build``."""
+    return [(src, (f"{macro}={v}",))
+            for src, (macro, _, others) in SHAPES.items() for v in others]
+
+
+def at_shape(source: str, value: int):
+    """The launchers of ``source`` at block shape ``value`` while the
+    block runs: its variant build, or the main build at the default."""
+    import contextlib
+
+    from repro_torch.kernels import _build
+
+    macro, default, _ = SHAPES[source]
+    if value == default:
+        return contextlib.nullcontext()
+    return _build.variant(source, f"{macro}={value}")
+
+
+def shapes_of(source: str):
+    _, default, others = SHAPES[source]
+    return sorted((default, *others))
 
 
 def nvidia_smi(query: str) -> str:
@@ -1089,6 +1165,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [str(src.relative_to(ROOT)) for src in _build.SOURCES],
           "ptxas": ptxas})
+    # the autotune phase's other block shapes, all at once
+    t0 = time.perf_counter()
+    _build.build(shape_variants())
+    emit({"phase": "build_shapes", "seconds": time.perf_counter() - t0,
+          "variants": [f"{src} -D{d[0]}" for src, d in shape_variants()]})
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = phase_kernels(gen, dev, props.multi_processor_count, sm_clock_hz)
@@ -1735,6 +1816,9 @@ def phase_train_kernels(sess, st, seed: int, sm_count: int,
           "sass": sass, "exact_share": exact_share,
           "exact_work": {"forced": forced, "candidates": cands,
                          "exact_loop_tokens": fallback}})
+    autotune_leg(lambda: autotune_train(
+        st, word, doc, z, alpha, n_k, kseed, beta, w_beta, nwk_rows,
+        nkd_rows, out_f, [forced, cands, fallback]))
     del nwk_rows, nkd_rows
     torch.cuda.empty_cache()
     dev = st.n_wk.device
@@ -1842,6 +1926,8 @@ def device_summary(prof, wall_us: float, items: int = 8, groups=None):
     group's [ms, launches]. Only events that ran on the card count: an
     operator's host-side entry also carries its kernels' device time, and
     counting both would count that time twice."""
+    import re
+
     from torch.autograd import DeviceType
 
     by_name, calls = {}, {}
@@ -1863,8 +1949,10 @@ def device_summary(prof, wall_us: float, items: int = 8, groups=None):
     if groups:
         out["groups_ms"] = {}
         for name, fns in groups.items():
+            # a template's name goes on with "<": match up to it
             keys = [k for k in by_name
-                    if any(f"::{f}(" in k for f in fns)]
+                    if any(re.search(rf"::{re.escape(f)}[<(]", k)
+                           for f in fns)]
             out["groups_ms"][name] = [sum(by_name[k] for k in keys) / 1e3,
                                       sum(calls[k] for k in keys)]
     return out
@@ -1959,6 +2047,7 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
     corpus_dev = sess.corpus
     del sess, st
     torch.cuda.empty_cache()
+    trainer_counts = phase_trainer(corpus_dev, seed, dev, smi)
     quality_counts, autopilot_counts = phase_quality(corpus_dev, seed, smi)
     gathered_launches = phase_train_small(seed, dev, smi)
     sparse_counts, sparse_row = phase_train_sparse(corpus_dev, seed, smi)
@@ -1967,6 +2056,7 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
         corpus_dev, seed, smi, props.multi_processor_count, sm_clock_hz)
     del corpus_dev
     torch.cuda.empty_cache()
+    autotune_counts = phase_autotune(seed, dev, smi)
     phase_train_sparse_small(seed, dev, smi)
     stream_counts = phase_stream(corpus, seed, dev, smi)
     mesh_one_counts = phase_mesh_one(corpus, seed, dev, smi)
@@ -1987,7 +2077,8 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
         "topic_histogram": train_counts["topic_histogram"]}, {
         "stream": stream_counts, "quality": quality_counts,
         "train_autopilot": autopilot_counts, "mesh_one": mesh_one_counts,
-        "mesh_four": mesh_four_counts}
+        "mesh_four": mesh_four_counts, "autotune": autotune_counts,
+        "trainer": trainer_counts}
 
 
 def phase_train_sparse(corpus, seed: int, smi):
@@ -2132,6 +2223,9 @@ def phase_sparse_kernels(sess, st, seed: int):
               f"mismatches over {t} tokens")
         ms_k = cuda_ms(kernel, reps=10)
         ms_p = cuda_ms(plain, reps=2, warmup=1)
+        if name == "term3":
+            autotune_leg(lambda: autotune_sparse_rows(vals, topics, tgt,
+                                                      out_k))
         j = vals.shape[1]
         # the function must read every weight (it counts over all J
         # lanes), one target and one topic id per row, and write one
@@ -2376,6 +2470,9 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
         ms_host = cuda_ms(kernel, reps=10)  # at the host's launch pace
         ms_p = cuda_ms(plain, reps=2, warmup=1)
         ms_o = cuda_ms(off, reps=10)
+        if name == "path":
+            autotune_leg(lambda: autotune_cdf_rows(st.n_wk, word, term, tgt,
+                                                   out_k))
         # what this data needs: a token with target <= 0 reads nothing; the
         # others the row's counts up to the answer (all K when clamped)
         live = tgt > 0
@@ -2429,6 +2526,229 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
         # no one PyTorch call computes it
         "library_ms": None,
     }
+
+
+def autotune_train(st, word, doc, z, alpha, n_k, kseed, beta, w_beta,
+                   nwk_rows, nkd_rows, out_f, stats_default):
+    """The autotune phase on train_kernels' inputs: kernels 1 and 2 at
+    every block shape (draws and exact-work stats equal to the default
+    shape's, CUDA-event times as the kernels table takes them), then
+    ``autotune_fused``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import autotune_fused
+    from repro_torch.kernels.fused_gather import zen_fused_sample_cuda
+
+    kw = dict(beta=beta, w_beta=w_beta)
+
+    def fused():
+        return ops.zen_fused_sample(st.n_wk, st.n_kd, word, doc, z, alpha,
+                                    n_k, kseed, **kw)
+
+    def gathered():
+        return ops.zen_sample(nwk_rows, nkd_rows, z, alpha, n_k, kseed, **kw)
+
+    rows = []
+    for warps in shapes_of("zen_train.cu"):
+        with at_shape("zen_train.cu", warps):
+            stats = torch.zeros(3, dtype=torch.int64, device=z.device)
+            out_s = zen_fused_sample_cuda(st.n_wk, st.n_kd, word, doc, z,
+                                          alpha, n_k, kseed, stats=stats,
+                                          **kw)
+            same = (bool(torch.equal(fused(), out_f))
+                    and bool(torch.equal(gathered(), out_f))
+                    and bool(torch.equal(out_s, out_f))
+                    and stats.tolist() == stats_default)
+            check(same, f"autotune: kernels 1-2 at {warps} warps drew "
+                  f"other topics or stats ({stats.tolist()} vs "
+                  f"{stats_default})")
+            rows.append({"warps": warps, "bit_equal": True,
+                         "fused_ms": cuda_ms(fused, reps=5, warmup=1),
+                         "gathered_ms": cuda_ms(gathered, reps=5,
+                                                warmup=1)})
+    timings = autotune_fused(st.n_wk, st.n_kd, word, doc, z, alpha, n_k,
+                             kseed, bts=(128, 256), bks=(512,), iters=5,
+                             **kw)
+    AUTOTUNE["timings"] += timings
+    AUTOTUNE["sweeps"]["zen_fused_sample+zen_sample"] = {
+        "T": int(word.shape[0]), "K": int(alpha.shape[0]), "shapes": rows,
+        "autotune_us": [[t.bt, t.bk, t.us_per_call] for t in timings]}
+
+
+def autotune_sparse_rows(vals, topics, tgt, out_default):
+    """The autotune phase on sparse_kernels' term-3 rows: kernel 6 at
+    every block shape, equal to the default's, timed; then
+    ``autotune_sparse``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import autotune_sparse
+
+    def kernel():
+        return ops.sparse_row_sample(vals, topics, tgt)
+
+    rows = []
+    for warps in shapes_of("sparse_row.cu"):
+        with at_shape("sparse_row.cu", warps):
+            check(bool(torch.equal(kernel(), out_default)),
+                  f"autotune: kernel 6 at {warps} warps drew other topics")
+            rows.append({"warps": warps, "bit_equal": True,
+                         "ms": cuda_ms(kernel, reps=10)})
+    timings = autotune_sparse(vals, topics, tgt, bts=(128, 256),
+                              bss=(128,), iters=5)
+    AUTOTUNE["timings"] += timings
+    AUTOTUNE["sweeps"]["sparse_row_sample"] = {
+        "T": int(vals.shape[0]), "J": int(vals.shape[1]), "shapes": rows,
+        "autotune_us": [[t.bt, t.bs, t.us_per_call] for t in timings]}
+
+
+def autotune_cdf_rows(counts, rows_ids, term, tgt, out_default):
+    """The autotune phase on cdf_kernels' path targets: kernel 7 at every
+    block shape, equal to the default's, timed gated; then
+    ``autotune_cdf``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import autotune_cdf
+
+    def kernel():
+        return ops.cdf_row_search(counts, rows_ids, term, tgt)
+
+    rows = []
+    for threads in shapes_of("cdf_search.cu"):
+        with at_shape("cdf_search.cu", threads):
+            check(bool(torch.equal(kernel(), out_default)),
+                  f"autotune: kernel 7 at {threads} threads drew other "
+                  f"topics")
+            rows.append({"threads": threads, "bit_equal": True,
+                         "ms": cuda_ms(kernel, reps=10, gate=True)})
+    timings = autotune_cdf(counts, rows_ids, term, tgt, bts=(128, 256),
+                           bks=(512,), iters=5)
+    AUTOTUNE["timings"] += timings
+    AUTOTUNE["sweeps"]["cdf_row_search"] = {
+        "T": int(rows_ids.shape[0]), "K": int(term.shape[0]),
+        "shapes": rows,
+        "autotune_us": [[t.bt, t.bk, t.us_per_call] for t in timings]}
+
+
+def phase_autotune(seed: int, dev, smi):
+    """The autotune phase's last leg: ``apply_best`` over the three
+    sweeps' timings, then the train_small corpus for AUTOTUNE_ITERS
+    iterations of ``zen_pallas`` (fused and gathered), ``zen_sparse`` and
+    ``zen_cdf`` under the default knobs and the tuned ones: each run's
+    state equal to the default knobs' run. Returns the phase's launches
+    (all legs)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.algorithms import SamplerKnobs
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.kernels.autotune import apply_best
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    default = SamplerKnobs()
+    tuned = apply_best(AUTOTUNE["timings"], default)
+    knob_sets = {"default": default, "tuned": tuned}
+    corpus = synthetic_nytimes(SMALL_DOCS)
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    runs = (("zen_pallas", "auto"), ("zen_pallas", "off"),
+            ("zen_sparse", "auto"), ("zen_cdf", "auto"))
+
+    def train_small():
+        digests = {}
+        for label, kn in knob_sets.items():
+            for algorithm, kernels in runs:
+                sess = TrainSession(corpus, hyper, RunConfig(
+                    algorithm=algorithm, kernels=kernels, bt=kn.bt,
+                    bk=kn.bk, bs=kn.bs, max_kd=CDF_MAX_KD
+                    if algorithm == "zen_cdf" else 0), device=dev)
+                st = sess.init(seed)
+                for _ in range(AUTOTUNE_ITERS):
+                    st = sess.step(st)
+                    st.check_invariants(sess.corpus)
+                digests[(label, algorithm, kernels)] = _digest(
+                    st.topic, st.n_wk, st.n_kd, st.n_k)
+                del sess, st
+        return digests
+
+    digests = autotune_leg(train_small)
+    for (label, algorithm, kernels), d in digests.items():
+        check(d == digests[("default", algorithm, kernels)],
+              f"autotune: {algorithm} (kernels={kernels}) under the "
+              f"{label} knobs trained another state than the default's")
+    torch.cuda.empty_cache()
+    launches = dict(AUTOTUNE["launches"])
+    for name in ("zen_sample", "zen_fused_sample", "sparse_row_sample",
+                 "cdf_row_search"):
+        check(launches.get(name, 0) > 0,
+              f"autotune: {name} was not launched: {launches}")
+    emit({"phase": "autotune", "sweeps": AUTOTUNE["sweeps"],
+          "apply_best": dataclasses.asdict(tuned),
+          "train_small": {"iterations": AUTOTUNE_ITERS,
+                          "tokens": corpus.num_tokens,
+                          "knob_sets": {k: dataclasses.asdict(v)
+                                        for k, v in knob_sets.items()},
+                          "states_equal_default": True},
+          "seconds": AUTOTUNE["seconds"], "launches": launches,
+          "card": smi})
+    return launches
+
+
+def phase_trainer(corpus, seed: int, dev, smi):
+    """``LDATrainer`` (the deprecated shims) at NYTIMES width on the train
+    cell's corpus, ``zen_pallas`` fused: ``train(key, 2)`` and ``train(key,
+    1)`` then ``train(key, 1, state=...)``, each state's SHA-256 (topics and
+    counts) equal to ``TrainSession.run``'s from the same key; kernels 2
+    and 5 launched (one and two a step). Returns the phase's launches."""
+    import torch
+
+    from repro_torch.core import LDATrainer, TrainConfig
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.kernels import ops
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    hyper = LDAHyperParams(num_topics=K_NYT)
+    sess = TrainSession(corpus, hyper, RunConfig(
+        algorithm="zen_pallas", num_iterations=TRAINER_ITERS), device=dev)
+    want = sess.run(seed)
+    want_sha = _digest(want.topic, want.n_wk, want.n_kd, want.n_k)
+    del sess, want
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = LDATrainer(corpus, hyper, TrainConfig(algorithm="zen_pallas"),
+                         device=dev)
+    straight = trainer.train(seed, TRAINER_ITERS)
+    torch.cuda.synchronize()
+    t_straight = time.perf_counter() - t0
+    straight_sha = _digest(straight.topic, straight.n_wk, straight.n_kd,
+                           straight.n_k)
+    del straight
+    half = trainer.train(seed, TRAINER_ITERS // 2)
+    resumed = trainer.train(seed, TRAINER_ITERS - TRAINER_ITERS // 2,
+                            state=half)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    resumed_sha = _digest(resumed.topic, resumed.n_wk, resumed.n_kd,
+                          resumed.n_k)
+    iteration = int(resumed.iteration)
+    del half, resumed, trainer
+    torch.cuda.empty_cache()
+    emit({"phase": "trainer", "tokens": corpus.num_tokens, "K": K_NYT,
+          "iterations": TRAINER_ITERS, "session_sha256": want_sha,
+          "trainer_sha256": straight_sha, "resumed_sha256": resumed_sha,
+          "straight_seconds": t_straight, "launches": counts, "card": smi})
+    check(straight_sha == want_sha,
+          "trainer: LDATrainer.train differs from TrainSession.run")
+    check(resumed_sha == want_sha and iteration == TRAINER_ITERS,
+          "trainer: train then train(state=...) differs from the straight "
+          "run")
+    check_launches("trainer", counts, {
+        "zen_fused_sample": 2 * TRAINER_ITERS,
+        "topic_histogram": 4 * TRAINER_ITERS})
+    return counts
 
 
 def phase_train_sparse_small(seed: int, dev, smi):

@@ -50,56 +50,16 @@ from typing import Any, Optional
 
 import torch
 
+# the knobs live in a module that imports no repro_torch.core, so that
+# core.trainer can import them at the top
+from repro_torch.algorithms.knobs import (  # noqa: F401
+    VALID_KERNEL_MODES,
+    SamplerKnobs,
+    knobs_from,
+)
 from repro_torch.core.inference import chain_sweep, frozen_phi_rows
 from repro_torch.core.keys import fold_in, key_seed
 from repro_torch.core.sampler import chunked_token_map  # noqa: F401
-
-# SamplerKnobs.kernels policy: "auto" = kernels when the tensors lie on
-# CUDA; "on"/"off" pick the fused or the gathered kernel there
-VALID_KERNEL_MODES = ("auto", "on", "off")
-
-# the reference's tile floors, kept so that one config validates alike in
-# both packages (the CUDA kernels take any bt/bk)
-_MIN_BT = 8
-_LANE = 128
-
-
-@dataclasses.dataclass(frozen=True)
-class SamplerKnobs:
-    """Algorithm knobs shared by every backend; same fields and the same
-    validation as the reference's."""
-
-    sampling_method: str = "cdf"  # dense paths: cdf | gumbel
-    max_kw: int = 0
-    max_kd: int = 0
-    num_mh: int = 8
-    token_chunk: int = 0
-    bt: int = 256
-    bk: int = 512
-    bs: int = 128
-    kernels: str = "auto"  # auto | on | off
-
-    def __post_init__(self):
-        if self.bt < _MIN_BT:
-            raise ValueError(
-                f"SamplerKnobs.bt={self.bt}: token tiles need at least "
-                f"{_MIN_BT} rows"
-            )
-        for name, v in (("bk", self.bk), ("bs", self.bs)):
-            if v < _LANE or v % _LANE:
-                raise ValueError(
-                    f"SamplerKnobs.{name}={v}: topic/lane tiles must be "
-                    f"positive multiples of {_LANE}"
-                )
-        if self.kernels not in VALID_KERNEL_MODES:
-            raise ValueError(
-                f"SamplerKnobs.kernels={self.kernels!r}: expected one of "
-                f"{VALID_KERNEL_MODES}"
-            )
-
-    def chunk_or_none(self) -> Optional[int]:
-        return self.token_chunk or None
-
 
 def kernel_dispatch(mode: str, device: torch.device) -> bool:
     """Resolve a ``kernels`` policy: True picks the fused kernel path.
@@ -115,15 +75,6 @@ def kernel_dispatch(mode: str, device: torch.device) -> bool:
     if mode == "auto":
         return torch.device(device).type == "cuda"
     return mode == "on"
-
-
-_KNOB_FIELDS = tuple(f.name for f in dataclasses.fields(SamplerKnobs))
-
-
-def knobs_from(cfg) -> SamplerKnobs:
-    """THE SamplerKnobs derivation: every training config builds its knobs
-    here, from the fields it shares with :class:`SamplerKnobs`."""
-    return SamplerKnobs(**{f: getattr(cfg, f) for f in _KNOB_FIELDS})
 
 
 class SamplerBackend:

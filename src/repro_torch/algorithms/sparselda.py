@@ -8,7 +8,11 @@ to its inline form).
 """
 from __future__ import annotations
 
-from repro_torch.algorithms.base import CellBackend, SamplerKnobs
+from repro_torch.algorithms.base import (  # noqa: F401
+    CellBackend,
+    SamplerKnobs,
+    kernel_dispatch,  # the reference's module surface
+)
 from repro_torch.algorithms.registry import register
 from repro_torch.core.baselines import sparselda_cell
 

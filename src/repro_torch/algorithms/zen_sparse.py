@@ -9,7 +9,11 @@ version.
 """
 from __future__ import annotations
 
-from repro_torch.algorithms.base import CellBackend, SamplerKnobs
+from repro_torch.algorithms.base import (  # noqa: F401
+    CellBackend,
+    SamplerKnobs,
+    kernel_dispatch,  # the reference's module surface
+)
 from repro_torch.algorithms.registry import register
 from repro_torch.core.zen_sparse import zen_sparse_cell
 

@@ -33,6 +33,7 @@ from repro_torch.core.zen_sparse import (
     _pad_topic,
     gather_rows,
     lookup_gathered,
+    lookup_rows,  # noqa: F401  (the reference's module surface)
     sparsify_rows,
 )
 from repro_torch.kernels.ops import sparse_row_sample

@@ -30,6 +30,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from repro_torch.core.types import Corpus  # noqa: F401  (type of the input)
+
 
 def _host(x) -> np.ndarray:
     """A host numpy view of a torch tensor or array."""

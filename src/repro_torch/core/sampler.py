@@ -29,7 +29,12 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from repro_torch.core import counts as counts_lib
-from repro_torch.core.decompositions import precompute_zen_terms, std_probs
+from repro_torch.core.decompositions import (  # noqa: F401
+    ZenTerms,  # ZenTerms and zen_probs: the reference's module surface
+    precompute_zen_terms,
+    std_probs,
+    zen_probs,
+)
 from repro_torch.core.keys import fold_in, key_seed
 from repro_torch.core.types import CGSState, Corpus, LDAHyperParams
 from repro_torch.kernels.zen_sampler import gumbel_noise, hash_uniform

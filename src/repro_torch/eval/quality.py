@@ -32,7 +32,10 @@ from repro_torch.eval.coherence import (
     top_topic_words,
     umass_coherence,
 )
-from repro_torch.eval.left_to_right import left_to_right_llh_batch
+from repro_torch.eval.left_to_right import (  # noqa: F401
+    left_to_right_llh,  # the reference's module surface
+    left_to_right_llh_batch,
+)
 
 
 @dataclasses.dataclass(frozen=True)

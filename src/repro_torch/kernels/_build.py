@@ -6,9 +6,14 @@ this file (listed in ``.gitignore``). The sources not built yet compile
 in parallel, one nvcc each; a library already built from the same source
 and flags is reused. Nothing here runs at import: the first launch builds
 and loads.
+
+Each kernel has one block shape, a constant of its source. A measurement
+can rebuild a source with ``-D`` another shape and run the launchers on it
+for a while (:func:`variant`); nothing else does.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -16,7 +21,7 @@ import pathlib
 import shutil
 import subprocess
 import types
-from typing import Optional
+from typing import Iterable, Optional, Sequence, Tuple
 
 _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = (
@@ -85,42 +90,70 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def target(source: pathlib.Path) -> pathlib.Path:
-    """The library built from ``source`` with :data:`NVCC_FLAGS`."""
+def target(source: pathlib.Path, defines: Sequence[str] = ()) -> pathlib.Path:
+    """The library built from ``source`` with :data:`NVCC_FLAGS` and a
+    ``-D`` for each of ``defines``."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build() -> str:
-    """Compile every source not built yet, all at once; return nvcc's
+def _source(name: str) -> pathlib.Path:
+    for src in SOURCES:
+        if src.name == name:
+            return src
+    raise ValueError(f"{name}: not one of {[s.name for s in SOURCES]}")
+
+
+def build(variants: Iterable[Tuple[str, Sequence[str]]] = ()) -> str:
+    """Compile every source not built yet, and each (source file name,
+    defines) of ``variants`` not built yet, all at once; return nvcc's
     output (the ``-Xptxas -v`` register/spill summary, empty when every
     library is reused). Raises if a compile fails."""
-    todo = [s for s in SOURCES if not target(s).exists()]
+    jobs = [(s, ()) for s in SOURCES]
+    jobs += [(_source(name), tuple(defines)) for name, defines in variants]
+    todo = list(dict.fromkeys(
+        (s, d) for s, d in jobs if not target(s, d).exists()))
     if not todo:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for src in todo:
-        tmp = target(src).with_suffix(f".{os.getpid()}.tmp")
-        procs.append((src, tmp, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    for src, defines in todo:
+        out = target(src, defines)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((src, out, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+             str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     logs, failed = [], []
-    for src, tmp, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(out)
+    for src, out, tmp, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(text)
         if proc.returncode != 0:
-            failed.append(f"CUDA build of {src.name} failed (nvcc exit "
-                          f"{proc.returncode}):\n{out}")
+            failed.append(f"CUDA build of {out.name} ({src.name}) failed "
+                          f"(nvcc exit {proc.returncode}):\n{text}")
         else:
             # atomic: a concurrent build never sees half a file
-            os.replace(tmp, target(src))
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return "".join(logs)
+
+
+def _bind(libs) -> dict:
+    """The launchers of :data:`SIGNATURES` that ``libs`` export, typed."""
+    fns = {}
+    for name, argtypes in SIGNATURES.items():
+        fn = next((getattr(lib, name) for lib in libs
+                   if hasattr(lib, name)), None)
+        if fn is not None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return fns
 
 
 def library() -> types.SimpleNamespace:
@@ -129,16 +162,29 @@ def library() -> types.SimpleNamespace:
     global _LIB
     if _LIB is None:
         build()
-        libs = [ctypes.CDLL(str(target(s))) for s in SOURCES]
-        fns = {}
-        for name, argtypes in SIGNATURES.items():
-            fn = next(getattr(lib, name) for lib in libs
-                      if hasattr(lib, name))
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-            fns[name] = fn
+        fns = _bind([ctypes.CDLL(str(target(s))) for s in SOURCES])
+        missing = sorted(set(SIGNATURES) - set(fns))
+        if missing:
+            raise RuntimeError(f"no library exports {missing}")
         _LIB = types.SimpleNamespace(**fns)
     return _LIB
+
+
+@contextlib.contextmanager
+def variant(source: str, *defines: str):
+    """Run the launchers of ``source`` (a file name of :data:`SOURCES`)
+    from its build with ``-D`` ``defines`` while the block runs, e.g.
+    ``variant("sparse_row.cu", "SPARSE_ROW_WARPS=4")``: another block
+    shape, for measurement. Built here unless :func:`build` built it."""
+    global _LIB
+    base = library()
+    build([(source, defines)])
+    fns = _bind([ctypes.CDLL(str(target(_source(source), defines)))])
+    _LIB = types.SimpleNamespace(**{**vars(base), **fns})
+    try:
+        yield
+    finally:
+        _LIB = base
 
 
 def check_launch(name: str, err: int) -> None:

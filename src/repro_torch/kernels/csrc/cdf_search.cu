@@ -69,7 +69,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// Threads per block of both kernels; a build may define CDF_SEARCH_THREADS
+// (a multiple of 32) to measure another shape (_build.variant). A token's
+// result depends on its own row, term and target only; where its queue
+// entry lands changes nothing.
+#ifndef CDF_SEARCH_THREADS
+#define CDF_SEARCH_THREADS 256
+#endif
+constexpr int kThreads = CDF_SEARCH_THREADS;
+static_assert(kThreads % 32 == 0, "CDF_SEARCH_THREADS: whole warps");
 constexpr int kWarps = kThreads / 32;
 constexpr int kTokensPerThread = 4;
 constexpr int kTokensPerBlock = kThreads * kTokensPerThread;

@@ -40,7 +40,13 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+// Tokens (warps) per block; a build may define SPARSE_ROW_WARPS to
+// measure another shape (_build.variant). A token's warp reads only its
+// own row, so the shape changes no result.
+#ifndef SPARSE_ROW_WARPS
+#define SPARSE_ROW_WARPS 8
+#endif
+constexpr int kWarpsPerBlock = SPARSE_ROW_WARPS;
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)

@@ -120,13 +120,21 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 32;
-constexpr int kThreads = kWarpsPerBlock * 32;
 // One block of 32 warps per SM (<= 64 registers a thread), taking a
 // contiguous run of tokens: the warps of an SM then share each document's
 // doc row in L1 (faster on the H100 than 8- or 16-warp blocks, or blocks
-// striding over the tokens).
-constexpr int kMinBlocks = 1;
+// striding over the tokens). A build may define ZEN_TRAIN_WARPS (8 or 16)
+// to measure another shape (_build.variant): 32 / kWarpsPerBlock blocks an
+// SM at the same register cap, each building its own table. A token's
+// draw hashes its global index and reads only its own rows and the table,
+// so the shape changes no draw.
+#ifndef ZEN_TRAIN_WARPS
+#define ZEN_TRAIN_WARPS 32
+#endif
+constexpr int kWarpsPerBlock = ZEN_TRAIN_WARPS;
+static_assert(32 % kWarpsPerBlock == 0, "ZEN_TRAIN_WARPS must divide 32");
+constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kMinBlocks = 32 / kWarpsPerBlock;
 constexpr uint32_t kM1 = 0x85EBCA6Bu;
 constexpr uint32_t kM2 = 0xC2B2AE35u;
 constexpr uint32_t kGold = 0x9E3779B9u;

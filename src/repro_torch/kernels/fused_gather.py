@@ -21,6 +21,7 @@ from repro_torch.kernels.zen_sampler import (
     PLAIN_CHUNK,
     check_cuda_args,
     check_seed,
+    gumbel_noise,  # noqa: F401  (the reference's module surface)
     infer_argmax_rows,
     infer_launch_extras,
     noise_rows,

@@ -2,8 +2,10 @@
 tensor launches the hand-written kernel, any other device raises.
 
 Arguments mirror ``repro/kernels/ops.py``. ``bt``/``bk``/``bs`` are
-accepted so that callers and configs carry over, but they change no draw:
-the CUDA kernels walk the real K (or row width J) and need no padding.
+accepted so that callers and configs carry over, but they reach no kernel
+and change no draw: the CUDA kernels walk the real K (or row width J) with
+no tile to pad to, and each has one block shape, a constant of its source
+(``chip_smoke.py``'s autotune phase measures the others).
 
 Each wrapper counts its kernel launches in a plain int
 (:func:`launch_counts`), so a run can show that its main path went

@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import SHAPES, get_config  # noqa: F401
 from repro_torch.configs.base import ArchConfig
 
 

@@ -49,6 +49,9 @@ from torch.utils.flop_counter import flop_registry
 PEAK_FLOPS = 989e12  # dense BF16 tensor cores, per card
 HBM_BW = 3.35e12  # bytes/s
 NVLINK_BW = 450e9  # bytes/s, one direction, per card
+# the reference's name for the chip-to-chip link rate: here the card's
+# NVLink
+ICI_BW = NVLINK_BW
 
 
 def roofline_terms(record: Dict[str, Any]) -> Dict[str, float]:

@@ -19,8 +19,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.configs import SHAPES, get_config  # noqa: F401
 from repro_torch.configs.base import ArchConfig, LDAArchConfig, ShapeConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.model import init_cache  # noqa: F401
+from repro_torch.train.optimizer import OptConfig  # noqa: F401
+from repro_torch.train.train_step import init_train_state  # noqa: F401
 from repro_torch.sharding.partition import (
     NamedSharding,
     batch_sharding,

@@ -23,7 +23,9 @@ from typing import Dict
 
 from repro_torch.configs import SHAPES, get_config, list_archs, shapes_for
 from repro_torch.configs.base import LDAArchConfig
-from repro_torch.launch.roofline import (
+from repro_torch.launch.roofline import (  # noqa: F401
+    HBM_BW,  # HBM_BW and ICI_BW: the reference's module surface
+    ICI_BW,
     NVLINK_BW,
     PEAK_FLOPS,
     model_flops,

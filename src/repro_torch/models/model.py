@@ -33,6 +33,7 @@ from repro_torch.models.attention import (
     _mask_bias,
     _qkv,
     attend,
+    cross_kv,  # noqa: F401  (the reference's module surface)
 )
 from repro_torch.models.layers import (
     Norm,
@@ -50,6 +51,8 @@ from repro_torch.models.transformer import (
     SharedAttn,
     SSMLayer,
     _ffn,
+    decoder_layer,  # noqa: F401  (the reference's module surface)
+    decoder_layer_decode,  # noqa: F401
     dense_decode,
     dense_forward,
     encdec_decode,

@@ -32,7 +32,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import LM, decode_step, init_cache
+from repro_torch.models.model import (  # noqa: F401
+    LM,
+    decode_step,
+    init_cache,
+    prefill_with_cache,  # the reference's module surface
+)
 
 
 @dataclasses.dataclass

@@ -53,7 +53,7 @@ import torch
 from repro_torch.core import counts as counts_lib
 from repro_torch.core.keys import as_key, fold_in, init_topics, split
 from repro_torch.core.likelihood import predictive_llh
-from repro_torch.core.types import CGSState, LDAHyperParams
+from repro_torch.core.types import CGSState, Corpus, LDAHyperParams  # noqa: F401
 from repro_torch.data.stream import CorpusSource, ReplaySource, Window
 from repro_torch.device import resolve_device
 from repro_torch.train.session import (

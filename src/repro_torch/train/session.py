@@ -9,16 +9,20 @@ the mesh plan.
   (``window_docs``, ``stream_source``) drive
   ``train.online.StreamingSession``; ``TrainSession`` ignores them, as
   the reference's does.
+* ``ExecutionPlan`` — the plans' common surface (the reference's base
+  class).
 * ``SingleBoxPlan`` — the whole corpus as one cell on one device: sweep
   (the registry backend), exclusion mask, delta merge and exclusion
-  statistics, as the reference's single-box plan does them.
+  statistics, as the reference's single-box plan does them, and
+  ``llh_split`` (``joint_llh``'s word and doc parts).
 * ``MeshPlan`` — one rank per cell under ``torch.distributed``
   (``core.distributed``): ``grid_partition``'s layout, the paper's
   Fig. 2 step, with the reference plan's surface. Every rank runs the
   same session, so evals, the schedule and the autopilot fire alike on
   all of them; only rank 0 writes checkpoints.
 * ``TrainSession`` — ``init() / step() / run() / llh() / perplexity() /
-  metrics() / save_model() / merge_duplicates()``, with the reference's
+  metrics() / save_model() / merge_duplicates() / with_run_params()``
+  (``plan=`` shares a prepared plan), with the reference's
   schedule actions: ``exclusion_on``, ``rebuild``, ``repad``,
   ``autopilot``, ``hyper``, ``merge``, ``eval``, ``quality``,
   ``model_checkpoint``, ``train_checkpoint`` and ``telemetry``; ``run()``
@@ -62,7 +66,7 @@ from repro_torch.core.exclusion import (
 )
 from repro_torch.core.hyper import duplicate_topic_map, merge_topics
 from repro_torch.core.keys import as_key, fold_in, split, uniform_ints_at
-from repro_torch.core.likelihood import predictive_llh
+from repro_torch.core.likelihood import joint_llh, predictive_llh
 from repro_torch.core.types import CGSState, Corpus, LDAHyperParams
 from repro_torch.device import resolve_device
 from repro_torch.kernels.topic_histogram import RowOrder, row_order
@@ -178,7 +182,16 @@ def refuse_unported(cfg: RunConfig) -> None:
             f"{', '.join(algorithms.registered())})") from None
 
 
-class SingleBoxPlan:
+class ExecutionPlan:
+    """The base of the two plans (the reference's; a type, no code): what
+    a ``TrainSession`` calls on its plan is what ``SingleBoxPlan`` and
+    ``MeshPlan`` both define. The backend is only the per-token draw; the
+    plan owns masking, the delta merge and the state update."""
+
+    backend: algorithms.SamplerBackend
+
+
+class SingleBoxPlan(ExecutionPlan):
     """The whole corpus as one cell on one device: the paper's training
     loop. The backend is only the per-token draw; the plan owns the
     exclusion mask, the delta merge and the state update."""
@@ -267,6 +280,11 @@ class SingleBoxPlan:
     def llh(self, state: CGSState) -> float:
         return float(predictive_llh(state, self.corpus, self.hyper,
                                     token_chunk=self._knobs.chunk_or_none()))
+
+    def llh_split(self, state: CGSState):
+        """The collapsed joint log p(w, z) split into its word and doc
+        parts (``core.likelihood.joint_llh``)."""
+        return joint_llh(state, self.corpus, self.hyper)
 
     def change_rate(self, state: CGSState) -> float:
         changed = int((state.topic != state.prev_topic).sum())
@@ -391,7 +409,7 @@ def mesh_rows_cols(mesh_shape) -> Tuple[int, int]:
     return int(np.prod(shape[:-1])), shape[-1]
 
 
-class MeshPlan:
+class MeshPlan(ExecutionPlan):
     """One rank of the mesh plan: ``grid_partition`` lays the corpus out
     on a (rows x cols) grid, this rank trains cell ``rank``
     (``core.distributed``), and structural events (exclusion, row-pad
@@ -707,7 +725,8 @@ class TrainSession:
     builds the same session (``grid``/``comm``: see :class:`MeshPlan`)."""
 
     def __init__(self, corpus: Optional[Corpus], hyper: LDAHyperParams,
-                 cfg: RunConfig, device=None, grid=None, comm=None):
+                 cfg: RunConfig, device=None, grid=None, comm=None,
+                 plan: Optional[ExecutionPlan] = None):
         refuse_unported(cfg)
         if cfg.sampling_method is None:
             cfg = dataclasses.replace(
@@ -716,7 +735,11 @@ class TrainSession:
         self.hyper = hyper
         self.cfg = cfg
         self.backend = algorithms.get(cfg.algorithm)
-        if cfg.mesh_shape is None:
+        if plan is not None:
+            # an already-prepared plan (``with_run_params``), shared: the
+            # caller guarantees it was built from the same non-run fields
+            self.plan = plan
+        elif cfg.mesh_shape is None:
             self.plan = SingleBoxPlan(corpus, hyper, cfg, device=device)
         else:
             self.plan = MeshPlan(corpus, hyper, cfg, device=device,
@@ -758,6 +781,24 @@ class TrainSession:
                                                       SingleBoxPlan):
                 self._excl_ckpt = CheckpointManager(os.path.join(
                     cfg.train_checkpoint_dir, EXCLUSION_CKPT_DIR))
+
+    def with_run_params(self, num_iterations: Optional[int] = None,
+                        eval_every: Optional[int] = None,
+                        target_perplexity: Optional[float] = None
+                        ) -> "TrainSession":
+        """A session sharing this one's prepared plan (backend aux, row
+        walks, the mesh's cell) with only the run-length and eval fields
+        replaced, none of which the plan depends on. ``LDATrainer.train``
+        re-parameterises per call this way without preparing again."""
+        cfg = dataclasses.replace(
+            self.cfg,
+            num_iterations=self.cfg.num_iterations if num_iterations is None
+            else num_iterations,
+            eval_every=self.cfg.eval_every if eval_every is None
+            else eval_every,
+            target_perplexity=target_perplexity,
+        )
+        return TrainSession(self.corpus, self.hyper, cfg, plan=self.plan)
 
     @property
     def device(self) -> torch.device:

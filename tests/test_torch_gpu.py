@@ -1325,3 +1325,128 @@ def test_lm_remat_policies_equal_on_card(cuda, arch):
         for n in g0:
             torch.testing.assert_close(g[n], g0[n], rtol=1e-6, atol=1e-7,
                                        msg=f"{policy} {n}")
+
+
+# -- block shapes (_build.variant) and the autotuner -------------------------
+
+def _at_shape(source, macro, value, default):
+    """The block under ``source`` rebuilt with ``macro`` = ``value``
+    (nothing to rebuild at the default)."""
+    import contextlib
+
+    from repro_torch.kernels import _build
+
+    if value == default:
+        return contextlib.nullcontext()
+    return _build.variant(source, f"{macro}={value}")
+
+
+@pytest.mark.parametrize("t,k,w,d", [(8192, 1000, 20000, 40),
+                                     (333, 37, 50, 3), (700, 16385, 30, 5)])
+def test_training_kernels_bit_equal_at_every_block_shape(cuda, t, k, w, d):
+    """Kernels 1 and 2 at 8, 16 and 32 warps per block: every draw and the
+    exact-work stats equal the default shape's (K = 16,385 puts the
+    per-topic table in global memory, K = 37 takes the scalar loads)."""
+    from repro_torch.kernels.fused_gather import zen_fused_sample_cuda
+    from repro_torch.kernels.zen_sampler import zen_sample_cuda
+
+    a = _train_inputs(cuda, t + k + 1, t, k, w, d)
+    rows = (a["n_wk"][a["word"].long()].contiguous(),
+            a["n_kd"][a["doc"].long()].contiguous())
+    kw = dict(beta=0.01, w_beta=w * 0.01)
+    out = {}
+    for warps in (8, 16, 32):
+        stats_f = torch.zeros(3, dtype=torch.int64, device=cuda)
+        stats_g = torch.zeros(3, dtype=torch.int64, device=cuda)
+        with _at_shape("zen_train.cu", "ZEN_TRAIN_WARPS", warps, 32):
+            fused = zen_fused_sample_cuda(
+                a["n_wk"], a["n_kd"], a["word"], a["doc"], a["z"],
+                a["alpha"], a["n_k"], 777, stats=stats_f, **kw)
+            gathered = zen_sample_cuda(*rows, a["z"], a["alpha"], a["n_k"],
+                                       777, stats=stats_g, **kw)
+            torch.cuda.synchronize()
+        out[warps] = (fused, gathered, stats_f, stats_g)
+    base = out[32]
+    assert torch.equal(base[0], base[1])
+    for warps, got in out.items():
+        for x, y in zip(got, base):
+            assert torch.equal(x, y), warps
+
+
+def test_sparse_and_cdf_kernels_bit_equal_at_every_block_shape(cuda):
+    """Kernel 6 at 2-16 warps and kernel 7 at 128-512 threads per block
+    equal their default shapes, token for token."""
+    from repro_torch.kernels.cdf_search import cdf_row_search_cuda
+    from repro_torch.kernels.sparse_row import sparse_row_sample_cuda
+
+    t, j = 5000, 70
+    g = torch.Generator(device=cuda).manual_seed(5)
+    vals = torch.rand((t, j), generator=g, device=cuda)
+    topics = torch.randint(0, 1000, (t, j), generator=g, device=cuda,
+                           dtype=torch.int32)
+    tgt = torch.rand(t, generator=g, device=cuda) * vals.sum(1)
+    sparse = {}
+    for w in (2, 4, 8, 16):
+        with _at_shape("sparse_row.cu", "SPARSE_ROW_WARPS", w, 8):
+            sparse[w] = sparse_row_sample_cuda(vals, topics, tgt)
+    for pattern in ("all_searching", "clusters", "one_per_warp"):
+        counts, rows, term, ctgt = _cdf_case(cuda, pattern)
+        cdf = {}
+        for n in (128, 256, 512):
+            with _at_shape("cdf_search.cu", "CDF_SEARCH_THREADS", n, 256):
+                cdf[n] = cdf_row_search_cuda(counts, rows, term, ctgt)
+                torch.cuda.synchronize()
+        for n, got in cdf.items():
+            assert torch.equal(got, cdf[256]), (pattern, n)
+    for w, got in sparse.items():
+        assert torch.equal(got, sparse[8]), w
+
+
+def test_a_shape_outside_the_set_fails_its_build(cuda):
+    """ZEN_TRAIN_WARPS must divide 32: nvcc refuses 3 (a static_assert),
+    and the launchers stay bound to the default build."""
+    from repro_torch.kernels import _build
+
+    before = _build.library()
+    with pytest.raises(RuntimeError, match="CUDA build of"):
+        with _build.variant("zen_train.cu", "ZEN_TRAIN_WARPS=3"):
+            pass
+    assert _build.library() is before
+
+
+def test_autotune_on_card_times_every_point_and_applies_the_best(cuda):
+    from repro_torch.algorithms import SamplerKnobs
+    from repro_torch.kernels.autotune import (
+        apply_best,
+        autotune_cdf,
+        autotune_fused,
+        autotune_sparse,
+    )
+
+    a = _train_inputs(cuda, 9, 4096, 256, 300, 20)
+    kw = dict(iters=3, warmup=1)
+    timings = autotune_fused(a["n_wk"], a["n_kd"], a["word"], a["doc"],
+                             a["z"], a["alpha"], a["n_k"], 7, beta=0.01,
+                             w_beta=3.0, bts=(64, 128, 256), bks=(128,),
+                             **kw)
+    counts, rows, term, tgt = _cdf_case(cuda, "all_searching")
+    timings += autotune_cdf(counts, rows, term, tgt, bts=(128, 256, 512),
+                            bks=(128,), **kw)
+    vals = torch.rand((4096, 40), device=cuda)
+    topics = torch.randint(0, 256, (4096, 40), dtype=torch.int32,
+                           device=cuda)
+    timings += autotune_sparse(vals, topics, vals.sum(1) * 0.5,
+                               bts=(64, 128, 256, 512), bss=(128, 256),
+                               **kw)
+    assert len(timings) == 3 + 3 + 8
+    assert all(tt.us_per_call > 0 and tt.tokens_per_sec > 0
+               for tt in timings)
+    # one launch per kernel: every point of a sweep has its timing
+    for kernel in ("fused_sample", "cdf_search", "sparse_row"):
+        assert len({tt.us_per_call for tt in timings
+                    if tt.kernel == kernel}) == 1, kernel
+    tuned = apply_best(timings, SamplerKnobs())
+    assert tuned.bt in (64, 128, 256, 512) and tuned.bk == 128
+    assert tuned.bs in (128, 256)
+    SamplerKnobs(**{f: getattr(tuned, f) for f in (
+        "bt", "bk", "bs", "kernels")})  # re-validates

@@ -7,6 +7,8 @@ oracle ``ref.topic_histogram_ref`` and the reference's
 ``ref.topic_histogram_ref`` must agree bit for bit. The reference's kernel
 needs rows sorted (its tile ranks); the port's takes any order.
 """
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -17,7 +19,12 @@ from hypothesis import strategies as st
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import counts as tcounts
-from repro_torch.kernels import ops, ref, topic_histogram
+from repro_torch.kernels import ops, ref
+
+# the module: ``repro_torch.kernels.topic_histogram`` is the ops wrapper,
+# re-exported by the package as the reference's package re-exports it
+topic_histogram = importlib.import_module(
+    "repro_torch.kernels.topic_histogram")
 
 
 def _inputs(seed, t, k, r, sort=True):
