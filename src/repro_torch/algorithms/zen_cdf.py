@@ -40,6 +40,13 @@ Differences from the reference, none of which changes the sampler:
   stream) passed in as one (3, T) tensor, so no chunking changes a draw and
   a test can feed the reference's ``jax.random`` uniforms instead.
 
+While a profiler records, the sweep's phases are spans
+(``observe.metrics.span``): ``zen_cdf.tables`` (:func:`build_cdf_tables`)
+once, and in each chunk ``zen_cdf.doc_rows`` (:func:`doc_rows`),
+``zen_cdf.draws`` (the uniforms, then both draws) and ``zen_cdf.remedy``;
+the tokens whose draw searches a term-2 row (target > 0, what kernel 7
+queues) add to the counter ``zen_cdf.search_tokens``.
+
 Serving (``native_infer``): the model is frozen, so the per-sweep tables
 collapse to one precompute, :class:`FrozenCdfTables` (per-word CDFs of the
 doc-independent prior term), built once by ``prepare_infer``; a frozen
@@ -65,7 +72,9 @@ from repro_torch.core.decompositions import ZenTerms, precompute_zen_terms
 from repro_torch.core.keys import stream_uniforms, token_uniforms
 from repro_torch.core.sampler import chunked_token_map
 from repro_torch.core.types import LDAHyperParams
+from repro_torch.kernels.cdf_search import SEARCH_TOKENS
 from repro_torch.kernels.ops import cdf_row_search
+from repro_torch.observe import metrics
 
 # sparse doc-row width when the config leaves max_kd = 0 (auto)
 DEFAULT_MAX_KD = 64
@@ -175,46 +184,54 @@ def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
     key's split). Term 2 takes kernel 7 when ``tables.w_cdf`` is None."""
     k = hyper.num_topics
     terms = tables.terms
-    w, d = word.long(), doc.long()
-    rows_idx, d_cdf = doc_rows(tables, word, doc, n_wk, hyper)
-    m1 = tables.g_cdf[-1]
-    m2 = tables.m2_all[w]
-    m12 = m1 + m2
-    total = m12 + d_cdf[:, -1]
+    dev = word.device
+    counting = metrics.tracing()
+    with metrics.span("zen_cdf.doc_rows", dev):
+        rows_idx, d_cdf = doc_rows(tables, word, doc, n_wk, hyper)
 
-    def draw(u01):
-        u = u01 * total
-        branch = torch.where(u < m1, 0, torch.where(u < m12, 1, 2))
-        # term 1: the shared global CDF (replaces gTable)
-        z_g = _bsearch_shared(tables.g_cdf, u)
-        # term 2: the word's CDF row (replaces wTable); only term-2 draws
-        # need it, the others search target 0
-        t2 = torch.where(branch == 1, torch.clamp_min(u - m1, 0.0), 0.0)
-        if tables.w_cdf is None:
-            z_w = cdf_row_search(n_wk, word, terms.t4, t2)
-        else:
-            z_w = _bsearch_gather(tables.w_cdf, word, t2)
-        # term 3: the doc's sparse row CDF (dSparse + BSearch)
-        pos = _searchsorted_rows(d_cdf, torch.clamp_min(u - m1 - m2, 0.0))
-        z_d = rows_idx.gather(1, pos.long()[:, None])[:, 0]
-        z = torch.where(branch == 0, z_g,
-                        torch.where(branch == 1, z_w.long(), z_d))
-        return torch.clamp_max(z, k - 1).to(torch.int32), branch
+    with metrics.span("zen_cdf.draws", dev):
+        w, d = word.long(), doc.long()
+        m1 = tables.g_cdf[-1]
+        m2 = tables.m2_all[w]
+        m12 = m1 + m2
+        total = m12 + d_cdf[:, -1]
 
-    z1, branch = draw(uniforms[0])
-    z2, _ = draw(uniforms[1])
+        def draw(u01):
+            u = u01 * total
+            branch = torch.where(u < m1, 0, torch.where(u < m12, 1, 2))
+            # term 1: the shared global CDF (replaces gTable)
+            z_g = _bsearch_shared(tables.g_cdf, u)
+            # term 2: the word's CDF row (replaces wTable); only term-2 draws
+            # need it, the others search target 0
+            t2 = torch.where(branch == 1, torch.clamp_min(u - m1, 0.0), 0.0)
+            if tables.w_cdf is None:
+                z_w = cdf_row_search(n_wk, word, terms.t4, t2, count=counting)
+            else:
+                z_w = _bsearch_gather(tables.w_cdf, word, t2)
+                if counting:
+                    metrics.count(SEARCH_TOKENS, (t2 > 0).sum())
+            # term 3: the doc's sparse row CDF (dSparse + BSearch)
+            pos = _searchsorted_rows(d_cdf, torch.clamp_min(u - m1 - m2, 0.0))
+            z_d = rows_idx.gather(1, pos.long()[:, None])[:, 0]
+            z = torch.where(branch == 0, z_g,
+                            torch.where(branch == 1, z_w.long(), z_d))
+            return torch.clamp_max(z, k - 1).to(torch.int32), branch
+
+        z1, branch = draw(uniforms[0])
+        z2, _ = draw(uniforms[1])
 
     # resampling remedy (§3.1) for the staleness of terms 2 and 3
-    zo = z_old.long()
-    nw_prev = torch.clamp_min(n_wk[w, zo].to(torch.float32), 1.0)
-    nd_prev = torch.clamp_min(n_kd[d, zo].to(torch.float32), 1.0)
-    p_w = 1.0 / nw_prev
-    p_d = torch.clamp(1.0 / nd_prev + (nd_prev + nw_prev - 1.0)
-                      / (nd_prev * nw_prev), 0.0, 1.0)
-    remedy_p = torch.where(branch == 1, p_w,
-                           torch.where(branch == 2, p_d, 0.0))
-    take_second = (z1 == z_old) & (uniforms[2] < remedy_p)
-    return torch.where(take_second, z2, z1)
+    with metrics.span("zen_cdf.remedy", dev):
+        zo = z_old.long()
+        nw_prev = torch.clamp_min(n_wk[w, zo].to(torch.float32), 1.0)
+        nd_prev = torch.clamp_min(n_kd[d, zo].to(torch.float32), 1.0)
+        p_w = 1.0 / nw_prev
+        p_d = torch.clamp(1.0 / nd_prev + (nd_prev + nw_prev - 1.0)
+                          / (nd_prev * nw_prev), 0.0, 1.0)
+        remedy_p = torch.where(branch == 1, p_w,
+                               torch.where(branch == 2, p_d, 0.0))
+        take_second = (z1 == z_old) & (uniforms[2] < remedy_p)
+        return torch.where(take_second, z2, z1)
 
 
 def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
@@ -229,12 +246,14 @@ def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
     positions). Work per
     token: O(log K) (term 1, and term 2 off the kernel) + O(max_kd)
     (term 3); kernel 7 walks a term-2 row up to its lower bound."""
-    tables = build_cdf_tables(n_wk, n_kd, n_k, hyper, num_words_pad,
-                              max_kd, use_kernel)
+    with metrics.span("zen_cdf.tables", word.device):
+        tables = build_cdf_tables(n_wk, n_kd, n_k, hyper, num_words_pad,
+                                  max_kd, use_kernel)
 
     def chunk(start, w, d, z):
-        u = stream_uniforms(seed, start, w.shape[0], CDF_STREAMS,
-                            device=w.device)
+        with metrics.span("zen_cdf.draws", w.device):
+            u = stream_uniforms(seed, start, w.shape[0], CDF_STREAMS,
+                                device=w.device)
         return zen_cdf_tokens(tables, w, d, z, n_wk, n_kd, hyper, u)
 
     return chunked_token_map(chunk, (word, doc, z_old), token_chunk,

@@ -13,9 +13,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.topic_histogram import (
+    CHANGED_TOKENS,
     RowOrder,
     topic_histogram_plain,
 )
+from repro_torch.observe import metrics
 
 
 def _ones(ids: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -76,18 +78,24 @@ def delta_counts(
     The two (rows, K) deltas are kernel 5 (``ops.topic_histogram``) when
     ``use_kernel`` (the caller's ``kernel_dispatch``), walking the
     ``orders`` (word, doc) :class:`RowOrder` of these tokens where given;
-    else its plain version. Both give the same integers."""
+    else its plain version. Both give the same integers. While a profiler
+    records, the tokens that change are added to the trace's
+    ``counts.changed_tokens`` (by kernel 5 on its word-side call)."""
+    counting = metrics.tracing()
     if use_kernel:
         inc = None if mask is None else mask.to(torch.int32)
         w_order, d_order = orders if orders is not None else (None, None)
         d_wk = ops.topic_histogram(word, old_topic, new_topic, inc,
-                                   num_words, num_topics, order=w_order)
+                                   num_words, num_topics, order=w_order,
+                                   count=counting)
         d_kd = ops.topic_histogram(doc, old_topic, new_topic, inc,
                                    num_docs, num_topics, order=d_order)
         return d_wk, d_kd, d_wk.sum(0, dtype=torch.int32)
     changed = old_topic != new_topic
     if mask is not None:
         changed = changed & mask
+    if counting:
+        metrics.count(CHANGED_TOKENS, changed.sum())
     inc = changed.to(torch.int32)
     d_wk = topic_histogram_plain(word, old_topic, new_topic, inc,
                                  num_words, num_topics)

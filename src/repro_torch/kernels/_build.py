@@ -69,13 +69,20 @@ SIGNATURES = {
     "zen_train_constants": (_P, _P),
     "zen_train_fast_error": (_P, _I, _I, _P, _P),
     "sparse_row": (_P, _P, _P, _P, _I, _I, _P),
-    "cdf_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "topic_histogram": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ..., searched (a work counter, or null), stream
+    "cdf_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # ..., changed (a work counter, or null), stream
+    "topic_histogram": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # where a kernel's work counter is on the card, and what it holds
+    "cdf_search_searched": (_P, _P),
+    "topic_histogram_changed": (_P, _P),
     # the histogram launch's shape: its topic slab, and runs per warp
     "topic_histogram_shape": (_I, _P, _P),
 }
 
 _LIB: Optional[types.SimpleNamespace] = None
+# (launcher's address, device) -> (address, reader) of the work counters
+_COUNTERS: dict = {}
 
 
 def nvcc_path() -> str:
@@ -185,6 +192,44 @@ def variant(source: str, *defines: str):
         yield
     finally:
         _LIB = base
+
+
+def work_counter(name: str, trace_name: str, device) -> int:
+    """The address on ``device`` (a CUDA device) of the work counter that
+    launcher ``name`` (e.g. ``"topic_histogram_changed"``) reports: an
+    int64 of its library on the card, zero when the library loads, that a
+    launch given the address adds its work to. The process's trace
+    collector is told that a launch adds to it now, as counter
+    ``trace_name`` of the profiled stretch; call this only while
+    tracing."""
+    import torch
+
+    from repro_torch.observe import metrics
+
+    fn = getattr(library(), name)
+    # the launcher's address tells one build of its library from another
+    key = (ctypes.cast(fn, ctypes.c_void_p).value, torch.device(device))
+    found = _COUNTERS.get(key)
+    if found is None:
+        at = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            err = fn(ctypes.byref(at), None)
+        if err:
+            raise RuntimeError(f"{name}: cudaError {err}")
+
+        def read() -> int:
+            value = ctypes.c_ulonglong()
+            with torch.cuda.device(device):
+                torch.cuda.synchronize()
+                err = fn(ctypes.byref(ctypes.c_void_p()),
+                         ctypes.byref(value))
+            if err:
+                raise RuntimeError(f"{name}: cudaError {err}")
+            return value.value
+
+        found = _COUNTERS[key] = (at.value, read)
+    metrics.TRACE.kernel_counter(trace_name, (name, found[0]), found[1])
+    return found[0]
 
 
 def check_launch(name: str, err: int) -> None:

@@ -19,6 +19,11 @@ it. ``cdf_row_search_plain`` adds in exactly that order
 card the two are bit-equal. The reference's tiled oracle adds in its own
 (``jnp.cumsum`` per K tile) order: against it a result may differ only
 where the target lies within float round-off of a prefix sum.
+
+While a trace asks for it (``count=True``), the kernel also adds the
+tokens it queues (target > 0: its real work) to the profiled stretch's
+counter :data:`SEARCH_TOKENS` (``observe.metrics``), one atomic a block
+into a counter of its library; its output is the same either way.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from repro_torch.kernels.zen_sampler import check_cuda_args, check_ids
 # tokens per chunk of the plain version: its (chunk, K) gathered rows stay
 # bounded at any T
 PLAIN_ROWS = 1 << 15
+# the profiled stretch's counter of tokens that search a term-2 row
+SEARCH_TOKENS = "zen_cdf.search_tokens"
 
 
 def cdf_row_search_plain(counts: torch.Tensor, rows: torch.Tensor,
@@ -51,12 +58,14 @@ def cdf_row_search_plain(counts: torch.Tensor, rows: torch.Tensor,
 
 
 def cdf_row_search_cuda(counts: torch.Tensor, rows: torch.Tensor,
-                        term: torch.Tensor,
-                        targets: torch.Tensor) -> torch.Tensor:
-    """Launch ``cdf_search`` on the current stream; no sync. A row id
-    outside ``counts`` aborts the kernel, and the caller's next
+                        term: torch.Tensor, targets: torch.Tensor,
+                        count: bool = False) -> torch.Tensor:
+    """Launch ``cdf_search`` on the current stream; no sync. ``count``
+    (only while tracing) adds the queued tokens to :data:`SEARCH_TOKENS`.
+    A row id outside ``counts`` aborts the kernel, and the caller's next
     synchronize raises, as the plain version's indexing does."""
-    from repro_torch.kernels._build import check_launch, library
+    from repro_torch.kernels._build import (check_launch, library,
+                                            work_counter)
 
     check_cuda_args(
         [("counts", counts), ("rows", rows), ("term", term),
@@ -78,11 +87,13 @@ def cdf_row_search_cuda(counts: torch.Tensor, rows: torch.Tensor,
     # the queue's length, then one (token, row, target, 0) entry per
     # searching token: 16-byte aligned, as a fresh allocation is
     queue = torch.empty((t + 1) * 4, dtype=torch.int32, device=counts.device)
+    searched = (work_counter("cdf_search_searched", SEARCH_TOKENS,
+                             counts.device) if count and t > 0 else None)
     stream = torch.cuda.current_stream(counts.device).cuda_stream
     with torch.cuda.device(counts.device):
         check_launch("cdf_search", library().cdf_search(
             counts.data_ptr(), rows.data_ptr(), term.data_ptr(),
             targets.data_ptr(), out.data_ptr(), queue.data_ptr(), t, k, r,
-            stream,
+            searched, stream,
         ))
     return out

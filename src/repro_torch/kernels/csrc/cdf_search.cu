@@ -50,6 +50,12 @@
 //     untouched. Queue order varies from launch to launch; each token's
 //     walk and result do not.
 //
+// Work count, while a trace asks for it (a counter pointer given): the
+// tokens queued for a walk (target > 0), the kernel's real work; each
+// block adds its slice of the queue to the counter beside the atomicAdd
+// that takes the slice. With no pointer a block pays one uniform branch;
+// the output is the same either way.
+//
 // The TPU kernel's K tiles and its running (mass, count) scratch carried
 // between grid steps become the strip loop and two registers; no padding
 // of K to a tile width is needed.
@@ -84,11 +90,15 @@ constexpr int kTokensPerBlock = kThreads * kTokensPerThread;
 constexpr int kStrips = 4;  // strips of a row a walk loads at once
 constexpr unsigned kFull = 0xffffffffu;
 
+// the counter of queued tokens that a launch given it adds to: zero when
+// the library loads, added to only by launches made while tracing
+__device__ unsigned long long g_searched_tokens = 0;
+
 __global__ void __launch_bounds__(kThreads)
 cdf_compact_kernel(const int* __restrict__ rows,
                    const float* __restrict__ targets, int* __restrict__ out,
                    int4* __restrict__ queue, int* __restrict__ queue_len,
-                   int T, int R) {
+                   unsigned long long* __restrict__ searched, int T, int R) {
   __shared__ int warp_base[kTokensPerThread][kWarps];
   __shared__ int block_base;
   const int lane = threadIdx.x & 31;
@@ -128,6 +138,9 @@ cdf_compact_kernel(const int* __restrict__ rows,
       }
     }
     block_base = n > 0 ? atomicAdd(queue_len, n) : 0;
+    if (searched != nullptr && n > 0) {
+      atomicAdd(searched, (unsigned long long)n);
+    }
   }
   __syncthreads();
   const unsigned below = (1u << lane) - 1u;
@@ -208,14 +221,28 @@ cdf_walk_kernel(const int* __restrict__ counts,
 
 }  // namespace
 
+// The counter of queued tokens on the current card: where it is, for a
+// launch to add to, and, where `value` is not null, what it holds (a
+// blocking copy, after the card's earlier work). Returns the CUDA error.
+extern "C" int cdf_search_searched(void** at, unsigned long long* value) {
+  int err = (int)cudaGetSymbolAddress(at, g_searched_tokens);
+  if (err == 0 && value != nullptr) {
+    err = (int)cudaMemcpyFromSymbol(value, g_searched_tokens,
+                                    sizeof(*value));
+  }
+  return err;
+}
+
 // Plain C launcher for ctypes: `queue` is int32 scratch of 4 (T + 1)
 // entries, 16-byte aligned: its first int holds the queue's length, then
-// one (token, row, target bits, 0) entry per searching token. Launches on
-// `stream` (a memset and two kernels), does not synchronise, and returns
-// cudaGetLastError() (0 = launched).
+// one (token, row, target bits, 0) entry per searching token; `searched`
+// (or null: none) the counter this launch adds its queued tokens to.
+// Launches on `stream` (a memset and two kernels), does not synchronise,
+// and returns cudaGetLastError() (0 = launched).
 extern "C" int cdf_search(const int* counts, const int* rows,
                           const float* term, const float* targets, int* out,
-                          int* queue, int T, int K, int R, void* stream) {
+                          int* queue, int T, int K, int R,
+                          unsigned long long* searched, void* stream) {
   if (T <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   int* queue_len = queue;
@@ -224,8 +251,8 @@ extern "C" int cdf_search(const int* counts, const int* rows,
   if (err != 0) return err;
   const unsigned blocks = (unsigned)((T + kTokensPerBlock - 1)
                                      / kTokensPerBlock);
-  cdf_compact_kernel<<<blocks, kThreads, 0, s>>>(rows, targets, out,
-                                                 entries, queue_len, T, R);
+  cdf_compact_kernel<<<blocks, kThreads, 0, s>>>(
+      rows, targets, out, entries, queue_len, searched, T, R);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   int dev = 0, sms = 0, per_sm = 0;

@@ -49,6 +49,12 @@
 // other order (topic_histogram.row_order), and a decrease along a walk it
 // is handed aborts the launch like an id out of range.
 //
+// Work count, while a trace asks for it (a counter pointer given): the
+// tokens whose topic changes (inc != 0 and z_old != z_new), the kernel's
+// useful work, counted as the first slab stages them and added to the
+// counter with one atomic a block. With no pointer the kernel pays one
+// uniform branch; its output is the same either way.
+//
 // An id outside its range (row not in [0, R), topic not in [0, K), a
 // permutation entry not in [0, T)) or a row below its predecessor's
 // aborts the launch (__trap) before that token writes: no write lands out
@@ -67,6 +73,10 @@ constexpr int kChunk = 16 * kTile;  // positions per block
 constexpr int kZeroBlocksPerSm = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
+// the counter of changed tokens that a launch given it adds to: zero when
+// the library loads, added to only by launches made while tracing
+__device__ unsigned long long g_changed_tokens = 0;
+
 struct Walk {
   const int* rows;  // row at each walk position
   const int* perm;  // token at each walk position; null: the position
@@ -74,6 +84,7 @@ struct Walk {
   const int* z_new;
   const int* inc;  // null: every token counts once
   int* out;
+  unsigned long long* changed;  // null: no count of changed tokens
   int T, R, K;
 };
 
@@ -188,6 +199,8 @@ hist_sorted_kernel(Walk w, int slab, int warp_runs) {
   const int i1 = min(w.T, i0 + kChunk);
   const int prev_row = i0 > 0 ? w.rows[i0 - 1] : -1;
   const int next_row = i1 < w.T ? w.rows[i1] : -1;
+  const bool counting = w.changed != nullptr;
+  unsigned changed = 0;  // this thread's staged tokens that change topic
 
   for (int k0 = 0; k0 < w.K; k0 += slab) {
     const int ks = min(slab, w.K - k0);
@@ -218,6 +231,9 @@ hist_sorted_kernel(Walk w, int slab, int warp_runs) {
           s_zo[j] = st.zo[m];
           s_zn[j] = st.zn[m];
           s_v[j] = st.v[m];
+          if (counting && k0 == 0) {
+            changed += (st.v[m] != 0) & (st.zo[m] != st.zn[m]);
+          }
         }
       }
       if (s + kTile < i1) {  // the staged registers are free again
@@ -313,6 +329,16 @@ hist_sorted_kernel(Walk w, int slab, int warp_runs) {
     }
     __syncthreads();  // the histogram is clear before the next slab
   }
+  if (counting) {  // the warps' sums, then one atomic for the block
+    changed = __reduce_add_sync(kFull, changed);
+    if (lane == 0) (&s_count[0][0])[warp] = (int)changed;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long n = 0;
+      for (int v = 0; v < kWarps; ++v) n += (unsigned)(&s_count[0][0])[v];
+      if (n > 0) atomicAdd(w.changed, n);
+    }
+  }
 }
 
 // zero each row that a block boundary cuts (its blocks add by atomics)
@@ -372,14 +398,28 @@ extern "C" int topic_histogram_shape(int K, int* slab, int* warp_runs) {
   return (int)cudaGetLastError();
 }
 
+// The counter of changed tokens on the current card: where it is, for a
+// launch to add to, and, where `value` is not null, what it holds (a
+// blocking copy, after the card's earlier work). Returns the CUDA error.
+extern "C" int topic_histogram_changed(void** at,
+                                       unsigned long long* value) {
+  int err = (int)cudaGetSymbolAddress(at, g_changed_tokens);
+  if (err == 0 && value != nullptr) {
+    err = (int)cudaMemcpyFromSymbol(value, g_changed_tokens, sizeof(*value));
+  }
+  return err;
+}
+
 // Plain C launcher for ctypes. `rows` holds the row at each walk position,
 // not decreasing; `perm` (or null) the token at each position; `inc` (or
-// null: 1 for every token); `out` is (R, K) int32. Launches on `stream`,
-// does not synchronise, and returns cudaGetLastError() (0 = launched).
+// null: 1 for every token); `out` is (R, K) int32; `changed` (or null:
+// none) the counter this launch adds its changed tokens to. Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() (0 =
+// launched).
 extern "C" int topic_histogram(const int* rows, const int* perm,
                                const int* z_old, const int* z_new,
                                const int* inc, int* out, int T, int R, int K,
-                               void* stream) {
+                               unsigned long long* changed, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (T <= 0) {  // no token: the output is zeros
     int dev = 0, sms = 0;
@@ -403,7 +443,7 @@ extern "C" int topic_histogram(const int* rows, const int* perm,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   shape.dynamic_bytes);
   if (err != 0) return err;
-  const Walk w{rows, perm, z_old, z_new, inc, out, T, R, K};
+  const Walk w{rows, perm, z_old, z_new, inc, out, changed, T, R, K};
   hist_sorted_kernel<<<blocks, kThreads, shape.dynamic_bytes, s>>>(
       w, shape.slab, shape.warp_runs);
   return (int)cudaGetLastError();

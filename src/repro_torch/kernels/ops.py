@@ -11,13 +11,17 @@ Each wrapper counts its kernel launches in a plain int
 (:func:`launch_counts`), so a run can show that its main path went
 through the kernels; plain-version calls are not counted, nor is a call
 with no tokens, whose launcher launches nothing (kernel 5's launcher
-zero-fills its output then, and counts).
+zero-fills its output then, and counts). ``count=True`` on kernels 5 and
+7 (only while a profiler records) adds their work to the profiled
+stretch's counters: the kernel counts on the card, the plain version with
+torch ops.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels.cdf_search import (
+    SEARCH_TOKENS,
     cdf_row_search_cuda,
     cdf_row_search_plain,
 )
@@ -32,6 +36,7 @@ from repro_torch.kernels.sparse_row import (
     sparse_row_sample_plain,
 )
 from repro_torch.kernels.topic_histogram import (
+    CHANGED_TOKENS,
     topic_histogram_cuda,
     topic_histogram_plain,
 )
@@ -41,6 +46,7 @@ from repro_torch.kernels.zen_sampler import (
     zen_sample_cuda,
     zen_sample_plain,
 )
+from repro_torch.observe import metrics
 
 _LAUNCHES: Dict[str, int] = {
     "zen_sample": 0,
@@ -162,31 +168,41 @@ def sparse_row_sample(vals, topics, targets, *, bt: int = 256,
 
 
 def cdf_row_search(counts, rows, term, targets, *, bt: int = 256,
-                   bk: int = 512):
+                   bk: int = 512, count: bool = False):
     """Gather + CDF lower-bound search: ``min(#{k : prefix(counts[rows[t]]
     * term)[k] < targets[t]}, K - 1)`` per token, the count rows read in
     place. (R, K) int32 counts, (T,) int32 rows, (K,) float32 term and (T,)
-    float32 targets in; (T,) int32 out."""
+    float32 targets in; (T,) int32 out. ``count``: add the tokens that
+    search (target > 0) to the trace's ``zen_cdf.search_tokens``."""
     if _route(counts) == "cpu":
+        if count:
+            metrics.count(SEARCH_TOKENS, (targets > 0).sum())
         return cdf_row_search_plain(counts, rows, term, targets)
-    out = cdf_row_search_cuda(counts, rows, term, targets)
+    out = cdf_row_search_cuda(counts, rows, term, targets, count=count)
     _count("cdf_row_search", rows.shape[0])
     return out
 
 
 def topic_histogram(rows, z_old, z_new, inc, num_rows: int,
                     num_topics: int, *, order=None, bt: int = 256,
-                    bk: int = 512):
+                    bk: int = 512, count: bool = False):
     """Signed delta histogram (num_rows, num_topics) int32: ``+inc[t]`` at
     (rows[t], z_new[t]) and ``-inc[t]`` at (rows[t], z_old[t]); ``inc``
     None counts every token once. Rows need not be sorted (the
     reference's must be); ``order`` (``topic_histogram.row_order(rows)``)
     is the sorted walk the kernel takes (without it the kernel's wrapper
-    builds one), and changes no result. (T,) int32 ids and inc in."""
+    builds one), and changes no result. (T,) int32 ids and inc in.
+    ``count``: add the tokens whose topic changes (``inc != 0`` and
+    ``z_old != z_new``) to the trace's ``counts.changed_tokens``."""
     if _route(rows) == "cpu":
+        if count:
+            changed = z_old != z_new
+            if inc is not None:
+                changed &= inc != 0
+            metrics.count(CHANGED_TOKENS, changed.sum())
         return topic_histogram_plain(rows, z_old, z_new, inc, num_rows,
                                      num_topics)
     out = topic_histogram_cuda(rows, z_old, z_new, inc, num_rows,
-                               num_topics, order=order)
+                               num_topics, order=order, count=count)
     _LAUNCHES["topic_histogram"] += 1
     return out

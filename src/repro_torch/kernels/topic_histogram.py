@@ -19,6 +19,12 @@ Integer sums are exact in any order, so the kernel is bit-equal to
 ``topic_histogram_plain`` (two accumulating ``index_put_``); the
 reference's rows must be sorted for its tile ranks, the port's need not
 be. ``inc=None`` counts every token once.
+
+While a trace asks for it (``count=True``), the kernel also adds the
+tokens whose topic changes (``inc != 0`` and ``z_old != z_new``: its
+useful work) to the profiled stretch's counter :data:`CHANGED_TOKENS`
+(``observe.metrics``), one atomic a block into a counter of its library;
+its output is the same either way.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from repro_torch.kernels.zen_sampler import check_cuda_args, check_ids
 
 # the kernel's int positions: a block's last position must fit an int
 MAX_TOKENS = 2**31 - 2**16
+# the profiled stretch's counter of tokens whose topic changes in a merge
+CHANGED_TOKENS = "counts.changed_tokens"
 
 
 @dataclass(frozen=True)
@@ -94,13 +102,16 @@ def histogram_shape(k: int, device) -> Tuple[int, bool]:
 def topic_histogram_cuda(rows: torch.Tensor, z_old: torch.Tensor,
                          z_new: torch.Tensor, inc: Optional[torch.Tensor],
                          num_rows: int, num_topics: int,
-                         order: Optional[RowOrder] = None) -> torch.Tensor:
+                         order: Optional[RowOrder] = None,
+                         count: bool = False) -> torch.Tensor:
     """Launch ``topic_histogram`` on the current stream; no sync. ``order``
     (from :func:`row_order` of these ``rows``) is the walk; without it the
-    wrapper builds one. A row or topic id out of range, or rows that
-    decrease along the walk, abort the kernel (no write lands out of
-    bounds), and the caller's next synchronize raises."""
-    from repro_torch.kernels._build import check_launch, library
+    wrapper builds one. ``count`` (only while tracing) adds the changed
+    tokens to :data:`CHANGED_TOKENS`. A row or topic id out of range, or
+    rows that decrease along the walk, abort the kernel (no write lands
+    out of bounds), and the caller's next synchronize raises."""
+    from repro_torch.kernels._build import (check_launch, library,
+                                            work_counter)
 
     if order is not None and (order.source.data_ptr() != rows.data_ptr()
                               or order.source.shape != rows.shape):
@@ -124,6 +135,8 @@ def topic_histogram_cuda(rows: torch.Tensor, z_old: torch.Tensor,
                          f"outside the kernel's int sizes")
     walk = order if order is not None else row_order(rows)
     out = torch.empty((num_rows, num_topics), dtype=i32, device=rows.device)
+    changed = (work_counter("topic_histogram_changed", CHANGED_TOKENS,
+                            rows.device) if count and t > 0 else None)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     with torch.cuda.device(rows.device):
         check_launch("topic_histogram", library().topic_histogram(
@@ -131,6 +144,6 @@ def topic_histogram_cuda(rows: torch.Tensor, z_old: torch.Tensor,
             None if walk.order is None else walk.order.data_ptr(),
             z_old.data_ptr(), z_new.data_ptr(),
             None if inc is None else inc.data_ptr(), out.data_ptr(),
-            t, num_rows, num_topics, stream,
+            t, num_rows, num_topics, changed, stream,
         ))
     return out

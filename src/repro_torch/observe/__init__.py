@@ -10,6 +10,10 @@ strict-JSON JSONL sink (``metrics``), plus two emitters:
 * ``ServeTelemetry`` (``serve_hooks``): windowed ``serve_window`` records
   of an ``LDAEngine``'s arrivals, queueing and latencies.
 
+While a torch profiler records, the training step's spans and kernels'
+work counters gather by name, and ``trace_totals()`` reads them (``span``,
+``tracing``; ``metrics``).
+
 The deciding half is ``repro_torch.autotune``.
 """
 from repro_torch.observe.metrics import (  # noqa: F401
@@ -21,7 +25,10 @@ from repro_torch.observe.metrics import (  # noqa: F401
     SpanTimer,
     latency_percentile,
     nnz_row_stats,
+    span,
     summarize_latencies,
+    trace_totals,
+    tracing,
 )
 from repro_torch.observe.serve_hooks import ServeTelemetry  # noqa: F401
 from repro_torch.observe.train_hooks import TrainTelemetry  # noqa: F401

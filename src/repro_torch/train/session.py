@@ -14,7 +14,9 @@ the mesh plan.
 * ``SingleBoxPlan`` — the whole corpus as one cell on one device: sweep
   (the registry backend), exclusion mask, delta merge and exclusion
   statistics, as the reference's single-box plan does them, and
-  ``llh_split`` (``joint_llh``'s word and doc parts).
+  ``llh_split`` (``joint_llh``'s word and doc parts). While a profiler
+  records, its step's phases are spans (``plan.sweep``, ``plan.merge``,
+  ``plan.update``) that ``observe.trace_totals()`` sums by name.
 * ``MeshPlan`` — one rank per cell under ``torch.distributed``
   (``core.distributed``): ``grid_partition``'s layout, the paper's
   Fig. 2 step, with the reference plan's surface. Every rank runs the
@@ -70,6 +72,7 @@ from repro_torch.core.likelihood import joint_llh, predictive_llh
 from repro_torch.core.types import CGSState, Corpus, LDAHyperParams
 from repro_torch.device import resolve_device
 from repro_torch.kernels.topic_histogram import RowOrder, row_order
+from repro_torch.observe.metrics import span
 from repro_torch.train.schedule import ActionContext, Schedule, ScheduledAction
 
 
@@ -246,25 +249,34 @@ class SingleBoxPlan(ExecutionPlan):
                                   self._aux)
 
     def step(self, state: CGSState) -> CGSState:
-        c, h = self.corpus, self.hyper
-        key = fold_in(state.rng, 2**20 + state.iteration)
-        mask = active_mask(state, self._excl, key)
-        z_new = torch.where(mask, self.sweep(state), state.topic)
-        use_kernel = algorithms.kernel_dispatch(self._knobs.kernels,
-                                                self.device)
-        d_wk, d_kd, d_k = counts_lib.delta_counts(
-            c.word, c.doc, state.topic, z_new, c.num_words, c.num_docs,
-            h.num_topics, use_kernel=use_kernel,
-            orders=self.row_orders() if use_kernel else None,
-        )
-        i_new, t_new = update_exclusion_stats(state, z_new, mask)
-        return CGSState(
-            topic=z_new, prev_topic=state.topic,
-            n_wk=state.n_wk + d_wk, n_kd=state.n_kd + d_kd,
-            n_k=state.n_k + d_k, rng=state.rng,
-            iteration=state.iteration + 1,
-            stale_iters=i_new, same_count=t_new,
-        )
+        """One iteration, in the phases a profiler sees as spans
+        (``observe.metrics.span``): ``plan.update`` (the exclusion mask),
+        ``plan.sweep`` (the backend's draw, masked), ``plan.merge`` (the
+        delta counts) and ``plan.update`` again (the exclusion statistics
+        and the count adds)."""
+        c, h, dev = self.corpus, self.hyper, self.device
+        with span("plan.update", dev):
+            key = fold_in(state.rng, 2**20 + state.iteration)
+            mask = active_mask(state, self._excl, key)
+        with span("plan.sweep", dev):
+            z_new = torch.where(mask, self.sweep(state), state.topic)
+        with span("plan.merge", dev):
+            use_kernel = algorithms.kernel_dispatch(self._knobs.kernels,
+                                                    self.device)
+            d_wk, d_kd, d_k = counts_lib.delta_counts(
+                c.word, c.doc, state.topic, z_new, c.num_words, c.num_docs,
+                h.num_topics, use_kernel=use_kernel,
+                orders=self.row_orders() if use_kernel else None,
+            )
+        with span("plan.update", dev):
+            i_new, t_new = update_exclusion_stats(state, z_new, mask)
+            return CGSState(
+                topic=z_new, prev_topic=state.topic,
+                n_wk=state.n_wk + d_wk, n_kd=state.n_kd + d_kd,
+                n_k=state.n_k + d_k, rng=state.rng,
+                iteration=state.iteration + 1,
+                stale_iters=i_new, same_count=t_new,
+            )
 
     def row_orders(self) -> Tuple[RowOrder, RowOrder]:
         """The word-major and doc-major walks of the corpus's tokens for

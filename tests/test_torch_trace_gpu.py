@@ -1,0 +1,125 @@
+"""The training step's spans and kernels 5's and 7's work counters on the
+card (marker ``gpu``; they skip without one). Run them where a card is:
+
+    PYTHONPATH=src:. python -m pytest -m gpu --noconftest \
+        tests/test_torch_trace_gpu.py
+
+This file imports no JAX, so it also runs where JAX is not installed.
+"""
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from portbench.tests import tiny
+from repro_torch.algorithms import zen_cdf
+from repro_torch.kernels.cdf_search import cdf_row_search_cuda
+from repro_torch.kernels.topic_histogram import topic_histogram_cuda
+from repro_torch.observe import trace_totals
+
+pytestmark = pytest.mark.gpu
+SIZES = dict(num_words=5000, num_docs=2000, mean_doc_len=100,
+             num_topics=256)
+CDF_SPANS = ("zen_cdf.tables", "zen_cdf.doc_rows", "zen_cdf.draws",
+             "zen_cdf.remedy")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def card_profile():
+    return profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+
+
+@pytest.mark.parametrize("cell", tiny.CELLS)
+def test_spans_take_device_time(cuda, cell):
+    result, lines = tiny.run(cell, seconds=0.5, traced=1, device=cuda,
+                             **SIZES)
+    assert result["correct"] is True, lines
+    spans = trace_totals()["spans"]
+    assert {"plan.sweep", "plan.merge", "plan.update"} <= set(spans)
+    assert all(s["device_s"] > 0 for s in spans.values()), spans
+    children = [n for n, s in spans.items() if s["parent"] == "plan.sweep"]
+    if cell == "nytimes-cdf-sweeps":
+        assert sorted(children) == sorted(CDF_SPANS)
+    assert sum(spans[n]["device_s"] for n in children) <= (
+        spans["plan.sweep"]["device_s"])
+    for m in ("plan_sweep_ms", "plan_merge_ms", "plan_update_ms",
+              "merge_changed_tokens_per_step"):
+        assert result["metrics"][m]["value"] > 0, m
+
+
+@pytest.mark.parametrize("t,r,k", [(100_000, 300, 1000), (20_000, 40, 70_000),
+                                   (5, 3, 7)])
+def test_kernel_5_same_with_its_counter(cuda, t, r, k):
+    g = torch.Generator(device=cuda).manual_seed(t + k)
+    i32 = torch.int32
+    rows = torch.randint(0, r, (t,), generator=g, device=cuda, dtype=i32)
+    z_old = torch.randint(0, k, (t,), generator=g, device=cuda, dtype=i32)
+    z_new = torch.where(
+        torch.rand(t, generator=g, device=cuda) < 0.5, z_old,
+        torch.randint(0, k, (t,), generator=g, device=cuda, dtype=i32))
+    inc = torch.randint(0, 2, (t,), generator=g, device=cuda, dtype=i32)
+    changed = z_old != z_new
+    for weights, want in ((inc, changed & (inc != 0)), (None, changed)):
+        plain = topic_histogram_cuda(rows, z_old, z_new, weights, r, k)
+        with card_profile():
+            counted = topic_histogram_cuda(rows, z_old, z_new, weights, r, k,
+                                           count=True)
+        assert torch.equal(plain, counted)
+        assert trace_totals()["counters"] == {
+            "counts.changed_tokens": int(want.sum())}
+
+
+@pytest.mark.parametrize("t,k", [(300_000, 1000), (1000, 37), (3, 5)])
+def test_kernel_7_same_with_its_counter(cuda, t, k):
+    g = torch.Generator(device=cuda).manual_seed(t + k)
+    r = 64
+    counts = torch.randint(0, 20, (r, k), generator=g, device=cuda,
+                           dtype=torch.int32)
+    rows = torch.randint(0, r, (t,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    term = torch.rand(k, generator=g, device=cuda)
+    # a third of the targets search: the others are 0, negative or NaN
+    u = torch.rand(t, generator=g, device=cuda)
+    targets = torch.where(u < 1 / 3, u * 30.0, torch.where(
+        u < 0.8, 0.0, torch.where(u < 0.9, -1.0, float("nan"))))
+    plain = cdf_row_search_cuda(counts, rows, term, targets)
+    with card_profile():
+        counted = cdf_row_search_cuda(counts, rows, term, targets, count=True)
+        again = cdf_row_search_cuda(counts, rows, term, targets, count=True)
+    assert torch.equal(plain, counted) and torch.equal(plain, again)
+    assert trace_totals()["counters"] == {
+        "zen_cdf.search_tokens": 2 * int((targets > 0).sum())}
+
+
+def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
+    from portbench import registry
+
+    searches = []
+    row_search = zen_cdf.cdf_row_search
+
+    def spy(*args, **kwargs):
+        searches.append((args[3] > 0).sum())
+        return row_search(*args, **kwargs)
+
+    monkeypatch.setattr(zen_cdf, "cdf_row_search", spy)
+    cell, config, traffic = tiny.spec("nytimes-cdf-sweeps", **SIZES)
+    run = registry.runner(config["runner"]).Runner(
+        config, traffic, cell, tiny.SEED, cuda)
+    run.build({})
+    run.step()
+    searches.clear()
+    changed = 0
+    with card_profile():
+        for _ in range(3):
+            before = run.state.topic
+            run.step()
+            changed += int((run.state.topic != before).sum())
+    assert trace_totals()["counters"] == {
+        "counts.changed_tokens": changed,
+        "zen_cdf.search_tokens": int(sum(searches))}
