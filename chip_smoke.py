@@ -96,9 +96,9 @@ Phases, each printing one JSON line:
    max_kd 64) on the same NYTIMES corpus from a random init: 3 iterations,
    an eval at init and after each; count invariants after every step, llh
    rising at every eval, the lists equal to ``RECORD``, and launches of
-   the CDF row search (kernel 7, two per token chunk) and of kernel 5 (2
-   per step) only. Reports seconds per step, peak memory and one more
-   step profiled;
+   the CDF row search (kernel 7, two per token chunk), the term-3 doc-row
+   search (one per token chunk) and kernel 5 (2 per step) only. Reports
+   seconds per step, peak memory and one more step profiled;
 11. histogram — kernel 5 on that run's last step as the delta merge of
    every backend runs it under ``kernels="auto"``: doc rows in the corpus
    order (checked sorted), R = 299,752, and word rows along the session's
@@ -114,7 +114,14 @@ Phases, each printing one JSON line:
    CUDA-event times of the kernel, the plain version and the
    ``kernels="off"`` route (the ``w_cdf`` build and its ``log K`` search),
    the bytes, operation and instruction-issue bounds, the SASS loop and
-   ``-res-usage`` figures;
+   ``-res-usage`` figures; then doc_row_kernels — the term-3 doc-row
+   search on the same tokens and state, rows at the registry's max_kd
+   (128) and at 64: totals and both draws' topics bit-equal to its plain
+   version (0 mismatches), the draws that differ from the ``kernels=
+   "off"`` route (near-ties), CUDA-event times of the three, the bytes
+   bound and the ``n_wk`` gathers' 32-byte sectors and 64-byte segments
+   counted from the data (per live entry, distinct per token's row,
+   distinct over the chunk);
 13. train_sparse_small — the train_small corpus and one set of initial
    topics, 3 iterations each of ``zen_sparse``, ``sparselda``,
    ``zen_hybrid``, ``lightlda`` (kernel) and ``lightlda`` with
@@ -280,7 +287,7 @@ Phases, each printing one JSON line:
    with parameters, optimizer state and step in the checkpoint tree:
    stopped at 6 and resumed to 12 == 12 straight, bit for bit; (e)
    ``examples/train_lm_torch.py`` on the card at its defaults. None of
-   the seven kernels may launch.
+   the eight kernels may launch.
 26. lm_dryrun (runs after lm_train) — the torch dry-run
    (``repro_torch.launch.dryrun``): (a) qwen3-8b's train_4k, prefill_32k
    and decode_32k cells on the 16 x 16 and 2 x 16 x 16 production meshes
@@ -296,7 +303,7 @@ Phases, each printing one JSON line:
    and every parameter bit-equal to the plain steps' (or within 1e-5
    relative, the leaf named), each step timed beside the plain one; (d)
    the LDA cell at mesh_four's blocks: its collective bytes == the bytes
-   mesh_four's steps all-reduced a rank. None of the seven kernels may
+   mesh_four's steps all-reduced a rank. None of the eight kernels may
    launch.
 27. autotune — each kernel's block shape against the others, each built
    from its source with ``-D`` (``_build.variant``, all built at once
@@ -325,7 +332,7 @@ train_kernels phase also launches kernels 1-2 with a per-token index (a
 mesh cell's corpus indices): the identity keeps every draw, a permuted
 launch with index pi permutes them, and both are timed.
 
-Then it prints the ``{"kernels": [...]}`` line (all seven kernels, each
+Then it prints the ``{"kernels": [...]}`` line (all eight kernels, each
 with its launches on its own path and on the stream, quality,
 train_autopilot, serve_autopilot, mesh_one, mesh_four, sharded_serve,
 router, compare, examples, lm_serve, lm_train, lm_dryrun, autotune and
@@ -350,7 +357,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 # NYTIMES's words, topics, documents and mean tokens per document: set by
 # the configs phase from repro_torch.configs (zenlda-nytimes)
-W_NYT = K_NYT = D_NYT = LEN_NYT = None
+W_NYT = K_NYT = D_NYT = LEN_NYT = MAXKD_NYT = None
 SLOTS, BUCKET = 32, 512
 N_DOCS = 256
 TRAIN_ITERS, SMALL_DOCS, SMALL_ITERS = 5, 4096, 3
@@ -386,6 +393,7 @@ SHORT_QUERY = 32  # tokens of the short queries of the recut run
 HIST_KERNELS = ("hist_sorted_kernel", "zero_cut_rows_kernel",
                 "zero_fill_kernel")
 CDF_KERNELS = ("cdf_compact_kernel", "cdf_walk_kernel")
+DOC_ROW_KERNELS = ("doc_row_kernel",)
 CDF_STRIPS = 4  # strips per pass of the walk's loop (kStrips)
 # the mesh phases: a world of one under NCCL on the train cell, 4 gloo
 # ranks sharing the card on a (2, 2) grid, sharded serving, the router
@@ -468,11 +476,13 @@ RECORD = {
         "change_rate": [0.9941575079234416, 0.9755162955561146,
                         0.9533872665494625],
     },
+    # measured again once zen_cdf's term 3 moved to the doc-row search,
+    # whose strip-order sums move draws at near-ties (change rates by ~2e-7)
     "train_cdf": {
-        "llh": [-553201183.023535, -552490201.228704, -551752980.2351285,
-                -551185658.4481958],
-        "change_rate": [0.9983710900516083, 0.9782291959193491,
-                        0.9693572627624099],
+        "llh": [-553201183.023535, -552490203.0229226, -551752984.4565047,
+                -551185709.2658414],
+        "change_rate": [0.9983710900516083, 0.9782289848855048,
+                        0.9693574536977928],
     },
 }
 TRAIN_SMALL_LLH = -5.84568195283306  # fused and gathered, per token
@@ -1289,10 +1299,10 @@ def phase_configs() -> None:
 
     from repro_torch.configs import get_config, list_archs
 
-    global W_NYT, K_NYT, D_NYT, LEN_NYT
+    global W_NYT, K_NYT, D_NYT, LEN_NYT, MAXKD_NYT
     nyt = get_config("zenlda-nytimes")
     web = get_config("zenlda-webchunk")
-    W_NYT, K_NYT = nyt.num_words, nyt.num_topics
+    W_NYT, K_NYT, MAXKD_NYT = nyt.num_words, nyt.num_topics, nyt.max_kd
     D_NYT, LEN_NYT = nyt.docs_per_step, nyt.avg_doc_len
     emit({"phase": "configs", "archs": list_archs(),
           "nytimes": dataclasses.asdict(nyt),
@@ -1925,14 +1935,18 @@ def device_summary(prof, wall_us: float, items: int = 8, groups=None):
     profiled window; ``groups`` (name -> kernel function names) sums each
     group's [ms, launches]. Only events that ran on the card count: an
     operator's host-side entry also carries its kernels' device time, and
-    counting both would count that time twice."""
+    counting both would count that time twice; so would the program's own
+    spans (``observe.metrics``), whose annotations also show on the card."""
     import re
 
     from torch.autograd import DeviceType
 
+    from repro_torch.observe.metrics import SPAN_PREFIX
+
     by_name, calls = {}, {}
     for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+        if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                or ev.key.startswith(SPAN_PREFIX)):
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
@@ -2021,7 +2035,7 @@ def phase_train_small(seed: int, dev, smi):
 
 
 def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
-    """The training phases, dense, padded-sparse and CDF; returns the five
+    """The training phases, dense, padded-sparse and CDF; returns the six
     training-side kernels' rows and their launches on their paths."""
     import torch
 
@@ -2074,6 +2088,7 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
         "zen_sample": gathered_launches,
         "sparse_row_sample": sparse_counts["sparse_row_sample"],
         "cdf_row_search": cdf_counts["cdf_row_search"],
+        "doc_row_search": cdf_counts["doc_row_search"],
         "topic_histogram": train_counts["topic_histogram"]}, {
         "stream": stream_counts, "quality": quality_counts,
         "train_autopilot": autopilot_counts, "mesh_one": mesh_one_counts,
@@ -2258,8 +2273,9 @@ def phase_sparse_kernels(sess, st, seed: int):
 def phase_train_cdf(corpus, seed: int, smi, sm_count: int,
                     sm_clock_hz: float):
     """``zen_cdf`` at full NYTIMES width from a random init; then kernel 5
-    on its last step and kernel 7 on its state. Returns the two kernels'
-    rows of the kernels table and the run's launch counts."""
+    on its last step, kernel 7 and the doc-row search on its state.
+    Returns the three kernels' rows of the kernels table and the run's
+    launch counts."""
     import torch
 
     from repro_torch.algorithms.zen_cdf import CDF_CHUNK_ELEMS
@@ -2306,18 +2322,21 @@ def phase_train_cdf(corpus, seed: int, smi, sm_count: int,
           "peak_device_gb": peak_gb, "launches": counts, "card": smi})
     check(all(b > a for a, b in zip(llh, llh[1:])),
           f"train_cdf: predictive llh did not rise at every eval: {llh}")
-    # two CDF searches per token chunk, two histograms per step
+    # two CDF searches and one doc-row search per token chunk, two
+    # histograms per step
     check_launches("train_cdf", counts, {
         "cdf_row_search": 2 * chunks * CDF_ITERS,
+        "doc_row_search": chunks * CDF_ITERS,
         "topic_histogram": 2 * CDF_ITERS})
     check_record("train_cdf", llh, [m["change_rate"] for m in evals[1:]])
     emit({"phase": "train_cdf_profile",
-          **profile_path_step(sess, st, CDF_KERNELS)})
+          **profile_path_step(sess, st, CDF_KERNELS + DOC_ROW_KERNELS)})
     hist_row = phase_histogram(sess, prev, st)
     del prev
     torch.cuda.empty_cache()
     cdf_row = phase_cdf_kernels(sess, st, seed, sm_count, sm_clock_hz)
-    return [cdf_row, hist_row], counts
+    doc_row = phase_doc_row_kernels(sess, st)
+    return [cdf_row, doc_row, hist_row], counts
 
 
 def phase_histogram(sess, prev, st):
@@ -2523,6 +2542,140 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
         "w_cdf_build_ms": w_cdf_ms, "shapes": runs, "sass": loop,
         "res_usage": {f: res_usage("cdf_search.cu", f)
                       for f in CDF_KERNELS},
+        # no one PyTorch call computes it
+        "library_ms": None,
+    }
+
+
+def phase_doc_row_kernels(sess, st):
+    """The term-3 doc-row search (``ops.doc_row_search``) against its plain
+    version on the first KERNEL_TOKENS tokens of the full-width zen_cdf
+    state, its rows built at the registry's max_kd (the benchmark's) and
+    at the train_cdf run's CDF_MAX_KD: totals and both draws' topics
+    bit-equal (0 mismatches); the draws that differ from the
+    ``kernels="off"`` route (``doc_rows``, then a row-wise search and
+    gather for each draw: near-ties), and its totals' largest relative
+    gap; CUDA-event times of the three; the bytes bound (each needed input
+    once) and the ``n_wk`` gathers counted three ways: a 32-byte sector
+    per live entry, the distinct sectors (and 64-byte segments) of each
+    token's row, and the distinct ones of the whole chunk. Returns the
+    kernel's row of the kernels table (at the registry's max_kd)."""
+    import torch
+
+    from repro_torch.algorithms import zen_cdf as zc
+    from repro_torch.algorithms.zen_dense import _searchsorted_rows
+    from repro_torch.core.keys import fold_in, key_seed, stream_uniforms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cdf_search import doc_row_search_plain
+
+    c, h = sess.corpus, sess.hyper
+    t, k = KERNEL_TOKENS, K_NYT
+    word, doc = c.word[:t], c.doc[:t]
+    u = stream_uniforms(key_seed(fold_in(st.rng, st.iteration)), 0, t,
+                        zc.CDF_STREAMS, device=word.device)
+    docs = torch.unique(doc.long())
+    runs = {}
+    for j in (MAXKD_NYT, CDF_MAX_KD):
+        tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
+                                  j, use_kernel=True)
+        off = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
+                                  j, use_kernel=False)
+        args = (st.n_wk, word, doc, tab.kd_cnt, tab.kd_idx, tab.terms.t1,
+                tab.m2_all, tab.g_cdf, u[0], u[1])
+
+        def kernel():
+            return ops.doc_row_search(*args, beta=h.beta)
+
+        def plain():
+            return doc_row_search_plain(*args, h.beta)
+
+        def off_route():
+            rows_idx, d_cdf = zc.doc_rows(off, word, doc, st.n_wk, h)
+            m1, m2 = off.g_cdf[-1], off.m2_all[word.long()]
+            total = m1 + m2 + d_cdf[:, -1]
+            z = [rows_idx.gather(1, _searchsorted_rows(d_cdf, torch.clamp_min(
+                u[i] * total - m1 - m2, 0.0)).long()[:, None])[:, 0]
+                for i in range(2)]
+            return total, torch.stack(z)
+
+        (tot_k, z_k), (tot_p, z_p), (tot_o, z_o) = (kernel(), plain(),
+                                                     off_route())
+        torch.cuda.synchronize()
+        mism = int((z_k != z_p).sum()) + int((tot_k != tot_p).sum())
+        check(mism == 0, f"doc_row_kernels J={j}: {mism} kernel-vs-plain "
+              f"mismatches over {t} tokens")
+        off_mism = int((z_k != z_o).sum())
+        check(off_mism <= 1e-4 * 2 * t, f"doc_row_kernels J={j}: "
+              f"{off_mism} draws differ from the off route (near-ties only)")
+        ms_k = cuda_ms(kernel, reps=20)
+        ms_p = cuda_ms(plain, reps=2, warmup=1)
+        ms_o = cuda_ms(off_route, reps=5)
+        # the n_wk gathers: flat entry ids of each token's live row entries
+        cnt, idx = tab.kd_cnt[doc.long()], tab.kd_idx[doc.long()].long()
+        live = cnt > 0
+        flat = word.long()[:, None] * k + idx
+        n_live = int(live.sum())
+
+        def distinct(entries_per):
+            """Distinct units of ``entries_per`` entries: summed over each
+            token's row, and over the whole chunk."""
+            unit = torch.where(live, flat // entries_per, -1)
+            srt = unit.sort(dim=1).values
+            per_token = ((srt[:, 1:] != srt[:, :-1]).sum(1) + 1
+                         - (~live).any(1).long())
+            return (int(per_token.sum()),
+                    int(torch.unique(unit[live]).numel()))
+
+        tok_s32, chunk_s32 = distinct(32 // 4)
+        tok_s64, chunk_s64 = distinct(64 // 4)
+        del cnt, idx, live, flat
+        # per token: word, doc, two uniforms, m2 in; the total and two
+        # topics out (32 B); each doc's row (count, topic, t1) once
+        fixed = t * 32 + int(docs.numel()) * j * 12
+        nbytes = fixed + n_live * 4
+        bound = {
+            "bytes": nbytes,
+            "sector_per_live_entry": fixed + n_live * 32,
+            "sectors_per_token_row": fixed + tok_s32 * 32,
+            "segments64_per_token_row": fixed + tok_s64 * 64,
+            "sectors_chunk_distinct": fixed + chunk_s32 * 32,
+            "segments64_chunk_distinct": fixed + chunk_s64 * 64,
+        }
+        bound_ms = {f"{n}_ms": b / HBM_BYTES_PER_S * 1e3
+                    for n, b in bound.items()}
+        runs[j] = {
+            "ms": ms_k, "plain_ms": ms_p, "off_route_ms": ms_o,
+            "mismatches": mism, "off_route_topic_mismatches": off_mism,
+            "off_route_total_max_rel_diff": float(
+                ((tot_k - tot_o).abs() / tot_o).max()),
+            "live_entries": n_live, "live_per_token": n_live / t,
+            "sectors_per_token": tok_s32 / t,
+            "segments64_per_token": tok_s64 / t,
+            "sectors_chunk_distinct": chunk_s32,
+            "segments64_chunk_distinct": chunk_s64,
+            **{f"{n}_bytes": b for n, b in bound.items()}, **bound_ms,
+            "bound_ms": bound_ms["bytes_ms"],
+            "pct_of_sectors_per_token_row": 100 * bound_ms[
+                "sectors_per_token_row_ms"] / ms_k,
+        }
+        emit({"phase": "doc_row_kernels", "T": t, "K": k, "J": j,
+              "docs": int(docs.numel()), **runs[j]})
+        del tab, off, args, tot_k, z_k, tot_p, z_p, tot_o, z_o
+        torch.cuda.empty_cache()
+    main = runs[MAXKD_NYT]
+    return {
+        "name": "doc_row_search", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cdf_search.cu",
+        # port only: the reference's term 3 is XLA ops, no Pallas kernel
+        "replaces": "src/repro/algorithms/zen_cdf.py:129", "launches": None,
+        "J": MAXKD_NYT, "tokens": t, "mismatches": main["mismatches"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "bytes": main["bytes_bytes"],
+        "sectors_per_token_row_ms": main["sectors_per_token_row_ms"],
+        "off_route_ms": main["off_route_ms"], "shapes": runs,
+        "res_usage": {f: res_usage("cdf_search.cu", f)
+                      for f in DOC_ROW_KERNELS},
         # no one PyTorch call computes it
         "library_ms": None,
     }
@@ -2763,18 +2916,19 @@ def phase_train_sparse_small(seed: int, dev, smi):
 
     corpus = synthetic_nytimes(SMALL_DOCS)
     hyper = LDAHyperParams(num_topics=K_NYT)
-    # (run, algorithm, kernels policy, the one kernel it launches)
-    sparse = "sparse_row_sample"
-    runs = (("zen", "zen", "auto", None),
+    # (run, algorithm, kernels policy, the kernels it launches)
+    sparse = ("sparse_row_sample",)
+    runs = (("zen", "zen", "auto", ()),
             ("zen_sparse", "zen_sparse", "auto", sparse),
             ("sparselda", "sparselda", "auto", sparse),
             ("zen_hybrid", "zen_hybrid", "auto", sparse),
             ("lightlda", "lightlda", "auto", sparse),
-            ("lightlda_off", "lightlda", "off", None),
-            ("zen_cdf", "zen_cdf", "auto", "cdf_row_search"),
-            ("zen_cdf_off", "zen_cdf", "off", None))
+            ("lightlda_off", "lightlda", "off", ()),
+            ("zen_cdf", "zen_cdf", "auto", ("cdf_row_search",
+                                            "doc_row_search")),
+            ("zen_cdf_off", "zen_cdf", "off", ()))
     init_topics, llh = None, {}
-    for name, algorithm, kernels, kernel in runs:
+    for name, algorithm, kernels, kernel_names in runs:
         sess = TrainSession(corpus, hyper, RunConfig(
             algorithm=algorithm, kernels=kernels), device=dev)
         if init_topics is None:
@@ -2794,7 +2948,7 @@ def phase_train_sparse_small(seed: int, dev, smi):
               "algorithm": algorithm, "kernels": kernels,
               "tokens": corpus.num_tokens, "seconds": secs,
               "llh_per_token": llh[name], "launches": counts, "card": smi})
-        want = {} if kernel is None else {kernel: counts[kernel] or -1}
+        want = {n: counts[n] or -1 for n in kernel_names}
         if kernels == "auto":
             want["topic_histogram"] = 2 * SMALL_ITERS
         check_launches(f"train_sparse_small {name}", counts, want)
@@ -3226,8 +3380,10 @@ def phase_stream(corpus, seed: int, dev, smi):
     check(decay.get("equal") is True,
           "decay: the device decay differs from np.rint on the host")
     check(cdf_counts["cdf_row_search"] > 0
+          and cdf_counts["doc_row_search"] > 0
           and cdf_counts["topic_histogram"] > 0,
-          f"decay: kernels 7 and 5 not launched: {cdf_counts}")
+          f"decay: kernels 7 and 5 or the doc-row search not launched: "
+          f"{cdf_counts}")
     del sess, src
     torch.cuda.empty_cache()
 
@@ -4428,12 +4584,13 @@ def phase_compare(seed: int, smi):
     check([r["algorithm"] for r in sessions] == list(configs),
           f"compare: sessions ran {[r['algorithm'] for r in sessions]}")
     # kernel 2 once a sweep, kernel 5 twice a step (the delta merge),
-    # kernel 7 twice a token chunk
+    # kernel 7 twice and the doc-row search once a token chunk
     chunks = -(-sessions[1]["tokens"] // (CDF_CHUNK_ELEMS // CDF_MAX_KD))
     for r, want_launches in zip(sessions, (
             {"zen_fused_sample": COMPARE_ITERS,
              "topic_histogram": 2 * COMPARE_ITERS},
             {"cdf_row_search": 2 * chunks * COMPARE_ITERS,
+             "doc_row_search": chunks * COMPARE_ITERS,
              "topic_histogram": 2 * COMPARE_ITERS})):
         check_launches(f"compare {r['algorithm']}", r["launches"],
                        want_launches)
@@ -4757,7 +4914,7 @@ def phase_lm_serve(seed: int, dev, smi):
     profiled step. Then (3) prefill + decode == forward at full width
     (LM_CHECK_LAYERS layers, float32), (4) every -smoke config on the card
     == on the CPU, and ``examples/serve_lm_torch.py`` on the card.
-    Returns the LM serving runs' kernel launches (none of the seven)."""
+    Returns the LM serving runs' kernel launches (none of the eight)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -5178,7 +5335,7 @@ def phase_lm_train(seed: int, dev, smi):
     (a)-(d) (``lm_train_remat``, ``lm_train_microbatch``,
     ``lm_train_card_vs_cpu``, ``lm_train_loop_resume``) and (e)
     ``examples/train_lm_torch.py`` on the card. Returns the phase's
-    launches of the seven kernels (none may launch)."""
+    launches of the eight kernels (none may launch)."""
     import dataclasses
     import gc
 
@@ -5509,7 +5666,7 @@ def phase_lm_dryrun(seed: int, dev, smi):
     the production-mesh cells, (b) lm_train's cell against the real step,
     (c) that step as DTensors on a one-rank NCCL mesh against the plain
     one, (d) the LDA cell's collective bytes against mesh_four's. Returns
-    the phase's launches of the seven kernels (none may launch)."""
+    the phase's launches of the eight kernels (none may launch)."""
     import logging
 
     from repro_torch.kernels import ops

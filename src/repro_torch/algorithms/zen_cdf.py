@@ -21,6 +21,15 @@ Kernel 7 is only asked for the tokens whose draw takes term 2; the others
 get target 0, which its walk answers at once (their term-2 topic is
 never used).
 
+Term 3 follows the same choice. With kernels dispatched one launch a
+chunk (``kernels.ops.doc_row_search``) builds, scans and searches each
+token's top-``max_kd`` doc row in a warp's registers, for both draws,
+and returns the token's total mass and its two term-3 topics: no (chunk,
+max_kd) tensor exists. Otherwise :func:`doc_rows` gathers the rows and
+``torch.cumsum`` adds them, and each draw searches the (chunk, max_kd)
+CDF. The two add in different orders: equal in distribution, a draw
+differing only at a near-tie.
+
 Differences from the reference, none of which changes the sampler:
 
 * The doc rows are the exact top-``max_kd`` by count, lower topic id first
@@ -42,10 +51,12 @@ Differences from the reference, none of which changes the sampler:
 
 While a profiler records, the sweep's phases are spans
 (``observe.metrics.span``): ``zen_cdf.tables`` (:func:`build_cdf_tables`)
-once, and in each chunk ``zen_cdf.doc_rows`` (:func:`doc_rows`),
-``zen_cdf.draws`` (the uniforms, then both draws) and ``zen_cdf.remedy``;
-the tokens whose draw searches a term-2 row (target > 0, what kernel 7
-queues) add to the counter ``zen_cdf.search_tokens``.
+once, and in each chunk ``zen_cdf.doc_rows`` (:func:`doc_rows`, or the
+doc-row search), ``zen_cdf.draws`` (the uniforms, then both draws) and
+``zen_cdf.remedy``; the tokens whose draw searches a term-2 row (target >
+0, what kernel 7 queues) add to the counter ``zen_cdf.search_tokens``,
+and on the kernel route the live (count > 0) doc-row entries to
+``zen_cdf.row_entries``.
 
 Serving (``native_infer``): the model is frozen, so the per-sweep tables
 collapse to one precompute, :class:`FrozenCdfTables` (per-word CDFs of the
@@ -73,7 +84,7 @@ from repro_torch.core.keys import stream_uniforms, token_uniforms
 from repro_torch.core.sampler import chunked_token_map
 from repro_torch.core.types import LDAHyperParams
 from repro_torch.kernels.cdf_search import SEARCH_TOKENS
-from repro_torch.kernels.ops import cdf_row_search
+from repro_torch.kernels.ops import cdf_row_search, doc_row_search
 from repro_torch.observe import metrics
 
 # sparse doc-row width when the config leaves max_kd = 0 (auto)
@@ -137,7 +148,7 @@ class CdfTables(NamedTuple):
     m2_all: torch.Tensor  # (W,) term-2 mass per word
     w_cdf: Optional[torch.Tensor]  # (W, K) term-2 CDF rows; None: kernel
     kd_cnt: torch.Tensor  # (D, max_kd) int32 top counts per doc
-    kd_idx: torch.Tensor  # (D, max_kd) int64 their topics
+    kd_idx: torch.Tensor  # (D, max_kd) their topics; int32 with w_cdf None
 
 
 def build_cdf_tables(n_wk, n_kd, n_k, hyper: LDAHyperParams,
@@ -154,6 +165,8 @@ def build_cdf_tables(n_wk, n_kd, n_k, hyper: LDAHyperParams,
                              dim=-1)
         m2_all = w_cdf[:, -1]
     kd_cnt, kd_idx = doc_topk(n_kd, min(max_kd, hyper.num_topics))
+    if use_kernel:
+        kd_idx = kd_idx.to(torch.int32)  # what the doc-row search reads
     return CdfTables(terms=terms, g_cdf=g_cdf, m2_all=m2_all, w_cdf=w_cdf,
                      kd_cnt=kd_cnt, kd_idx=kd_idx)
 
@@ -181,44 +194,56 @@ def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
     """New topics (T,) int32: the three-term CDF draw twice, then the
     remedy. ``uniforms`` (3, T) in [0, 1): draw a, draw b, remedy (the
     reference's ``split(key, 3)``; each draw's u is the first half of its
-    key's split). Term 2 takes kernel 7 when ``tables.w_cdf`` is None."""
+    key's split). When ``tables.w_cdf`` is None, term 2 takes kernel 7 and
+    term 3 the doc-row search (``kernels.ops.doc_row_search``: both
+    draws' term-3 topics and the total mass, with no (T, max_kd) rows)."""
     k = hyper.num_topics
     terms = tables.terms
     dev = word.device
     counting = metrics.tracing()
+    fused = tables.w_cdf is None
     with metrics.span("zen_cdf.doc_rows", dev):
-        rows_idx, d_cdf = doc_rows(tables, word, doc, n_wk, hyper)
+        if fused:
+            total, z_ds = doc_row_search(
+                n_wk, word, doc, tables.kd_cnt, tables.kd_idx, terms.t1,
+                tables.m2_all, tables.g_cdf, uniforms[0], uniforms[1],
+                beta=hyper.beta, count=counting)
+        else:
+            rows_idx, d_cdf = doc_rows(tables, word, doc, n_wk, hyper)
 
     with metrics.span("zen_cdf.draws", dev):
         w, d = word.long(), doc.long()
         m1 = tables.g_cdf[-1]
         m2 = tables.m2_all[w]
         m12 = m1 + m2
-        total = m12 + d_cdf[:, -1]
+        if not fused:
+            total = m12 + d_cdf[:, -1]
 
-        def draw(u01):
-            u = u01 * total
+        def draw(i):
+            u = uniforms[i] * total
             branch = torch.where(u < m1, 0, torch.where(u < m12, 1, 2))
             # term 1: the shared global CDF (replaces gTable)
             z_g = _bsearch_shared(tables.g_cdf, u)
             # term 2: the word's CDF row (replaces wTable); only term-2 draws
             # need it, the others search target 0
             t2 = torch.where(branch == 1, torch.clamp_min(u - m1, 0.0), 0.0)
-            if tables.w_cdf is None:
+            if fused:
                 z_w = cdf_row_search(n_wk, word, terms.t4, t2, count=counting)
+                z_d = z_ds[i]
             else:
                 z_w = _bsearch_gather(tables.w_cdf, word, t2)
                 if counting:
                     metrics.count(SEARCH_TOKENS, (t2 > 0).sum())
-            # term 3: the doc's sparse row CDF (dSparse + BSearch)
-            pos = _searchsorted_rows(d_cdf, torch.clamp_min(u - m1 - m2, 0.0))
-            z_d = rows_idx.gather(1, pos.long()[:, None])[:, 0]
+                # term 3: the doc's sparse row CDF (dSparse + BSearch)
+                pos = _searchsorted_rows(d_cdf,
+                                         torch.clamp_min(u - m1 - m2, 0.0))
+                z_d = rows_idx.gather(1, pos.long()[:, None])[:, 0]
             z = torch.where(branch == 0, z_g,
                             torch.where(branch == 1, z_w.long(), z_d))
             return torch.clamp_max(z, k - 1).to(torch.int32), branch
 
-        z1, branch = draw(uniforms[0])
-        z2, _ = draw(uniforms[1])
+        z1, branch = draw(0)
+        z2, _ = draw(1)
 
     # resampling remedy (§3.1) for the staleness of terms 2 and 3
     with metrics.span("zen_cdf.remedy", dev):

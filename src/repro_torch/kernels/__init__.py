@@ -7,6 +7,7 @@ by ``_build`` at its first launch (importing the package builds nothing).
 """
 from repro_torch.kernels.ops import (  # noqa: F401
     cdf_row_search,
+    doc_row_search,
     sparse_row_sample,
     topic_histogram,
     zen_fused_infer_sample,

@@ -28,7 +28,8 @@ SOURCES = (
     _HERE / "csrc" / "zen_infer.cu",  # serving: queue-2 kernels 3 and 4
     _HERE / "csrc" / "zen_train.cu",  # training: queue-2 kernels 1 and 2
     _HERE / "csrc" / "sparse_row.cu",  # padded-sparse rows: kernel 6
-    _HERE / "csrc" / "cdf_search.cu",  # zen_cdf's CDF row search: kernel 7
+    # zen_cdf's CDF row search (kernel 7) and term-3 doc-row search
+    _HERE / "csrc" / "cdf_search.cu",
     _HERE / "csrc" / "topic_histogram.cu",  # delta histogram: kernel 5
 )
 BUILD_DIR = _HERE / "build"
@@ -71,10 +72,15 @@ SIGNATURES = {
     "sparse_row": (_P, _P, _P, _P, _I, _I, _P),
     # ..., searched (a work counter, or null), stream
     "cdf_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # 12 pointers, T, K, J, W, D, beta, entries (a work counter, or null),
+    # stream
+    "doc_row_search": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _I, _I, _I, _I, _F, _P, _P),
     # ..., changed (a work counter, or null), stream
     "topic_histogram": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # where a kernel's work counter is on the card, and what it holds
     "cdf_search_searched": (_P, _P),
+    "doc_row_search_entries": (_P, _P),
     "topic_histogram_changed": (_P, _P),
     # the histogram launch's shape: its topic slab, and runs per warp
     "topic_histogram_shape": (_I, _P, _P),

@@ -12,18 +12,21 @@ Each wrapper counts its kernel launches in a plain int
 through the kernels; plain-version calls are not counted, nor is a call
 with no tokens, whose launcher launches nothing (kernel 5's launcher
 zero-fills its output then, and counts). ``count=True`` on kernels 5 and
-7 (only while a profiler records) adds their work to the profiled
-stretch's counters: the kernel counts on the card, the plain version with
-torch ops.
+7 and on the doc-row search (only while a profiler records) adds their
+work to the profiled stretch's counters: the kernel counts on the card,
+the plain version with torch ops.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels.cdf_search import (
+    ROW_ENTRIES,
     SEARCH_TOKENS,
     cdf_row_search_cuda,
     cdf_row_search_plain,
+    doc_row_search_cuda,
+    doc_row_search_plain,
 )
 from repro_torch.kernels.fused_gather import (
     zen_fused_infer_sample_cuda,
@@ -55,6 +58,7 @@ _LAUNCHES: Dict[str, int] = {
     "zen_fused_infer_sample": 0,
     "sparse_row_sample": 0,
     "cdf_row_search": 0,
+    "doc_row_search": 0,
     "topic_histogram": 0,
 }
 
@@ -180,6 +184,27 @@ def cdf_row_search(counts, rows, term, targets, *, bt: int = 256,
         return cdf_row_search_plain(counts, rows, term, targets)
     out = cdf_row_search_cuda(counts, rows, term, targets, count=count)
     _count("cdf_row_search", rows.shape[0])
+    return out
+
+
+def doc_row_search(n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf, u_a,
+                   u_b, *, beta: float, count: bool = False):
+    """``zen_cdf``'s term 3 for both draws, the doc rows read in place:
+    (total (T,) float32, z (2, T) int32), the token's total mass and each
+    draw's term-3 topic (``cdf_search.doc_row_search_cuda``). (W, K) int32
+    ``n_wk``, (T,) int32 word and doc ids, (D, J) int32 ``kd_cnt`` and
+    ``kd_idx``, (K,) float32 ``t1`` and ``g_cdf``, (W,) float32 ``m2_all``
+    and the two draws' (T,) float32 uniforms in. ``count``: add the live
+    row entries (count > 0) to the trace's ``zen_cdf.row_entries``."""
+    args = (n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf, u_a, u_b,
+            beta)
+    if _route(n_wk) == "cpu":
+        if count:
+            metrics.count(ROW_ENTRIES,
+                          (kd_cnt > 0).sum(1)[doc.long()].sum())
+        return doc_row_search_plain(*args)
+    out = doc_row_search_cuda(*args, count=count)
+    _count("doc_row_search", word.shape[0])
     return out
 
 

@@ -36,6 +36,23 @@ def strip_scan(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def strip_prefix(vals: torch.Tensor):
+    """The prefix sums (n, J) float32 of each row of ``vals`` (n, J),
+    added strip by strip in the warp kernels' order (each strip's shuffle
+    scan, then the carry of the strips before it), and the carry (n,)
+    after the last strip, which grows by each strip's lane 31."""
+    n, j = vals.shape
+    carry = torch.zeros((n, 1), dtype=torch.float32, device=vals.device)
+    pre = torch.empty((n, j), dtype=torch.float32, device=vals.device)
+    for j0 in range(0, j, WARP):
+        strip = vals[:, j0:j0 + WARP].to(torch.float32)
+        width = strip.shape[1]
+        x = strip_scan(F.pad(strip, (0, WARP - width)))
+        pre[:, j0:j0 + width] = carry + x[:, :width]
+        carry = carry + x[:, WARP - 1:]
+    return pre, carry[:, 0]
+
+
 def strip_count(vals: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """(n,) int64: how many prefix sums of each row of ``vals`` (n, J)
     lie below its target, the prefix sums added strip by strip in the

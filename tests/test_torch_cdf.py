@@ -348,6 +348,219 @@ def test_kernel_and_plain_routes_differ_at_near_ties_only(monkeypatch):
     assert near[bad].all(), bad[~near[bad]]
 
 
+# -- term 3's doc-row search (kernels.ops.doc_row_search) --------------------
+
+def _row_search_args(s, th, kd, u):
+    """The op's arguments on the kernel route's tables (int32 ``kd_idx``)
+    for draws a and b of ``u``, and the tables."""
+    tables = tzc.build_cdf_tables(t_(s["n_wk"]), t_(s["n_kd"]), t_(s["n_k"]),
+                                  th, s["w"], kd, use_kernel=True)
+    args = (t_(s["n_wk"]), t_(s["word"]), t_(s["doc"]), tables.kd_cnt,
+            tables.kd_idx, tables.terms.t1, tables.m2_all, tables.g_cdf,
+            t_(u[0]), t_(u[1]))
+    return args, tables
+
+
+def _off_route_term3(s, th, kd, u):
+    """Today's ``kernels="off"`` term 3: :func:`doc_rows`, the token's
+    total, and each draw's ``_searchsorted_rows`` position and topic."""
+    tables = tzc.build_cdf_tables(t_(s["n_wk"]), t_(s["n_kd"]), t_(s["n_k"]),
+                                  th, s["w"], kd, use_kernel=False)
+    word, doc = t_(s["word"]), t_(s["doc"])
+    rows_idx, d_cdf = tzc.doc_rows(tables, word, doc, t_(s["n_wk"]), th)
+    m1, m2 = tables.g_cdf[-1], tables.m2_all[word.long()]
+    total = m1 + m2 + d_cdf[:, -1]
+    pos = [_searchsorted_rows(d_cdf, torch.clamp_min(
+        t_(u01) * total - m1 - m2, 0.0)).long() for u01 in u[:2]]
+    z = [rows_idx.gather(1, p[:, None])[:, 0] for p in pos]
+    d_vals = torch.diff(d_cdf, dim=1, prepend=torch.zeros_like(d_cdf[:, :1]))
+    return total, pos, z, rows_idx, d_vals
+
+
+@pytest.mark.parametrize("seed,kd,k", [(0, 1, 20), (1, 7, 20), (2, 20, 20),
+                                       (3, 32, 64), (4, 49, 64),
+                                       (5, 50, 64), (6, 64, 64)])
+def test_doc_row_search_matches_doc_rows_up_to_near_ties(seed, kd, k):
+    """The plain version against ``doc_rows`` plus ``_searchsorted_rows``
+    fed the same uniforms, at J of 1, 7, 32, 49, 50 and J == K: rows with
+    zero-count tails (a doc holds ~50 tokens of a few topics), one doc row
+    all zero. Totals agree to float32 round-off; topics are equal except
+    at counted near-ties of the term-3 target."""
+    s = _setup(seed, k=k)
+    s["n_kd"][5] = 0  # a zero-mass doc row: every target clamps to J - 1
+    _, th = _hypers(k)
+    rng = np.random.default_rng(seed)
+    u = rng.random((2, s["e"])).astype(np.float32)
+    args, tables = _row_search_args(s, th, kd, u)
+    assert tables.kd_idx.dtype == torch.int32
+    assert bool((tables.kd_cnt == 0).any())  # zero tails are exercised
+    ops.reset_launch_counts()
+    total, z = ops.doc_row_search(*args, beta=th.beta)
+    assert ops.launch_counts()["doc_row_search"] == 0
+    assert total.dtype == torch.float32 and z.dtype == torch.int32
+    assert z.shape == (2, s["e"])
+    want_total, want_pos, want_z, rows_idx, d_vals = _off_route_term3(
+        s, th, kd, u)
+    torch.testing.assert_close(total, want_total, rtol=1e-6, atol=0.0)
+    m12 = (tables.g_cdf[-1] + tables.m2_all[args[1].long()]).double()
+    mismatches = 0
+    for i in range(2):
+        hit = rows_idx == z[i].long()[:, None]
+        assert bool(hit.any(1).all())  # a topic of the token's doc row
+        got_pos = hit.int().argmax(1)
+        target = np.maximum(u[i] * want_total.double().numpy()
+                            - m12.numpy(), 0.0)
+        bad = _near_ties(target, d_vals.numpy(), got_pos.numpy(),
+                         want_pos[i].numpy())
+        mismatches += bad.size
+    assert mismatches <= 2, mismatches  # counted: near-ties, and rare
+
+
+@pytest.mark.parametrize("kd", [1, 7, 32, 49, 50, 64])
+def test_doc_row_search_on_prefix_sums_and_past_the_mass(kd):
+    """Exact arithmetic (integer weights, m1 = m2 = 0, t1 a power of two):
+    a target exactly on a prefix sum counts the prefixes strictly below it,
+    a target on the row's mass stops at the last live entry (the zero tail's
+    prefixes equal the mass), and one past it clamps to J - 1; the same
+    positions as ``doc_rows`` plus ``_searchsorted_rows``."""
+    k, w = 64, 3
+    rng = np.random.default_rng(kd)
+    live = max(1, kd - 5)  # entries with a count; the rest a zero tail
+    n_kd = np.zeros((2, k), np.int32)
+    n_kd[0, rng.permutation(k)[:live]] = rng.integers(1, 4, live)
+    n_kd[1, :live] = 2  # ties: the lower topic first
+    n_wk = rng.integers(0, 5, (w, k)).astype(np.int32)
+    th = LDAHyperParams(num_topics=k, alpha=0.1, beta=0.0)
+    n_k = np.full(k, 1, np.int32)
+    g = tzc.build_cdf_tables(t_(n_wk), t_(n_kd), t_(n_k), th, w, kd,
+                             use_kernel=True)
+    # t1 = 1 / (N_k + W·beta) = 1: every weight cnt·n_wk is an integer
+    assert bool((g.terms.t1 == 1.0).all())
+    tables = g._replace(g_cdf=torch.zeros(k), m2_all=torch.zeros(w))
+    word = torch.tensor([0, 1, 2, 0, 1, 2] * 4, dtype=torch.int32)
+    doc = torch.tensor([0] * 12 + [1] * 12, dtype=torch.int32)
+    cnt = tables.kd_cnt[doc.long()].double()
+    idx = tables.kd_idx[doc.long()].long()
+    vals = cnt * t_(n_wk)[word.long()[:, None], idx].double()
+    pre = torch.cumsum(vals, 1)
+    mass = pre[:, -1]
+    on = torch.from_numpy(rng.integers(0, kd, word.shape[0]))
+    # draw a: a float32 uniform whose float32 product with the mass is
+    # exactly a prefix sum; draw b: on the mass, or past it
+    on_pre = pre.gather(1, on[:, None])[:, 0].numpy().astype(np.float32)
+    m32 = mass.numpy().astype(np.float32)
+    u_a = np.zeros(word.shape[0], np.float32)
+    for t in np.flatnonzero(m32 > 0):
+        u = np.float32(on_pre[t] / m32[t])
+        for _ in range(8):  # the nearest floats below, then above
+            u = np.nextafter(u, np.float32(-1))
+        for _ in range(17):
+            if u * m32[t] == on_pre[t]:
+                u_a[t] = u
+                break
+            u = np.nextafter(u, np.float32(2))
+    exact = t_(u_a * m32 == on_pre) & (mass > 0)
+    assert int(exact.sum()) >= word.shape[0] // 2, int(exact.sum())
+    u_a = t_(u_a)
+    u_b = torch.where(torch.arange(word.shape[0]) % 2 == 0, 1.0, 1.5).float()
+    total, z = ops.doc_row_search(
+        t_(n_wk), word, doc, tables.kd_cnt, tables.kd_idx, tables.terms.t1,
+        tables.m2_all, tables.g_cdf, u_a, u_b, beta=0.0)
+    assert torch.equal(total.double(), mass)
+    want_a = torch.clamp_max((pre < (u_a * total).double()[:, None]).sum(1),
+                             kd - 1)
+    want_b = torch.clamp_max((pre < (u_b * total).double()[:, None]).sum(1),
+                             kd - 1)
+    assert torch.equal(z[0].long(), idx.gather(1, want_a[:, None])[:, 0])
+    assert torch.equal(z[1].long(), idx.gather(1, want_b[:, None])[:, 0])
+    past = (u_b > 1) | (mass == 0)
+    assert bool((want_b[past] == kd - 1).all())
+    live_row = (cnt > 0).sum(1)
+    on_mass = ~past & (live_row < kd)
+    # the first prefix that reaches the mass: the last entry with a weight
+    last = (vals > 0).long().cumsum(1).argmax(1)
+    assert bool((want_b[on_mass] == last[on_mass]).all())
+    # today's route gives the same positions on this exact arithmetic
+    off = tables._replace(kd_idx=tables.kd_idx.long())
+    rows_idx, d_cdf = tzc.doc_rows(off, word, doc, t_(n_wk), th)
+    for i, u01 in enumerate((u_a, u_b)):
+        pos = _searchsorted_rows(d_cdf, torch.clamp_min(
+            u01 * total, 0.0)).long()
+        assert torch.equal(z[i].long(), rows_idx.gather(1, pos[:, None])[:, 0])
+
+
+def test_doc_row_search_refuses_ids_out_of_range():
+    s = _setup(7)
+    _, th = _hypers(s["k"])
+    u = np.zeros((2, s["e"]), np.float32)
+    args, _ = _row_search_args(s, th, 4, u)
+    for at, bound in ((1, s["w"]), (2, s["d"])):
+        for bad in (bound, -1):
+            broken = list(args)
+            broken[at] = broken[at].clone()
+            broken[at][3] = bad
+            with pytest.raises(IndexError, match="outside"):
+                ops.doc_row_search(*broken, beta=th.beta)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        cdf_search.doc_row_search_cuda(*args, th.beta)
+
+
+class _Shapes(torch.utils._python_dispatch.TorchDispatchMode):
+    """The shape of every tensor an op returns, outside the calls that
+    stand for kernels (``inside``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes, self.inside = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.inside:
+            for x in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(x, torch.Tensor):
+                    self.shapes.append(tuple(x.shape))
+        return out
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_kernel_route_makes_no_chunk_by_row_tensor(use_kernel, monkeypatch):
+    """On the kernel route every tensor the token path makes outside the
+    two kernels (run here as their plain versions) holds one value per
+    token at most: no (chunk, max_kd) rows, weights or CDF. The plain
+    route, the control, makes them."""
+    s = _setup(8, e=500)
+    _, th = _hypers(s["k"])
+    kd = 8
+    tables = tzc.build_cdf_tables(t_(s["n_wk"]), t_(s["n_kd"]), t_(s["n_k"]),
+                                  th, s["w"], kd, use_kernel)
+    watch = _Shapes()
+
+    def as_kernel(fn):
+        def run(*args, **kwargs):
+            watch.inside += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                watch.inside -= 1
+        return run
+
+    monkeypatch.setattr(tzc, "doc_row_search",
+                        as_kernel(tzc.doc_row_search))
+    monkeypatch.setattr(tzc, "cdf_row_search",
+                        as_kernel(tzc.cdf_row_search))
+    u = stream_uniforms(3, 0, s["e"], tzc.CDF_STREAMS)
+    args = [t_(s[n]) for n in ("word", "doc", "topic", "n_wk", "n_kd")]
+    with watch:
+        z = tzc.zen_cdf_tokens(tables, *args, th, u)
+    assert z.shape == (s["e"],)
+    widest = max(int(np.prod(x)) for x in watch.shapes)
+    rows = [x for x in watch.shapes if len(x) == 2 and x[1] == kd]
+    if use_kernel:
+        assert widest <= s["e"] and not rows, (widest, rows)
+    else:
+        assert rows and widest >= s["e"] * kd
+
+
 # -- zen_cdf serving -----------------------------------------------------------
 
 def _serving_setup(seed, b=5, l=16, w=40, k=12):

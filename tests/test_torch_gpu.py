@@ -525,6 +525,125 @@ def test_out_of_range_row_raises_whether_its_token_searches_or_not(
     assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
 
 
+# -- zen_cdf's term-3 doc-row search (csrc/cdf_search.cu) --------------------
+
+def _doc_row_case(dev, t, k, j, w=20000, d=None, seed=0):
+    """NYTimes-like inputs of the doc-row search: doc rows of distinct
+    topics with counts falling to a zero tail of random length (one row all
+    zero), tokens doc by doc, and uniforms that include 0 and 1 (t3 on the
+    row's mass: the clamp to J - 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed + t + k + j)
+    i32 = torch.int32
+    d = d or max(2, t // 300)
+    n_wk = torch.randint(0, 50, (w, k), generator=g, device=dev, dtype=i32)
+    n_wk[torch.rand((w, k), generator=g, device=dev) < 0.6] = 0
+    live = torch.randint(0, j + 1, (d, 1), generator=g, device=dev)
+    live[1] = 0
+    cnt = torch.randint(1, 30, (d, j), generator=g, device=dev)
+    cnt = torch.sort(cnt, dim=1, descending=True).values
+    kd_cnt = torch.where(torch.arange(j, device=dev) < live, cnt, 0).to(i32)
+    kd_idx = torch.argsort(torch.rand((d, k), generator=g, device=dev),
+                           dim=1)[:, :j].to(i32).contiguous()
+    word = torch.randint(0, w, (t,), generator=g, device=dev, dtype=i32)
+    doc = torch.sort(torch.randint(0, d, (t,), generator=g, device=dev)
+                     ).values.to(i32)
+    t1 = torch.rand(k, generator=g, device=dev) * 1e-3 + 1e-5
+    m2_all = torch.rand(w, generator=g, device=dev) * 0.05
+    g_cdf = torch.cumsum(torch.rand(k, generator=g, device=dev) * 1e-4, 0)
+    u = torch.rand((3, t), generator=g, device=dev)
+    u[0, ::97] = 0.0
+    u[1, ::89] = 1.0
+    return (n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf, u[0], u[1])
+
+
+@pytest.mark.parametrize("t,k,j", [(1 << 17, 1000, 128), (50000, 1000, 100),
+                                   (20000, 300, 37), (6000, 1000, 200),
+                                   (3000, 64, 64), (33, 5, 1)])
+def test_doc_row_search_kernel_bit_equal_to_plain_version_on_card(cuda, t,
+                                                                  k, j):
+    """A NYTimes-like chunk (K 1000, J 128), ragged J (100, 37, 1), a row
+    wider than the kernel's registers (200: two passes) and J == K."""
+    from repro_torch.kernels.cdf_search import doc_row_search_plain
+
+    args = _doc_row_case(cuda, t, k, j)
+    before = ops.launch_counts()["doc_row_search"]
+    total, z = ops.doc_row_search(*args, beta=0.01)
+    want_total, want_z = doc_row_search_plain(*args, 0.01)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["doc_row_search"] == before + 1
+    assert torch.equal(total, want_total)
+    assert torch.equal(z, want_z)
+    kd_idx, doc = args[4], args[2].long()
+    assert bool((kd_idx[doc] == z[0].long()[:, None]).any(1).all())
+
+
+_OUT_OF_RANGE_DOC_ROW = """
+import torch
+from repro_torch.kernels import ops
+d = torch.device("cuda", 0)
+i32 = torch.int32
+ids = [torch.zeros(64, dtype=i32, device=d) for _ in range(2)]
+ids[{which}][9] = {value}
+try:
+    ops.doc_row_search(
+        torch.ones((10, 16), dtype=i32, device=d), ids[0], ids[1],
+        torch.ones((5, 4), dtype=i32, device=d),
+        torch.zeros((5, 4), dtype=i32, device=d), torch.ones(16, device=d),
+        torch.ones(10, device=d), torch.ones(16, device=d),
+        torch.full((64,), 0.5, device=d), torch.full((64,), 0.5, device=d),
+        beta=0.01)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", e)
+"""
+
+
+@pytest.mark.parametrize("which,value", [(0, 10), (1, 5), (1, -1)])
+def test_out_of_range_id_raises_in_doc_row_search(cuda, which, value):
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _OUT_OF_RANGE_DOC_ROW.format(which=which, value=value)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": src})
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_kernel_route_allocates_no_chunk_by_row_tensor_on_card(cuda,
+                                                               use_kernel):
+    """The token path at T = 2^18, J = 128: on the kernel route the peak
+    above what was allocated stays under half of one (T, J) float32 array;
+    the plain route, the control, allocates several."""
+    from repro_torch.algorithms import zen_cdf as zc
+    from repro_torch.core.types import LDAHyperParams
+
+    t, k, j, w, d = 1 << 18, 1000, 128, 20000, 800
+    g = torch.Generator(device=cuda).manual_seed(3)
+    i32 = torch.int32
+    n_wk = torch.randint(0, 20, (w, k), generator=g, device=cuda, dtype=i32)
+    n_kd = torch.randint(0, 3, (d, k), generator=g, device=cuda, dtype=i32)
+    word = torch.randint(0, w, (t,), generator=g, device=cuda, dtype=i32)
+    doc = torch.sort(torch.randint(0, d, (t,), generator=g, device=cuda)
+                     ).values.to(i32)
+    z_old = torch.randint(0, k, (t,), generator=g, device=cuda, dtype=i32)
+    hyper = LDAHyperParams(num_topics=k)
+    tables = zc.build_cdf_tables(n_wk, n_kd, n_kd.sum(0), hyper, w, j,
+                                 use_kernel)
+    u = torch.rand((3, t), generator=g, device=cuda)
+    zc.zen_cdf_tokens(tables, word, doc, z_old, n_wk, n_kd, hyper, u)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    zc.zen_cdf_tokens(tables, word, doc, z_old, n_wk, n_kd, hyper, u)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(cuda) - base
+    if use_kernel:
+        assert rise < t * j * 4 // 2, rise
+    else:
+        assert rise > t * j * 4, rise
+
+
 # -- the topic histogram (csrc/topic_histogram.cu) ----------------------------
 
 @pytest.mark.parametrize("t,r,k,sort", [(100000, 3000, 1000, True),
@@ -750,13 +869,44 @@ def test_zen_cdf_session_on_card_launches_only_kernel_7(cuda, kernels,
         st = sess.step(st)
         st.check_invariants(sess.corpus)
     counts = ops.launch_counts()
-    # one token chunk per sweep: two searches (draws a and b) each; the
-    # delta merge two histograms per step
+    # one token chunk per sweep: two searches (draws a and b) and one
+    # doc-row search each; the delta merge two histograms per step
     assert counts["cdf_row_search"] == (6 if launches else 0), counts
+    assert counts["doc_row_search"] == (3 if launches else 0), counts
     assert counts["topic_histogram"] == (6 if launches else 0), counts
     assert all(v == 0 for name, v in counts.items()
-               if name not in ("cdf_row_search", "topic_histogram"))
+               if name not in ("cdf_row_search", "doc_row_search",
+                               "topic_histogram"))
     assert sess.llh(st) > llh0
+
+
+def test_zen_cdf_launches_the_doc_row_search_once_a_chunk_on_card(
+        cuda, monkeypatch):
+    """Chunks of 512 tokens: one doc-row search and two kernel-7 searches
+    a chunk, and draws equal to the whole-corpus chunking's."""
+    from repro_torch.algorithms import zen_cdf as zc
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import synthetic_lda_corpus
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus, _ = synthetic_lda_corpus(0, 200, 300, 10, 50)
+    hyper = LDAHyperParams(num_topics=10, alpha=0.1)
+    states = []
+    for elems in (zc.CDF_CHUNK_ELEMS, 512 * 8):
+        monkeypatch.setattr(zc, "CDF_CHUNK_ELEMS", elems)
+        sess = TrainSession(corpus, hyper, RunConfig(
+            algorithm="zen_cdf", max_kd=8), device=cuda)
+        st = sess.init(0)
+        ops.reset_launch_counts()
+        for _ in range(2):
+            st = sess.step(st)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        chunks = -(-sess.corpus.num_tokens // (elems // 8))
+        assert counts["doc_row_search"] == 2 * chunks, (chunks, counts)
+        assert counts["cdf_row_search"] == 4 * chunks, (chunks, counts)
+        states.append(st.topic.cpu())
+    assert torch.equal(states[0], states[1])
 
 
 def test_engine_serves_zen_cdf_on_card(cuda):

@@ -200,6 +200,7 @@ def test_wrappers_route_by_device_and_count_only_launches():
                                    "zen_fused_infer_sample": 0,
                                    "sparse_row_sample": 0,
                                    "cdf_row_search": 0,
+                                   "doc_row_search": 0,
                                    "topic_histogram": 0}
     meta = [x.to("meta") for x in args]
     with pytest.raises(ValueError, match="no kernel or plain version"):

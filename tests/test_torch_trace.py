@@ -8,7 +8,8 @@ in the collector. Under ``torch.profiler.profile`` every span is a user
 annotation nested as the step nests it, both counters equal a recount of
 their predicate after every step, the readers of device milliseconds
 find nothing on the CPU, and two profiled windows each see only their
-own totals.
+own totals. The doc-row search's counter ``zen_cdf.row_entries`` counts
+only on the kernel route (``kernels="on"`` here runs its plain version).
 """
 import hashlib
 
@@ -130,8 +131,9 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
     """``on`` takes the kernels' routes, whose ops run their plain
     versions on the CPU; ``off`` the plain routes."""
     monkeypatch.setenv("REPRO_KERNELS", kernels)
-    searches = []
+    searches, entries = [], []
     bsearch, row_search = zen_cdf._bsearch_gather, zen_cdf.cdf_row_search
+    doc_search = zen_cdf.doc_row_search
 
     def spy_bsearch(mat, rows, targets):
         searches.append(int((targets > 0).sum()))
@@ -141,8 +143,13 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
         searches.append(int((args[3] > 0).sum()))
         return row_search(*args, **kwargs)
 
+    def spy_doc_search(n_wk, word, doc, kd_cnt, *args, **kwargs):
+        entries.append(int((kd_cnt[doc.long()] > 0).sum()))
+        return doc_search(n_wk, word, doc, kd_cnt, *args, **kwargs)
+
     monkeypatch.setattr(zen_cdf, "_bsearch_gather", spy_bsearch)
     monkeypatch.setattr(zen_cdf, "cdf_row_search", spy_row_search)
+    monkeypatch.setattr(zen_cdf, "doc_row_search", spy_doc_search)
     run = runner(name)
     changed = 0
     with cpu_profile():
@@ -157,6 +164,12 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
                     "zen_cdf.search_tokens"] == sum(searches)
             else:
                 assert "zen_cdf.search_tokens" not in counters
+            # the doc-row search runs on the kernel route alone
+            if name == CDF and kernels == "on":
+                assert entries and counters[
+                    "zen_cdf.row_entries"] == sum(entries)
+            else:
+                assert not entries and "zen_cdf.row_entries" not in counters
 
 
 def test_ops_count_their_predicates_on_the_plain_route(collector):
@@ -168,18 +181,27 @@ def test_ops_count_their_predicates_on_the_plain_route(collector):
     targets = torch.rand(500, generator=g) - 0.5
     counts = torch.randint(0, 9, (7, 4), generator=g, dtype=torch.int32)
     term = torch.rand(4, generator=g)
+    kd_cnt = torch.randint(0, 3, (7, 5), generator=g, dtype=torch.int32)
+    kd_idx = torch.randint(0, 4, (7, 5), generator=g, dtype=torch.int32)
+    words = torch.randint(0, 7, (500,), generator=g, dtype=torch.int32)
+    search = (counts, words, rows, kd_cnt, kd_idx, term, torch.rand(
+        7, generator=g), torch.cumsum(term, 0), targets.abs(), targets + 0.5)
     with cpu_profile():
         out = ops.topic_histogram(rows, z_old, z_new, inc, 7, 4, count=True)
         ops.topic_histogram(rows, z_old, z_new, None, 7, 4, count=True)
         hits = ops.cdf_row_search(counts, rows, term, targets, count=True)
+        found = ops.doc_row_search(*search, beta=0.1, count=True)
     assert torch.equal(out, ops.topic_histogram(rows, z_old, z_new, inc,
                                                 7, 4))
     assert torch.equal(hits, ops.cdf_row_search(counts, rows, term, targets))
+    for a, b in zip(found, ops.doc_row_search(*search, beta=0.1)):
+        assert torch.equal(a, b)
     changed = z_old != z_new
     assert trace_totals()["counters"] == {
         "counts.changed_tokens": int((changed & (inc != 0)).sum())
         + int(changed.sum()),
-        "zen_cdf.search_tokens": int((targets > 0).sum())}
+        "zen_cdf.search_tokens": int((targets > 0).sum()),
+        "zen_cdf.row_entries": int((kd_cnt[rows.long()] > 0).sum())}
 
 
 @pytest.mark.parametrize("name", tiny.CELLS)

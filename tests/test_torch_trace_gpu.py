@@ -1,5 +1,6 @@
-"""The training step's spans and kernels 5's and 7's work counters on the
-card (marker ``gpu``; they skip without one). Run them where a card is:
+"""The training step's spans and the work counters of kernels 5 and 7 and
+of the doc-row search on the card (marker ``gpu``; they skip without
+one). Run them where a card is:
 
     PYTHONPATH=src:. python -m pytest -m gpu --noconftest \
         tests/test_torch_trace_gpu.py
@@ -12,7 +13,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from portbench.tests import tiny
 from repro_torch.algorithms import zen_cdf
-from repro_torch.kernels.cdf_search import cdf_row_search_cuda
+from repro_torch.kernels.cdf_search import (cdf_row_search_cuda,
+                                            doc_row_search_cuda,
+                                            doc_row_search_plain)
 from repro_torch.kernels.topic_histogram import topic_histogram_cuda
 from repro_torch.observe import trace_totals
 
@@ -97,23 +100,69 @@ def test_kernel_7_same_with_its_counter(cuda, t, k):
         "zen_cdf.search_tokens": 2 * int((targets > 0).sum())}
 
 
+@pytest.mark.parametrize("t,k,j", [(300_000, 1000, 128), (1000, 300, 200),
+                                   (3, 5, 1)])
+def test_doc_row_search_same_with_its_counter(cuda, t, k, j):
+    """The counter of live row entries on the card equals the plain
+    version's count (``ops.doc_row_search`` on the CPU), and counting
+    changes no output."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda).manual_seed(t + j)
+    i32 = torch.int32
+    w, d = 500, max(2, t // 300)
+    kd_cnt = torch.randint(0, 4, (d, j), generator=g, device=cuda, dtype=i32)
+    kd_cnt = torch.sort(kd_cnt, dim=1, descending=True).values.contiguous()
+    args = (
+        torch.randint(0, 9, (w, k), generator=g, device=cuda, dtype=i32),
+        torch.randint(0, w, (t,), generator=g, device=cuda, dtype=i32),
+        torch.randint(0, d, (t,), generator=g, device=cuda, dtype=i32),
+        kd_cnt,
+        torch.randint(0, k, (d, j), generator=g, device=cuda, dtype=i32),
+        torch.rand(k, generator=g, device=cuda),
+        torch.rand(w, generator=g, device=cuda),
+        torch.rand(k, generator=g, device=cuda).cumsum(0),
+        torch.rand(t, generator=g, device=cuda),
+        torch.rand(t, generator=g, device=cuda))
+    plain = doc_row_search_cuda(*args, 0.01)
+    with card_profile():
+        counted = doc_row_search_cuda(*args, 0.01, count=True)
+        again = doc_row_search_cuda(*args, 0.01, count=True)
+    card = trace_totals()["counters"]
+    for a, b, c, p in zip(plain, counted, again,
+                          doc_row_search_plain(*args, 0.01)):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, p)
+    with profile(activities=[ProfilerActivity.CPU]):
+        ops.doc_row_search(*(x.cpu() for x in args), beta=0.01, count=True)
+    assert card == {"zen_cdf.row_entries": 2 * trace_totals()["counters"][
+        "zen_cdf.row_entries"]}
+    assert card["zen_cdf.row_entries"] == 2 * int(
+        (kd_cnt[args[2].long()] > 0).sum())
+
+
 def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
     from portbench import registry
 
-    searches = []
-    row_search = zen_cdf.cdf_row_search
+    searches, entries = [], []
+    row_search, doc_search = zen_cdf.cdf_row_search, zen_cdf.doc_row_search
 
     def spy(*args, **kwargs):
         searches.append((args[3] > 0).sum())
         return row_search(*args, **kwargs)
 
+    def spy_doc(n_wk, word, doc, kd_cnt, *args, **kwargs):
+        entries.append((kd_cnt[doc.long()] > 0).sum())
+        return doc_search(n_wk, word, doc, kd_cnt, *args, **kwargs)
+
     monkeypatch.setattr(zen_cdf, "cdf_row_search", spy)
+    monkeypatch.setattr(zen_cdf, "doc_row_search", spy_doc)
     cell, config, traffic = tiny.spec("nytimes-cdf-sweeps", **SIZES)
     run = registry.runner(config["runner"]).Runner(
         config, traffic, cell, tiny.SEED, cuda)
     run.build({})
     run.step()
     searches.clear()
+    entries.clear()
     changed = 0
     with card_profile():
         for _ in range(3):
@@ -122,4 +171,5 @@ def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
             changed += int((run.state.topic != before).sum())
     assert trace_totals()["counters"] == {
         "counts.changed_tokens": changed,
-        "zen_cdf.search_tokens": int(sum(searches))}
+        "zen_cdf.search_tokens": int(sum(searches)),
+        "zen_cdf.row_entries": int(sum(entries))}
