@@ -114,14 +114,17 @@ Phases, each printing one JSON line:
    CUDA-event times of the kernel, the plain version and the
    ``kernels="off"`` route (the ``w_cdf`` build and its ``log K`` search),
    the bytes, operation and instruction-issue bounds, the SASS loop and
-   ``-res-usage`` figures; then doc_row_kernels — the term-3 doc-row
-   search on the same tokens and state, rows at the registry's max_kd
-   (128) and at 64: totals and both draws' topics bit-equal to its plain
-   version (0 mismatches), the draws that differ from the ``kernels=
-   "off"`` route (near-ties), CUDA-event times of the three, the bytes
-   bound and the ``n_wk`` gathers' 32-byte sectors and 64-byte segments
-   counted from the data (per live entry, distinct per token's row,
-   distinct over the chunk);
+   ``-res-usage`` figures; the same again, bar the plain version's time,
+   on the first chunk the path launches it on (16,777,216 tokens); then
+   doc_row_kernels — the term-3 doc-row search on the first 1,048,576
+   tokens of the same state, rows at the registry's max_kd (128) and at
+   64: totals and both draws' topics bit-equal to its plain version (0
+   mismatches), the draws that differ from the ``kernels="off"`` route
+   (near-ties), CUDA-event times of the three, the bytes bound and the
+   ``n_wk`` gathers' 32-byte sectors and 64-byte segments counted from
+   the data (per live entry, distinct per token's row, distinct over the
+   chunk); and at both widths on the path's first chunk: bit-equal to the
+   plain version, the kernel's time and the bytes bound;
 13. train_sparse_small — the train_small corpus and one set of initial
    topics, 3 iterations each of ``zen_sparse``, ``sparselda``,
    ``zen_hybrid``, ``lightlda`` (kernel) and ``lightlda`` with
@@ -366,6 +369,9 @@ SPARSE_LLH_BAND = 0.08  # train_sparse_small: llh/token vs zen's
 CDF_ITERS, CDF_MAX_KD = 3, 64  # train_cdf: zen_cdf iterations, doc rows
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_TOKENS = 1 << 20  # training-kernel phase: first 1,048,576 tokens
+# zen_cdf's token chunk on the kernel route (zen_cdf.CDF_KERNEL_CHUNK_TOKENS),
+# written here so that a change to it fails the launch checks
+CDF_PATH_CHUNK = 1 << 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SFU_PER_SM_PER_CLK = 16  # special-function unit results per SM per clock
 INSTR_PER_SM_PER_CLK = 4 * 32  # 4 warp schedulers x 32 lanes
@@ -2278,7 +2284,6 @@ def phase_train_cdf(corpus, seed: int, smi, sm_count: int,
     launch counts."""
     import torch
 
-    from repro_torch.algorithms.zen_cdf import CDF_CHUNK_ELEMS
     from repro_torch.core.types import LDAHyperParams
     from repro_torch.kernels import ops
     from repro_torch.train.session import RunConfig, TrainSession
@@ -2292,7 +2297,7 @@ def phase_train_cdf(corpus, seed: int, smi, sm_count: int,
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     tokens = sess.corpus.num_tokens
-    chunk = CDF_CHUNK_ELEMS // CDF_MAX_KD
+    chunk = min(CDF_PATH_CHUNK, tokens)
     chunks = -(-tokens // chunk)
 
     torch.cuda.reset_peak_memory_stats()
@@ -2430,10 +2435,12 @@ def phase_histogram(sess, prev, st):
 def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
                       sm_clock_hz: float):
     """Kernel 7 against its plain version on the first KERNEL_TOKENS tokens
-    of the full-width zen_cdf state: on the path's term-2 targets of draw a
-    (tokens whose draw takes another term search target 0) and on targets
-    uniform over each word's row; times beside the ``kernels="off"`` route
-    and the bounds. Returns the kernel's row of the kernels table."""
+    of the full-width zen_cdf state and on the first CDF_PATH_CHUNK (the
+    path's launch size): on the path's term-2 targets of draw a (tokens
+    whose draw takes another term search target 0) and on targets uniform
+    over each word's row; times beside the ``kernels="off"`` route and the
+    bounds (the plain version timed at KERNEL_TOKENS only). Returns the
+    kernel's row of the kernels table."""
     import torch
 
     from repro_torch.algorithms import zen_cdf as zc
@@ -2441,25 +2448,10 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
     from repro_torch.kernels import ops
     from repro_torch.kernels.cdf_search import cdf_row_search_plain
 
-    c, h = sess.corpus, sess.hyper
-    t, k = KERNEL_TOKENS, K_NYT
-    word, doc = c.word[:t], c.doc[:t]
+    c, h, k = sess.corpus, sess.hyper, K_NYT
     tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
                               CDF_MAX_KD, use_kernel=True)
-    _, d_cdf = zc.doc_rows(tab, word, doc, st.n_wk, h)
-    m1 = tab.g_cdf[-1]
-    m12 = m1 + tab.m2_all[word.long()]
     sweep_seed = key_seed(fold_in(st.rng, st.iteration))
-    u = stream_uniforms(sweep_seed, 0, t, zc.CDF_STREAMS,
-                        device=word.device)[0] * (m12 + d_cdf[:, -1])
-    del d_cdf
-    term1 = (u >= m1) & (u < m12)
-    gen = torch.Generator(device=word.device).manual_seed(seed)
-    targets = {
-        "path": torch.where(term1, torch.clamp_min(u - m1, 0.0), 0.0),
-        "uniform": torch.rand(t, generator=gen, device=word.device)
-        * (m12 - m1),
-    }
     term = tab.terms.t4
     w_cdf = torch.cumsum(st.n_wk.to(torch.float32) * term[None, :], dim=-1)
     w_cdf_ms = cuda_ms(lambda: torch.cumsum(
@@ -2469,75 +2461,109 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
                            holding="SHFL.UP")
     issue_rate = sm_count * INSTR_PER_SM_PER_CLK * sm_clock_hz
     runs = {}
-    for name, tgt in targets.items():
-        def kernel():
-            return ops.cdf_row_search(st.n_wk, word, term, tgt)
-
-        def plain():
-            return cdf_row_search_plain(st.n_wk, word, term, tgt)
-
-        def off():
-            return zc._bsearch_gather(w_cdf, word, tgt)
-
-        out_k, out_p, out_o = kernel(), plain(), off()
-        torch.cuda.synchronize()
-        mism = int((out_k != out_p).sum())
-        err = float((out_k.long() - out_p.long()).abs().max())
-        check(mism == 0, f"cdf_kernels {name}: {mism} kernel-vs-plain "
-              f"mismatches over {t} tokens")
-        ms_k = cuda_ms(kernel, reps=10, gate=True)
-        ms_host = cuda_ms(kernel, reps=10)  # at the host's launch pace
-        ms_p = cuda_ms(plain, reps=2, warmup=1)
-        ms_o = cuda_ms(off, reps=10)
-        if name == "path":
-            autotune_leg(lambda: autotune_cdf_rows(st.n_wk, word, term, tgt,
-                                                   out_k))
-        # what this data needs: a token with target <= 0 reads nothing; the
-        # others the row's counts up to the answer (all K when clamped)
-        live = tgt > 0
-        need = torch.where(live, out_k.long() + 1, 0)
-        row_need = torch.zeros(st.n_wk.shape[0], dtype=torch.int64,
-                               device=word.device).scatter_reduce_(
-            0, word.long(), need, reduce="amax")
-        nbytes = int(row_need.sum()) * 4 + k * 4 + t * 12
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        # a multiply, an add and a compare per needed element, float32
-        flops = 3 * int(need.sum())
-        flops_ms = flops / FP32_FLOPS * 1e3
-        strips = int(torch.where(live, out_k.long() // 32 + 1, 0).sum())
-        issue_ms = (strips * 32 * loop["loop_instructions"] / CDF_STRIPS
-                    / issue_rate * 1e3 if loop else None)
-        runs[name] = {
-            "ms": ms_k, "ms_host_paced": ms_host, "plain_ms": ms_p,
-            "off_route_search_ms": ms_o,
-            "off_route_matches": float((out_o == out_k).float().mean()),
-            "bytes": nbytes, "bytes_ms": bytes_ms,
-            "bytes_no_reuse": int(need.sum()) * 4 + k * 4 + t * 12,
-            # whole rows of the distinct words, as if no walk stopped early
-            "bytes_whole_rows": int(torch.unique(word).numel()) * k * 4
-            + k * 4 + t * 12,
-            "flops": flops, "flops_ms": flops_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "strips_walked": strips, "issue_bound_ms": issue_ms,
-            "searching_tokens": int(live.sum()), "mismatches": mism,
-            "max_abs_err": err,
+    for t in (KERNEL_TOKENS, min(CDF_PATH_CHUNK, c.num_tokens)):
+        word, doc = c.word[:t], c.doc[:t]
+        u = stream_uniforms(sweep_seed, 0, t, zc.CDF_STREAMS,
+                            device=word.device)
+        # draw a's u as the path forms it, on the doc-row search's total
+        total, _ = ops.doc_row_search(
+            st.n_wk, word, doc, tab.kd_cnt, tab.kd_idx, tab.terms.t1,
+            tab.m2_all, tab.g_cdf, u[0], u[1], beta=h.beta)
+        m1 = tab.g_cdf[-1]
+        m12 = m1 + tab.m2_all[word.long()]
+        ua = u[0] * total
+        del u, total
+        term1 = (ua >= m1) & (ua < m12)
+        gen = torch.Generator(device=word.device).manual_seed(seed)
+        targets = {
+            "path": torch.where(term1, torch.clamp_min(ua - m1, 0.0), 0.0),
+            "uniform": torch.rand(t, generator=gen, device=word.device)
+            * (m12 - m1),
         }
-        emit({"phase": "cdf_kernels", "targets": name, "T": t, "K": k,
-              "w_cdf_build_ms": w_cdf_ms, "sass": loop, **runs[name]})
-    del w_cdf, tab, targets
+        del ua, term1, m12
+        for name, tgt in targets.items():
+            def kernel():
+                return ops.cdf_row_search(st.n_wk, word, term, tgt)
+
+            def plain():
+                return cdf_row_search_plain(st.n_wk, word, term, tgt)
+
+            def off():
+                return zc._bsearch_gather(w_cdf, word, tgt)
+
+            out_k, out_p, out_o = kernel(), plain(), off()
+            torch.cuda.synchronize()
+            mism = int((out_k != out_p).sum())
+            err = float((out_k.long() - out_p.long()).abs().max())
+            check(mism == 0, f"cdf_kernels {name}: {mism} kernel-vs-plain "
+                  f"mismatches over {t} tokens")
+            del out_p
+            ms_k = cuda_ms(kernel, reps=10, gate=True)
+            ms_host = cuda_ms(kernel, reps=10)  # at the host's launch pace
+            ms_p = (cuda_ms(plain, reps=2, warmup=1) if t == KERNEL_TOKENS
+                    else None)
+            ms_o = cuda_ms(off, reps=10)
+            if name == "path" and t == KERNEL_TOKENS:
+                autotune_leg(lambda: autotune_cdf_rows(st.n_wk, word, term,
+                                                       tgt, out_k))
+            # what this data needs: a token with target <= 0 reads nothing;
+            # the others the row's counts up to the answer (all K when
+            # clamped)
+            live = tgt > 0
+            need = torch.where(live, out_k.long() + 1, 0)
+            row_need = torch.zeros(st.n_wk.shape[0], dtype=torch.int64,
+                                   device=word.device).scatter_reduce_(
+                0, word.long(), need, reduce="amax")
+            nbytes = int(row_need.sum()) * 4 + k * 4 + t * 12
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            # a multiply, an add and a compare per needed element, float32
+            flops = 3 * int(need.sum())
+            flops_ms = flops / FP32_FLOPS * 1e3
+            strips = int(torch.where(live, out_k.long() // 32 + 1, 0).sum())
+            issue_ms = (strips * 32 * loop["loop_instructions"] / CDF_STRIPS
+                        / issue_rate * 1e3 if loop else None)
+            run = {
+                "T": t, "ms": ms_k, "ms_host_paced": ms_host,
+                "plain_ms": ms_p, "off_route_search_ms": ms_o,
+                "off_route_matches": float((out_o == out_k).float().mean()),
+                "bytes": nbytes, "bytes_ms": bytes_ms,
+                "bytes_no_reuse": int(need.sum()) * 4 + k * 4 + t * 12,
+                # whole rows of the distinct words, as if no walk stopped
+                # early
+                "bytes_whole_rows": int(torch.unique(word).numel()) * k * 4
+                + k * 4 + t * 12,
+                "flops": flops, "flops_ms": flops_ms,
+                "bound_ms": max(bytes_ms, flops_ms),
+                "bound_by": "bytes" if bytes_ms >= flops_ms
+                else "operations",
+                "strips_walked": strips, "issue_bound_ms": issue_ms,
+                "searching_tokens": int(live.sum()), "mismatches": mism,
+                "max_abs_err": err,
+            }
+            runs[name if t == KERNEL_TOKENS else f"{name}_chunk"] = run
+            emit({"phase": "cdf_kernels", "targets": name, "K": k,
+                  "w_cdf_build_ms": w_cdf_ms, "sass": loop, **run})
+            del out_k, out_o, live, need, row_need
+        del targets
+        torch.cuda.empty_cache()
+    del w_cdf, tab
     torch.cuda.empty_cache()
-    main = runs["path"]
+    main, chunk = runs["path"], runs["path_chunk"]
     return {
         "name": "cdf_row_search", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cdf_search.cu",
         "replaces": "src/repro/kernels/cdf_search.py:36", "launches": None,
         "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
         "mismatches": sum(r["mismatches"] for r in runs.values()),
-        "tokens": t,
+        "tokens": main["T"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "bytes": main["bytes"], "issue_bound_ms": main["issue_bound_ms"],
+        # the path's launch size
+        "chunk_tokens": chunk["T"], "chunk_ms": chunk["ms"],
+        "chunk_bound_ms": chunk["bound_ms"],
+        "chunk_bound_by": chunk["bound_by"],
+        "chunk_issue_bound_ms": chunk["issue_bound_ms"],
         "off_route_ms": main["off_route_search_ms"],
         "w_cdf_build_ms": w_cdf_ms, "shapes": runs, "sass": loop,
         "res_usage": {f: res_usage("cdf_search.cu", f)
@@ -2558,8 +2584,11 @@ def phase_doc_row_kernels(sess, st):
     gap; CUDA-event times of the three; the bytes bound (each needed input
     once) and the ``n_wk`` gathers counted three ways: a 32-byte sector
     per live entry, the distinct sectors (and 64-byte segments) of each
-    token's row, and the distinct ones of the whole chunk. Returns the
-    kernel's row of the kernels table (at the registry's max_kd)."""
+    token's row, and the distinct ones of the whole chunk. Then, at both
+    widths, on the first CDF_PATH_CHUNK tokens (the path's launch size):
+    bit-equal to the plain version, the kernel's time and the bytes bound.
+    Returns the kernel's row of the kernels table (at the registry's
+    max_kd)."""
     import torch
 
     from repro_torch.algorithms import zen_cdf as zc
@@ -2662,18 +2691,60 @@ def phase_doc_row_kernels(sess, st):
               "docs": int(docs.numel()), **runs[j]})
         del tab, off, args, tot_k, z_k, tot_p, z_p, tot_o, z_o
         torch.cuda.empty_cache()
-    main = runs[MAXKD_NYT]
+    del u
+    # the path's launch size: no off route or sector counts here, their
+    # (chunk, J) temporaries would not fit beside the state
+    t = min(CDF_PATH_CHUNK, c.num_tokens)
+    word, doc = c.word[:t], c.doc[:t]
+    u = stream_uniforms(key_seed(fold_in(st.rng, st.iteration)), 0, t,
+                        zc.CDF_STREAMS, device=word.device)
+    n_docs = int(torch.unique(doc.long()).numel())
+    chunk_runs = {}
+    for j in (MAXKD_NYT, CDF_MAX_KD):
+        tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
+                                  j, use_kernel=True)
+        args = (st.n_wk, word, doc, tab.kd_cnt, tab.kd_idx, tab.terms.t1,
+                tab.m2_all, tab.g_cdf, u[0], u[1])
+
+        def kernel():
+            return ops.doc_row_search(*args, beta=h.beta)
+
+        (tot_k, z_k), (tot_p, z_p) = kernel(), doc_row_search_plain(
+            *args, h.beta)
+        torch.cuda.synchronize()
+        mism = int((z_k != z_p).sum()) + int((tot_k != tot_p).sum())
+        check(mism == 0, f"doc_row_kernels J={j}: {mism} kernel-vs-plain "
+              f"mismatches over {t} tokens")
+        del tot_k, z_k, tot_p, z_p
+        ms_k = cuda_ms(kernel, reps=10)
+        n_live = int((tab.kd_cnt > 0).sum(1)[doc.long()].sum())
+        nbytes = t * 32 + n_docs * j * 12 + n_live * 4
+        chunk_runs[j] = {"T": t, "J": j, "ms": ms_k, "mismatches": mism,
+                         "live_per_token": n_live / t, "bytes": nbytes,
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        emit({"phase": "doc_row_kernels", "K": k, "docs": n_docs,
+              **chunk_runs[j]})
+        del tab, args
+        torch.cuda.empty_cache()
+    del u
+    main, chunk = runs[MAXKD_NYT], chunk_runs[MAXKD_NYT]
     return {
         "name": "doc_row_search", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cdf_search.cu",
         # port only: the reference's term 3 is XLA ops, no Pallas kernel
         "replaces": "src/repro/algorithms/zen_cdf.py:129", "launches": None,
-        "J": MAXKD_NYT, "tokens": t, "mismatches": main["mismatches"],
+        "J": MAXKD_NYT, "tokens": KERNEL_TOKENS,
+        "mismatches": main["mismatches"] + sum(
+            r["mismatches"] for r in chunk_runs.values()),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": "bytes",
         "bytes": main["bytes_bytes"],
         "sectors_per_token_row_ms": main["sectors_per_token_row_ms"],
+        # the path's launch size
+        "chunk_tokens": chunk["T"], "chunk_ms": chunk["ms"],
+        "chunk_bound_ms": chunk["bound_ms"],
         "off_route_ms": main["off_route_ms"], "shapes": runs,
+        "chunk_shapes": chunk_runs,
         "res_usage": {f: res_usage("cdf_search.cu", f)
                       for f in DOC_ROW_KERNELS},
         # no one PyTorch call computes it
@@ -4513,7 +4584,6 @@ def phase_compare(seed: int, smi):
     (kernels 2, 5 and 7) are recorded. Returns the phase's launches."""
     import torch
 
-    from repro_torch.algorithms.zen_cdf import CDF_CHUNK_ELEMS
     from repro_torch.kernels import ops
     from repro_torch.launch import compare
     from repro_torch.train import session as session_mod
@@ -4585,7 +4655,7 @@ def phase_compare(seed: int, smi):
           f"compare: sessions ran {[r['algorithm'] for r in sessions]}")
     # kernel 2 once a sweep, kernel 5 twice a step (the delta merge),
     # kernel 7 twice and the doc-row search once a token chunk
-    chunks = -(-sessions[1]["tokens"] // (CDF_CHUNK_ELEMS // CDF_MAX_KD))
+    chunks = -(-sessions[1]["tokens"] // CDF_PATH_CHUNK)
     for r, want_launches in zip(sessions, (
             {"zen_fused_sample": COMPARE_ITERS,
              "topic_histogram": 2 * COMPARE_ITERS},

@@ -41,9 +41,13 @@ Differences from the reference, none of which changes the sampler:
   and takes the exact top-k. ``torch.topk`` does not keep the tie order,
   so the rows are ranked by the tie-free key ``count·K + (K - 1 -
   topic)``; another tie order would change draws.
-* Tokens go in chunks whose (chunk, max_kd) gathered rows hold at most
-  :data:`CDF_CHUNK_ELEMS` elements (the reference takes all at once; at
-  NYTIMES width the (T, 64) int64 index rows alone would be 51 GB).
+* Tokens go in chunks (the reference takes all at once), sized by what a
+  chunk keeps live (:func:`cdf_chunk_tokens`): off the kernels, its (chunk,
+  max_kd) gathered rows hold at most :data:`CDF_CHUNK_ELEMS` elements (at
+  NYTIMES width the (T, 64) int64 index rows alone would be 51 GB); on the
+  kernel route only per-token vectors are left, and a chunk is
+  :data:`CDF_KERNEL_CHUNK_TOKENS` tokens, so the host issues a chunk's
+  ~115 small launches a few times a sweep and the card sets the pace.
 * Randomness: three uniform streams per token (draw a, draw b, the
   remedy; ``core.keys.stream_uniforms``: sweep seed, global token index,
   stream) passed in as one (3, T) tensor, so no chunking changes a draw and
@@ -81,7 +85,7 @@ from repro_torch.algorithms.registry import register
 from repro_torch.algorithms.zen_dense import _searchsorted_rows
 from repro_torch.core.decompositions import ZenTerms, precompute_zen_terms
 from repro_torch.core.keys import stream_uniforms, token_uniforms
-from repro_torch.core.sampler import chunked_token_map
+from repro_torch.core.sampler import chunk_size, chunked_token_map
 from repro_torch.core.types import LDAHyperParams
 from repro_torch.kernels.cdf_search import SEARCH_TOKENS
 from repro_torch.kernels.ops import cdf_row_search, doc_row_search
@@ -89,8 +93,15 @@ from repro_torch.observe import metrics
 
 # sparse doc-row width when the config leaves max_kd = 0 (auto)
 DEFAULT_MAX_KD = 64
-# elements of the widest gathered (chunk, max_kd) temporary
+# off the kernel route: elements of the widest gathered (chunk, max_kd)
+# temporary (doc_rows' rows, weights and CDF)
 CDF_CHUNK_ELEMS = 1 << 27
+# on the kernel route: tokens a chunk. Only per-token vectors live there,
+# 108 B a token at their peak, in the second draw (the (3, n) uniforms,
+# int64 word and doc ids, float masses, the first draw's topics and branch,
+# the second's int64 branch, term-1 and merged topics; the uniforms' (3, n)
+# int64 hash peaks at 80 B), so ~1.8 GB a chunk, 6 a NYTIMES sweep
+CDF_KERNEL_CHUNK_TOKENS = 1 << 24
 # elements of one block of the doc top-k's int64 keys
 _TOPK_ELEMS = 1 << 24
 # uniforms per token: draw a, draw b, the remedy
@@ -259,6 +270,24 @@ def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
         return torch.where(take_second, z2, z1)
 
 
+def _chunk_budget(max_kd: int, use_kernel: bool) -> tuple[int, int]:
+    """(row width, elements) that size :func:`zen_cdf_cell`'s chunks:
+    per-token vectors only on the kernel route, (chunk, max_kd) gathered
+    rows off it."""
+    if use_kernel:
+        return 1, CDF_KERNEL_CHUNK_TOKENS
+    return max_kd, CDF_CHUNK_ELEMS
+
+
+def cdf_chunk_tokens(num_tokens: int, max_kd: int, use_kernel: bool,
+                     token_chunk: int = 0) -> int:
+    """Tokens a chunk of :func:`zen_cdf_cell`: ``token_chunk`` when set,
+    else :data:`CDF_KERNEL_CHUNK_TOKENS` on the kernel route and
+    ``CDF_CHUNK_ELEMS // max_kd`` off it, at most ``num_tokens``."""
+    width, elems = _chunk_budget(max_kd, use_kernel)
+    return chunk_size(num_tokens, width, token_chunk, elems)
+
+
 def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
                  z_old: torch.Tensor, mask, n_wk: torch.Tensor,
                  n_kd: torch.Tensor, n_k: torch.Tensor,
@@ -281,9 +310,9 @@ def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
                                 device=w.device)
         return zen_cdf_tokens(tables, w, d, z, n_wk, n_kd, hyper, u)
 
-    return chunked_token_map(chunk, (word, doc, z_old), token_chunk,
-                             tables.kd_idx.shape[1], CDF_CHUNK_ELEMS,
-                             token_index)
+    width, elems = _chunk_budget(tables.kd_idx.shape[1], use_kernel)
+    return chunked_token_map(chunk, (word, doc, z_old), token_chunk, width,
+                             elems, token_index)
 
 
 class FrozenCdfTables(NamedTuple):

@@ -313,10 +313,61 @@ def test_chunking_changes_no_draw(use_kernel, monkeypatch):
                              use_kernel=use_kernel)
     fourths = tzc.zen_cdf_cell(1234, *args, th, s["w"], 8,
                                use_kernel=use_kernel, token_chunk=120)
-    monkeypatch.setattr(tzc, "CDF_CHUNK_ELEMS", 8 * 7)  # 7-token chunks
+    # 7-token chunks on either route
+    monkeypatch.setattr(tzc, "CDF_CHUNK_ELEMS", 8 * 7)
+    monkeypatch.setattr(tzc, "CDF_KERNEL_CHUNK_TOKENS", 7)
     sevens = tzc.zen_cdf_cell(1234, *args, th, s["w"], 8,
                               use_kernel=use_kernel)
     assert torch.equal(whole, fourths) and torch.equal(whole, sevens)
+
+
+@pytest.mark.parametrize("use_kernel,token_chunk", [
+    (True, 0), (False, 0), (True, 1 << 20), (False, 1 << 20)])
+def test_chunk_width_follows_the_route(use_kernel, token_chunk):
+    """Tokens a chunk: ``token_chunk`` when set; else the per-token
+    constant on the kernel route (6 chunks a NYTIMES sweep of 99.5M
+    tokens) and CDF_CHUNK_ELEMS // max_kd off it (95); never more than
+    the tokens."""
+    n = 95 << 20
+    got = tzc.cdf_chunk_tokens(n, 128, use_kernel, token_chunk)
+    if token_chunk:
+        assert got == token_chunk
+    elif use_kernel:
+        assert got == tzc.CDF_KERNEL_CHUNK_TOKENS
+    else:
+        assert got == tzc.CDF_CHUNK_ELEMS // 128
+    nyt = 99_500_000
+    assert -(-nyt // tzc.cdf_chunk_tokens(nyt, 128, use_kernel)) == (
+        6 if use_kernel else 95)
+    assert tzc.cdf_chunk_tokens(480, 128, use_kernel) == 480
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_cell_walks_its_routes_chunks(use_kernel, monkeypatch):
+    """``zen_cdf_cell`` walks the chunks of its own route's constant (7
+    tokens on the kernel route, 60 off it, each route blind to the other's
+    constant), and the draws equal the whole-corpus chunk's."""
+    s = _setup(5, e=480)
+    _, th = _hypers(s["k"])
+    args = [t_(s[n]) for n in ("word", "doc", "topic")] + [None] + \
+        [t_(s[n]) for n in ("n_wk", "n_kd", "n_k")]
+    whole = tzc.zen_cdf_cell(1234, *args, th, s["w"], 8,
+                             use_kernel=use_kernel)
+    monkeypatch.setattr(tzc, "CDF_KERNEL_CHUNK_TOKENS", 7)
+    monkeypatch.setattr(tzc, "CDF_CHUNK_ELEMS", 8 * 60)
+    chunks, uniforms = [], tzc.stream_uniforms
+
+    def counted(seed, start, n, *rest, **kw):
+        chunks.append((start, n))
+        return uniforms(seed, start, n, *rest, **kw)
+
+    monkeypatch.setattr(tzc, "stream_uniforms", counted)
+    got = tzc.zen_cdf_cell(1234, *args, th, s["w"], 8,
+                           use_kernel=use_kernel)
+    size = 7 if use_kernel else 60
+    assert chunks == [(a, min(size, s["e"] - a))
+                      for a in range(0, s["e"], size)]
+    assert torch.equal(whole, got)
 
 
 def test_kernel_and_plain_routes_differ_at_near_ties_only(monkeypatch):

@@ -882,18 +882,20 @@ def test_zen_cdf_session_on_card_launches_only_kernel_7(cuda, kernels,
 
 def test_zen_cdf_launches_the_doc_row_search_once_a_chunk_on_card(
         cuda, monkeypatch):
-    """Chunks of 512 tokens: one doc-row search and two kernel-7 searches
-    a chunk, and draws equal to the whole-corpus chunking's."""
+    """1,099,652 tokens in chunks of the kernel route's width (one chunk),
+    of 2^20 tokens (the off route's at max_kd 128, two chunks) and of 4,099
+    tokens: one doc-row search and two kernel-7 searches a chunk, and the
+    topics after two sweeps bit-equal across the three widths."""
     from repro_torch.algorithms import zen_cdf as zc
     from repro_torch.core.types import LDAHyperParams
     from repro_torch.data.corpus import synthetic_lda_corpus
     from repro_torch.train.session import RunConfig, TrainSession
 
-    corpus, _ = synthetic_lda_corpus(0, 200, 300, 10, 50)
+    corpus, _ = synthetic_lda_corpus(0, 2200, 300, 10, 500)
     hyper = LDAHyperParams(num_topics=10, alpha=0.1)
-    states = []
-    for elems in (zc.CDF_CHUNK_ELEMS, 512 * 8):
-        monkeypatch.setattr(zc, "CDF_CHUNK_ELEMS", elems)
+    states, chunk_counts = [], []
+    for width in (zc.CDF_KERNEL_CHUNK_TOKENS, 1 << 20, 4099):
+        monkeypatch.setattr(zc, "CDF_KERNEL_CHUNK_TOKENS", width)
         sess = TrainSession(corpus, hyper, RunConfig(
             algorithm="zen_cdf", max_kd=8), device=cuda)
         st = sess.init(0)
@@ -902,11 +904,14 @@ def test_zen_cdf_launches_the_doc_row_search_once_a_chunk_on_card(
             st = sess.step(st)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        chunks = -(-sess.corpus.num_tokens // (elems // 8))
+        chunks = -(-sess.corpus.num_tokens // width)
         assert counts["doc_row_search"] == 2 * chunks, (chunks, counts)
         assert counts["cdf_row_search"] == 4 * chunks, (chunks, counts)
         states.append(st.topic.cpu())
+        chunk_counts.append(chunks)
+    assert chunk_counts == [1, 2, 269]
     assert torch.equal(states[0], states[1])
+    assert torch.equal(states[0], states[2])
 
 
 def test_engine_serves_zen_cdf_on_card(cuda):
