@@ -124,7 +124,12 @@ Phases, each printing one JSON line:
    ``n_wk`` gathers' 32-byte sectors and 64-byte segments counted from
    the data (per live entry, distinct per token's row, distinct over the
    chunk); and at both widths on the path's first chunk: bit-equal to the
-   plain version, the kernel's time and the bytes bound;
+   plain version, the kernel's time and the bytes bound; then
+   cdf_glue_kernels — zen_cdf's uniforms, draws and remedy kernels on the
+   path's first chunk at the registry's max_kd, fed as the path feeds
+   them: each bit-equal to its plain version (0 mismatches), CUDA-event
+   times of both, and each one's bytes bound counted from the data (draws
+   by branch, the remedy's reads and gathers);
 13. train_sparse_small — the train_small corpus and one set of initial
    topics, 3 iterations each of ``zen_sparse``, ``sparselda``,
    ``zen_hybrid``, ``lightlda`` (kernel) and ``lightlda`` with
@@ -400,6 +405,10 @@ HIST_KERNELS = ("hist_sorted_kernel", "zero_cut_rows_kernel",
                 "zero_fill_kernel")
 CDF_KERNELS = ("cdf_compact_kernel", "cdf_walk_kernel")
 DOC_ROW_KERNELS = ("doc_row_kernel",)
+# zen_cdf's uniforms, draws and remedy (csrc/cdf_tokens.cu), by ops wrapper
+GLUE_KERNELS = {"cdf_uniforms": "cdf_uniforms_kernel",
+                "cdf_draws": "cdf_draws_kernel",
+                "cdf_remedy": "cdf_remedy_kernel"}
 CDF_STRIPS = 4  # strips per pass of the walk's loop (kStrips)
 # the mesh phases: a world of one under NCCL on the train cell, 4 gloo
 # ranks sharing the card on a (2, 2) grid, sharded serving, the router
@@ -2095,6 +2104,7 @@ def run_training(seed: int, dev, props, smi, sm_clock_hz: float):
         "sparse_row_sample": sparse_counts["sparse_row_sample"],
         "cdf_row_search": cdf_counts["cdf_row_search"],
         "doc_row_search": cdf_counts["doc_row_search"],
+        **{n: cdf_counts[n] for n in GLUE_KERNELS},
         "topic_histogram": train_counts["topic_histogram"]}, {
         "stream": stream_counts, "quality": quality_counts,
         "train_autopilot": autopilot_counts, "mesh_one": mesh_one_counts,
@@ -2327,21 +2337,24 @@ def phase_train_cdf(corpus, seed: int, smi, sm_count: int,
           "peak_device_gb": peak_gb, "launches": counts, "card": smi})
     check(all(b > a for a, b in zip(llh, llh[1:])),
           f"train_cdf: predictive llh did not rise at every eval: {llh}")
-    # two CDF searches and one doc-row search per token chunk, two
-    # histograms per step
+    # two CDF searches and one doc-row search, uniforms, draws and remedy
+    # launch per token chunk, two histograms per step
     check_launches("train_cdf", counts, {
         "cdf_row_search": 2 * chunks * CDF_ITERS,
-        "doc_row_search": chunks * CDF_ITERS,
+        **{n: chunks * CDF_ITERS
+           for n in ("doc_row_search", *GLUE_KERNELS)},
         "topic_histogram": 2 * CDF_ITERS})
     check_record("train_cdf", llh, [m["change_rate"] for m in evals[1:]])
     emit({"phase": "train_cdf_profile",
-          **profile_path_step(sess, st, CDF_KERNELS + DOC_ROW_KERNELS)})
+          **profile_path_step(sess, st, CDF_KERNELS + DOC_ROW_KERNELS
+                              + tuple(GLUE_KERNELS.values()))})
     hist_row = phase_histogram(sess, prev, st)
     del prev
     torch.cuda.empty_cache()
     cdf_row = phase_cdf_kernels(sess, st, seed, sm_count, sm_clock_hz)
     doc_row = phase_doc_row_kernels(sess, st)
-    return [cdf_row, doc_row, hist_row], counts
+    glue_rows = phase_cdf_glue_kernels(sess, st)
+    return [cdf_row, doc_row, *glue_rows, hist_row], counts
 
 
 def phase_histogram(sess, prev, st):
@@ -2752,6 +2765,112 @@ def phase_doc_row_kernels(sess, st):
     }
 
 
+def phase_cdf_glue_kernels(sess, st):
+    """``zen_cdf``'s uniforms, draws and remedy (``ops.cdf_uniforms``,
+    ``ops.cdf_draws``, ``ops.cdf_remedy``) on the path's first chunk
+    (CDF_PATH_CHUNK tokens) of the full-width zen_cdf state, rows at the
+    registry's max_kd, fed as the path feeds them (the doc-row search and
+    kernel 7 between): each bit-equal to its plain version (0 mismatches),
+    CUDA-event times of each kernel and its plain version, and each one's
+    bytes bound: each needed input once and the output once, counted from
+    the data where a kernel reads by branch (the term-3 topics, kernel 7's
+    answers, the remedy's uniform, ids and its 32-byte ``n_wk`` sector).
+    Returns the three kernels' rows of the kernels table."""
+    import torch
+
+    from repro_torch.algorithms import zen_cdf as zc
+    from repro_torch.core.keys import fold_in, key_seed
+    from repro_torch.kernels import cdf_tokens as ct
+    from repro_torch.kernels import ops
+
+    c, h = sess.corpus, sess.hyper
+    t, k = min(CDF_PATH_CHUNK, c.num_tokens), K_NYT
+    word, doc, z_old = c.word[:t], c.doc[:t], st.topic[:t]
+    seed = key_seed(fold_in(st.rng, st.iteration))
+    tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
+                              MAXKD_NYT, use_kernel=True)
+    u = ops.cdf_uniforms(seed, 0, t, zc.CDF_STREAMS, device=word.device)
+    total, z_d = ops.doc_row_search(
+        st.n_wk, word, doc, tab.kd_cnt, tab.kd_idx, tab.terms.t1, tab.m2_all,
+        tab.g_cdf, u[0], u[1], beta=h.beta)
+    draw_args = (word, total, u[0], u[1], tab.m2_all, tab.g_cdf, z_d)
+    targets, code = ops.cdf_draws(*draw_args)
+    z_wa, z_wb = (ops.cdf_row_search(st.n_wk, word, tab.terms.t4, targets[i])
+                  for i in (0, 1))
+    rem_args = (code, z_wa, z_wb, z_old, word, doc, st.n_wk, st.n_kd, u[2])
+    z_new = ops.cdf_remedy(*rem_args)
+    tg_p, code_p = ct.cdf_draws_plain(*draw_args)
+    z_p, second = ct.cdf_remedy_plain(*rem_args)
+    mism = {
+        "cdf_uniforms": int((u != ct.cdf_uniforms_plain(
+            seed, 0, t, zc.CDF_STREAMS, word.device)).sum()),
+        "cdf_draws": int((targets != tg_p).sum() + (code != code_p).sum()),
+        "cdf_remedy": int((z_new != z_p).sum())}
+    del tg_p, code_p, z_p
+    check(not any(mism.values()), f"cdf_glue_kernels: kernel-vs-plain "
+          f"mismatches over {t} tokens: {mism}")
+    fns = {
+        "cdf_uniforms": (
+            lambda: ops.cdf_uniforms(seed, 0, t, zc.CDF_STREAMS,
+                                     device=word.device),
+            lambda: ct.cdf_uniforms_plain(seed, 0, t, zc.CDF_STREAMS,
+                                          word.device)),
+        "cdf_draws": (lambda: ops.cdf_draws(*draw_args),
+                      lambda: ct.cdf_draws_plain(*draw_args)),
+        "cdf_remedy": (lambda: ops.cdf_remedy(*rem_args),
+                       lambda: ct.cdf_remedy_plain(*rem_args))}
+    ms = {n: (cuda_ms(kern, reps=20), cuda_ms(plain, reps=3, warmup=1))
+          for n, (kern, plain) in fns.items()}
+    # what each kernel needs from the data: draws by branch, the tokens
+    # whose remedy reads its uniform (z1 == z_old) and, of those, the ones
+    # that gather (draw a on term 2 or 3)
+    branch2 = int((code < -1).sum())
+    term2 = [int((code[i] == -1).sum()) for i in (0, 1)]
+    z1 = torch.clamp_max(torch.where(code[0] >= 0, code[0], torch.where(
+        code[0] == -1, z_wa, -2 - code[0])), k - 1)
+    same = z1 == z_old
+    n_same, n_gather = int(same.sum()), int((same & (code[0] < 0)).sum())
+    n_second = int(second.sum())
+    n_words = int(torch.unique(word).numel())
+    nbytes = {
+        # the (3, T) uniforms out
+        "cdf_uniforms": 12 * t,
+        # word, total, two uniforms in, term-3 topics on branch 2; targets
+        # and codes out; m2_all of each word and g_cdf once
+        "cdf_draws": 16 * t + 4 * branch2 + 16 * t + 4 * n_words + 4 * k,
+        # codes, z_old in, kernel 7's answers where read, the output; where
+        # z1 == z_old the uniform, where it gathers word, doc, the n_kd
+        # entry and one n_wk sector
+        "cdf_remedy": 12 * t + 4 * (term2[0] + n_second) + 4 * t
+        + 4 * n_same + n_gather * (8 + 4 + 32)}
+    rows = []
+    for name, (ms_k, ms_p) in ms.items():
+        bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        emit({"phase": "cdf_glue_kernels", "kernel": name, "T": t, "K": k,
+              "J": MAXKD_NYT, "ms": ms_k, "plain_ms": ms_p,
+              "bytes": nbytes[name], "bound_ms": bound_ms,
+              "pct_of_bound": 100 * bound_ms / ms_k,
+              "mismatches": mism[name], "term2_draws": term2,
+              "term3_draws": branch2, "remedy_reads": n_same,
+              "remedy_gathers": n_gather, "remedy_second": n_second})
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cdf_tokens.cu",
+            # port only: the reference's draws and remedy are XLA ops
+            "replaces": "src/repro/algorithms/zen_cdf.py:111",
+            "launches": None, "J": MAXKD_NYT, "tokens": t,
+            "mismatches": mism[name], "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes": nbytes[name],
+            "res_usage": res_usage("cdf_tokens.cu", GLUE_KERNELS[name]),
+            # no one PyTorch call computes it
+            "library_ms": None})
+    del u, total, z_d, targets, code, z_wa, z_wb, z_new, second, rem_args
+    del draw_args, tab
+    torch.cuda.empty_cache()
+    return rows
+
+
 def autotune_train(st, word, doc, z, alpha, n_k, kseed, beta, w_beta,
                    nwk_rows, nkd_rows, out_f, stats_default):
     """The autotune phase on train_kernels' inputs: kernels 1 and 2 at
@@ -2996,7 +3115,8 @@ def phase_train_sparse_small(seed: int, dev, smi):
             ("lightlda", "lightlda", "auto", sparse),
             ("lightlda_off", "lightlda", "off", ()),
             ("zen_cdf", "zen_cdf", "auto", ("cdf_row_search",
-                                            "doc_row_search")),
+                                            "doc_row_search",
+                                            *GLUE_KERNELS)),
             ("zen_cdf_off", "zen_cdf", "off", ()))
     init_topics, llh = None, {}
     for name, algorithm, kernels, kernel_names in runs:
@@ -4654,13 +4774,15 @@ def phase_compare(seed: int, smi):
     check([r["algorithm"] for r in sessions] == list(configs),
           f"compare: sessions ran {[r['algorithm'] for r in sessions]}")
     # kernel 2 once a sweep, kernel 5 twice a step (the delta merge),
-    # kernel 7 twice and the doc-row search once a token chunk
+    # kernel 7 twice and the doc-row search, uniforms, draws and remedy
+    # once a token chunk
     chunks = -(-sessions[1]["tokens"] // CDF_PATH_CHUNK)
     for r, want_launches in zip(sessions, (
             {"zen_fused_sample": COMPARE_ITERS,
              "topic_histogram": 2 * COMPARE_ITERS},
             {"cdf_row_search": 2 * chunks * COMPARE_ITERS,
-             "doc_row_search": chunks * COMPARE_ITERS,
+             **{n: chunks * COMPARE_ITERS
+                for n in ("doc_row_search", *GLUE_KERNELS)},
              "topic_histogram": 2 * COMPARE_ITERS})):
         check_launches(f"compare {r['algorithm']}", r["launches"],
                        want_launches)

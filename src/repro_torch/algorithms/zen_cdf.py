@@ -30,6 +30,13 @@ max_kd) tensor exists. Otherwise :func:`doc_rows` gathers the rows and
 CDF. The two add in different orders: equal in distribution, a draw
 differing only at a near-tie.
 
+The rest of a token's work follows it too. On the kernel route three
+more kernels (``kernels.cdf_tokens``) hash the chunk's uniforms, take each
+draw's branch, term-1 topic and term-2 target, and pick the topics and
+apply the remedy, each token in registers (:func:`_kernel_tokens`), bit-
+equal to the torch chain that is their plain version; the plain route
+keeps its own chain. The two routes share no logic.
+
 Differences from the reference, none of which changes the sampler:
 
 * The doc rows are the exact top-``max_kd`` by count, lower topic id first
@@ -46,12 +53,14 @@ Differences from the reference, none of which changes the sampler:
   max_kd) gathered rows hold at most :data:`CDF_CHUNK_ELEMS` elements (at
   NYTIMES width the (T, 64) int64 index rows alone would be 51 GB); on the
   kernel route only per-token vectors are left, and a chunk is
-  :data:`CDF_KERNEL_CHUNK_TOKENS` tokens, so the host issues a chunk's
-  ~115 small launches a few times a sweep and the card sets the pace.
+  :data:`CDF_KERNEL_CHUNK_TOKENS` tokens: 11 launches a chunk, 6 chunks a
+  NYTIMES sweep.
 * Randomness: three uniform streams per token (draw a, draw b, the
-  remedy; ``core.keys.stream_uniforms``: sweep seed, global token index,
-  stream) passed in as one (3, T) tensor, so no chunking changes a draw and
-  a test can feed the reference's ``jax.random`` uniforms instead.
+  remedy; ``core.keys.stream_uniforms``, on the kernel route the same
+  values from ``kernels.ops.cdf_uniforms``: sweep seed, global token
+  index, stream) passed in as one (3, T) tensor, so no chunking changes a
+  draw and a test can feed the reference's ``jax.random`` uniforms
+  instead.
 
 While a profiler records, the sweep's phases are spans
 (``observe.metrics.span``): ``zen_cdf.tables`` (:func:`build_cdf_tables`)
@@ -60,7 +69,8 @@ doc-row search), ``zen_cdf.draws`` (the uniforms, then both draws) and
 ``zen_cdf.remedy``; the tokens whose draw searches a term-2 row (target >
 0, what kernel 7 queues) add to the counter ``zen_cdf.search_tokens``,
 and on the kernel route the live (count > 0) doc-row entries to
-``zen_cdf.row_entries``.
+``zen_cdf.row_entries`` and the tokens whose remedy takes draw b to
+``zen_cdf.remedy_second``.
 
 Serving (``native_infer``): the model is frozen, so the per-sweep tables
 collapse to one precompute, :class:`FrozenCdfTables` (per-word CDFs of the
@@ -88,7 +98,13 @@ from repro_torch.core.keys import stream_uniforms, token_uniforms
 from repro_torch.core.sampler import chunk_size, chunked_token_map
 from repro_torch.core.types import LDAHyperParams
 from repro_torch.kernels.cdf_search import SEARCH_TOKENS
-from repro_torch.kernels.ops import cdf_row_search, doc_row_search
+from repro_torch.kernels.ops import (
+    cdf_draws,
+    cdf_remedy,
+    cdf_row_search,
+    cdf_uniforms,
+    doc_row_search,
+)
 from repro_torch.observe import metrics
 
 # sparse doc-row width when the config leaves max_kd = 0 (auto)
@@ -97,10 +113,10 @@ DEFAULT_MAX_KD = 64
 # temporary (doc_rows' rows, weights and CDF)
 CDF_CHUNK_ELEMS = 1 << 27
 # on the kernel route: tokens a chunk. Only per-token vectors live there,
-# 108 B a token at their peak, in the second draw (the (3, n) uniforms,
-# int64 word and doc ids, float masses, the first draw's topics and branch,
-# the second's int64 branch, term-1 and merged topics; the uniforms' (3, n)
-# int64 hash peaks at 80 B), so ~1.8 GB a chunk, 6 a NYTIMES sweep
+# 68 B a token at their peak, in the second draw's kernel 7 (the (3, n)
+# uniforms, the totals, the (2, n) term-3 topics, targets and codes, kernel
+# 7's two answers and its 16-byte queue entries, the output's 4 B to come),
+# so ~1.1 GB a chunk, 6 a NYTIMES sweep
 CDF_KERNEL_CHUNK_TOKENS = 1 << 24
 # elements of one block of the doc top-k's int64 keys
 _TOPK_ELEMS = 1 << 24
@@ -205,30 +221,23 @@ def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
     """New topics (T,) int32: the three-term CDF draw twice, then the
     remedy. ``uniforms`` (3, T) in [0, 1): draw a, draw b, remedy (the
     reference's ``split(key, 3)``; each draw's u is the first half of its
-    key's split). When ``tables.w_cdf`` is None, term 2 takes kernel 7 and
-    term 3 the doc-row search (``kernels.ops.doc_row_search``: both
-    draws' term-3 topics and the total mass, with no (T, max_kd) rows)."""
+    key's split). When ``tables.w_cdf`` is None the tokens take the kernel
+    route (:func:`_kernel_tokens`), else the plain route."""
+    if tables.w_cdf is None:
+        return _kernel_tokens(tables, word, doc, z_old, n_wk, n_kd, hyper,
+                              uniforms)
     k = hyper.num_topics
-    terms = tables.terms
     dev = word.device
     counting = metrics.tracing()
-    fused = tables.w_cdf is None
     with metrics.span("zen_cdf.doc_rows", dev):
-        if fused:
-            total, z_ds = doc_row_search(
-                n_wk, word, doc, tables.kd_cnt, tables.kd_idx, terms.t1,
-                tables.m2_all, tables.g_cdf, uniforms[0], uniforms[1],
-                beta=hyper.beta, count=counting)
-        else:
-            rows_idx, d_cdf = doc_rows(tables, word, doc, n_wk, hyper)
+        rows_idx, d_cdf = doc_rows(tables, word, doc, n_wk, hyper)
 
     with metrics.span("zen_cdf.draws", dev):
         w, d = word.long(), doc.long()
         m1 = tables.g_cdf[-1]
         m2 = tables.m2_all[w]
         m12 = m1 + m2
-        if not fused:
-            total = m12 + d_cdf[:, -1]
+        total = m12 + d_cdf[:, -1]
 
         def draw(i):
             u = uniforms[i] * total
@@ -238,17 +247,12 @@ def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
             # term 2: the word's CDF row (replaces wTable); only term-2 draws
             # need it, the others search target 0
             t2 = torch.where(branch == 1, torch.clamp_min(u - m1, 0.0), 0.0)
-            if fused:
-                z_w = cdf_row_search(n_wk, word, terms.t4, t2, count=counting)
-                z_d = z_ds[i]
-            else:
-                z_w = _bsearch_gather(tables.w_cdf, word, t2)
-                if counting:
-                    metrics.count(SEARCH_TOKENS, (t2 > 0).sum())
-                # term 3: the doc's sparse row CDF (dSparse + BSearch)
-                pos = _searchsorted_rows(d_cdf,
-                                         torch.clamp_min(u - m1 - m2, 0.0))
-                z_d = rows_idx.gather(1, pos.long()[:, None])[:, 0]
+            z_w = _bsearch_gather(tables.w_cdf, word, t2)
+            if counting:
+                metrics.count(SEARCH_TOKENS, (t2 > 0).sum())
+            # term 3: the doc's sparse row CDF (dSparse + BSearch)
+            pos = _searchsorted_rows(d_cdf, torch.clamp_min(u - m1 - m2, 0.0))
+            z_d = rows_idx.gather(1, pos.long()[:, None])[:, 0]
             z = torch.where(branch == 0, z_g,
                             torch.where(branch == 1, z_w.long(), z_d))
             return torch.clamp_max(z, k - 1).to(torch.int32), branch
@@ -268,6 +272,32 @@ def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
                                torch.where(branch == 2, p_d, 0.0))
         take_second = (z1 == z_old) & (uniforms[2] < remedy_p)
         return torch.where(take_second, z2, z1)
+
+
+def _kernel_tokens(tables: CdfTables, word, doc, z_old, n_wk, n_kd,
+                   hyper: LDAHyperParams, uniforms) -> torch.Tensor:
+    """:func:`zen_cdf_tokens` on the kernel route, three kernels and
+    kernel 7 twice: the doc-row search (both draws' term-3 topics and each
+    token's total), the draws (``kernels.ops.cdf_draws``: branch, term-1
+    topic, term-2 target), kernel 7 on each draw's target and the remedy
+    (``kernels.ops.cdf_remedy``); no per-token temporary but their inputs
+    and outputs."""
+    terms = tables.terms
+    dev = word.device
+    counting = metrics.tracing()
+    with metrics.span("zen_cdf.doc_rows", dev):
+        total, z_d = doc_row_search(
+            n_wk, word, doc, tables.kd_cnt, tables.kd_idx, terms.t1,
+            tables.m2_all, tables.g_cdf, uniforms[0], uniforms[1],
+            beta=hyper.beta, count=counting)
+    with metrics.span("zen_cdf.draws", dev):
+        targets, code = cdf_draws(word, total, uniforms[0], uniforms[1],
+                                  tables.m2_all, tables.g_cdf, z_d)
+        z_wa, z_wb = (cdf_row_search(n_wk, word, terms.t4, targets[i],
+                                     count=counting) for i in (0, 1))
+    with metrics.span("zen_cdf.remedy", dev):
+        return cdf_remedy(code, z_wa, z_wb, z_old, word, doc, n_wk, n_kd,
+                          uniforms[2], count=counting)
 
 
 def _chunk_budget(max_kd: int, use_kernel: bool) -> tuple[int, int]:
@@ -306,8 +336,12 @@ def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
 
     def chunk(start, w, d, z):
         with metrics.span("zen_cdf.draws", w.device):
-            u = stream_uniforms(seed, start, w.shape[0], CDF_STREAMS,
-                                device=w.device)
+            if tables.w_cdf is None:
+                u = cdf_uniforms(seed, start, w.shape[0], CDF_STREAMS,
+                                 device=w.device)
+            else:
+                u = stream_uniforms(seed, start, w.shape[0], CDF_STREAMS,
+                                    device=w.device)
         return zen_cdf_tokens(tables, w, d, z, n_wk, n_kd, hyper, u)
 
     width, elems = _chunk_budget(tables.kd_idx.shape[1], use_kernel)

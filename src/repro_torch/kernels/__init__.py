@@ -6,7 +6,10 @@ by ``_build`` at its first launch (importing the package builds nothing).
 ``autotune`` is the reference's tile autotuner (one launch per kernel).
 """
 from repro_torch.kernels.ops import (  # noqa: F401
+    cdf_draws,
+    cdf_remedy,
     cdf_row_search,
+    cdf_uniforms,
     doc_row_search,
     sparse_row_sample,
     topic_histogram,

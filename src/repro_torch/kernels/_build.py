@@ -31,6 +31,8 @@ SOURCES = (
     # zen_cdf's CDF row search (kernel 7) and term-3 doc-row search
     _HERE / "csrc" / "cdf_search.cu",
     _HERE / "csrc" / "topic_histogram.cu",  # delta histogram: kernel 5
+    # zen_cdf's uniforms, draws and remedy around the two searches
+    _HERE / "csrc" / "cdf_tokens.cu",
 )
 BUILD_DIR = _HERE / "build"
 
@@ -45,6 +47,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # argtypes of the sources' extern "C" launchers
 SIGNATURES = {
     "zen_infer_gathered": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P,
@@ -78,10 +81,18 @@ SIGNATURES = {
                        _I, _I, _I, _I, _F, _P, _P),
     # ..., changed (a work counter, or null), stream
     "topic_histogram": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # seed, start, token_index (null: start + i), out, n, streams, stream
+    "cdf_uniforms": (_U, _U, _P, _P, _I, _I, _P),
+    # 9 pointers, T, K, W, stream
+    "cdf_draws": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # 10 pointers, T, K, W, D, second (a work counter, or null), stream
+    "cdf_remedy": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _P, _P),
     # where a kernel's work counter is on the card, and what it holds
     "cdf_search_searched": (_P, _P),
     "doc_row_search_entries": (_P, _P),
     "topic_histogram_changed": (_P, _P),
+    "cdf_remedy_second": (_P, _P),
     # the histogram launch's shape: its topic slab, and runs per warp
     "topic_histogram_shape": (_I, _P, _P),
 }

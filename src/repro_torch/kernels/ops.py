@@ -12,13 +12,15 @@ Each wrapper counts its kernel launches in a plain int
 through the kernels; plain-version calls are not counted, nor is a call
 with no tokens, whose launcher launches nothing (kernel 5's launcher
 zero-fills its output then, and counts). ``count=True`` on kernels 5 and
-7 and on the doc-row search (only while a profiler records) adds their
-work to the profiled stretch's counters: the kernel counts on the card,
-the plain version with torch ops.
+7, on the doc-row search and on ``zen_cdf``'s remedy (only while a
+profiler records) adds their work to the profiled stretch's counters: the
+kernel counts on the card, the plain version with torch ops.
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from repro_torch.kernels.cdf_search import (
     ROW_ENTRIES,
@@ -27,6 +29,15 @@ from repro_torch.kernels.cdf_search import (
     cdf_row_search_plain,
     doc_row_search_cuda,
     doc_row_search_plain,
+)
+from repro_torch.kernels.cdf_tokens import (
+    REMEDY_SECOND,
+    cdf_draws_cuda,
+    cdf_draws_plain,
+    cdf_remedy_cuda,
+    cdf_remedy_plain,
+    cdf_uniforms_cuda,
+    cdf_uniforms_plain,
 )
 from repro_torch.kernels.fused_gather import (
     zen_fused_infer_sample_cuda,
@@ -59,6 +70,9 @@ _LAUNCHES: Dict[str, int] = {
     "sparse_row_sample": 0,
     "cdf_row_search": 0,
     "doc_row_search": 0,
+    "cdf_uniforms": 0,
+    "cdf_draws": 0,
+    "cdf_remedy": 0,
     "topic_histogram": 0,
 }
 
@@ -79,9 +93,11 @@ def _count(name: str, tokens: int) -> None:
 
 
 def _route(t) -> str:
-    if t.device.type in ("cpu", "cuda"):
-        return t.device.type
-    raise ValueError(f"no kernel or plain version for device {t.device}")
+    """The route of a tensor, or of a device."""
+    dev = t if isinstance(t, torch.device) else t.device
+    if dev.type in ("cpu", "cuda"):
+        return dev.type
+    raise ValueError(f"no kernel or plain version for device {dev}")
 
 
 def zen_sample(nwk_rows, nkd_rows, z_old, alpha_k, n_k, seed: int, *,
@@ -205,6 +221,51 @@ def doc_row_search(n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf, u_a,
         return doc_row_search_plain(*args)
     out = doc_row_search_cuda(*args, count=count)
     _count("doc_row_search", word.shape[0])
+    return out
+
+
+def cdf_uniforms(seed: int, start, n: int, streams: int, *, device):
+    """``zen_cdf``'s uniform streams of a token chunk on ``device``:
+    (streams, n) float32 U[0, 1), entry (s, i) the top 24 bits of
+    ``hash(seed, row_i, s)`` times 2^-24, ``row_i`` = ``start + i`` (mod
+    2^32) or, where ``start`` is a (n,) int32 tensor (a mesh cell's corpus
+    indices), ``start[i]``: what ``core.keys.stream_uniforms`` gives."""
+    device = torch.device(device)
+    if _route(device) == "cpu":
+        return cdf_uniforms_plain(seed, start, n, streams, device)
+    out = cdf_uniforms_cuda(seed, start, n, streams, device)
+    _count("cdf_uniforms", n * streams)
+    return out
+
+
+def cdf_draws(word, total, u_a, u_b, m2_all, g_cdf, z_d):
+    """``zen_cdf``'s two draws of each token after the doc-row search:
+    (targets (2, T) float32, code (2, T) int32), kernel 7's term-2 target
+    and the draw's code (its term-1 topic, -1 for term 2, ``-2 - z3`` for
+    term 3; ``cdf_tokens.cdf_draws_cuda``). (T,) int32 word ids, (T,)
+    float32 totals and uniforms, (W,) ``m2_all``, (K,) ``g_cdf`` and the
+    (2, T) int32 term-3 topics in."""
+    if _route(word) == "cpu":
+        return cdf_draws_plain(word, total, u_a, u_b, m2_all, g_cdf, z_d)
+    out = cdf_draws_cuda(word, total, u_a, u_b, m2_all, g_cdf, z_d)
+    _count("cdf_draws", word.shape[0])
+    return out
+
+
+def cdf_remedy(code, z_wa, z_wb, z_old, word, doc, n_wk, n_kd, u_r, *,
+               count: bool = False):
+    """``zen_cdf``'s new topics (T,) int32: each draw's topic from its code
+    and kernel 7's answers ``z_wa``/``z_wb``, then the §3.1 remedy with
+    the uniform ``u_r`` (``cdf_tokens.cdf_remedy_cuda``). ``count``: add
+    the tokens that take draw b to the trace's ``zen_cdf.remedy_second``."""
+    args = (code, z_wa, z_wb, z_old, word, doc, n_wk, n_kd, u_r)
+    if _route(z_old) == "cpu":
+        z, second = cdf_remedy_plain(*args)
+        if count:
+            metrics.count(REMEDY_SECOND, second.sum())
+        return z
+    out = cdf_remedy_cuda(*args, count=count)
+    _count("cdf_remedy", z_old.shape[0])
     return out
 
 

@@ -53,7 +53,7 @@ from repro_torch.core.keys import as_key, fold_in, key_seed, stream_uniforms
 from repro_torch.core.likelihood import predictive_llh
 from repro_torch.core.types import CGSState, Corpus, LDAHyperParams
 from repro_torch.data.corpus import synthetic_lda_corpus
-from repro_torch.kernels import cdf_search, ops, ref
+from repro_torch.kernels import cdf_search, cdf_tokens, ops, ref
 from repro_torch.serving import FrozenLDAModel, LDAEngine, LDAServeConfig
 from repro_torch.train.session import RunConfig, TrainSession
 
@@ -346,7 +346,9 @@ def test_chunk_width_follows_the_route(use_kernel, token_chunk):
 def test_cell_walks_its_routes_chunks(use_kernel, monkeypatch):
     """``zen_cdf_cell`` walks the chunks of its own route's constant (7
     tokens on the kernel route, 60 off it, each route blind to the other's
-    constant), and the draws equal the whole-corpus chunk's."""
+    constant), and the draws equal the whole-corpus chunk's. A chunk's
+    uniforms come from ``ops.cdf_uniforms`` on the kernel route and from
+    ``stream_uniforms`` off it, once a chunk."""
     s = _setup(5, e=480)
     _, th = _hypers(s["k"])
     args = [t_(s[n]) for n in ("word", "doc", "topic")] + [None] + \
@@ -355,13 +357,19 @@ def test_cell_walks_its_routes_chunks(use_kernel, monkeypatch):
                              use_kernel=use_kernel)
     monkeypatch.setattr(tzc, "CDF_KERNEL_CHUNK_TOKENS", 7)
     monkeypatch.setattr(tzc, "CDF_CHUNK_ELEMS", 8 * 60)
-    chunks, uniforms = [], tzc.stream_uniforms
+    source = "cdf_uniforms" if use_kernel else "stream_uniforms"
+    chunks, uniforms = [], getattr(tzc, source)
 
     def counted(seed, start, n, *rest, **kw):
         chunks.append((start, n))
         return uniforms(seed, start, n, *rest, **kw)
 
-    monkeypatch.setattr(tzc, "stream_uniforms", counted)
+    def refused(*args, **kwargs):
+        raise AssertionError("the other route's uniforms")
+
+    monkeypatch.setattr(tzc, source, counted)
+    monkeypatch.setattr(
+        tzc, "stream_uniforms" if use_kernel else "cdf_uniforms", refused)
     got = tzc.zen_cdf_cell(1234, *args, th, s["w"], 8,
                            use_kernel=use_kernel)
     size = 7 if use_kernel else 60
@@ -576,7 +584,7 @@ class _Shapes(torch.utils._python_dispatch.TorchDispatchMode):
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_kernel_route_makes_no_chunk_by_row_tensor(use_kernel, monkeypatch):
     """On the kernel route every tensor the token path makes outside the
-    two kernels (run here as their plain versions) holds one value per
+    four kernels (run here as their plain versions) holds one value per
     token at most: no (chunk, max_kd) rows, weights or CDF. The plain
     route, the control, makes them."""
     s = _setup(8, e=500)
@@ -597,8 +605,8 @@ def test_kernel_route_makes_no_chunk_by_row_tensor(use_kernel, monkeypatch):
 
     monkeypatch.setattr(tzc, "doc_row_search",
                         as_kernel(tzc.doc_row_search))
-    monkeypatch.setattr(tzc, "cdf_row_search",
-                        as_kernel(tzc.cdf_row_search))
+    for name in ("cdf_row_search", "cdf_draws", "cdf_remedy"):
+        monkeypatch.setattr(tzc, name, as_kernel(getattr(tzc, name)))
     u = stream_uniforms(3, 0, s["e"], tzc.CDF_STREAMS)
     args = [t_(s[n]) for n in ("word", "doc", "topic", "n_wk", "n_kd")]
     with watch:
@@ -610,6 +618,139 @@ def test_kernel_route_makes_no_chunk_by_row_tensor(use_kernel, monkeypatch):
         assert widest <= s["e"] and not rows, (widest, rows)
     else:
         assert rows and widest >= s["e"] * kd
+
+
+# -- the kernel route's uniforms, draws and remedy (kernels.cdf_tokens) ------
+
+def _torch_chain(tables, word, doc, z_old, n_wk, n_kd, hyper, uniforms):
+    """The kernel route's draws and remedy as a chain of torch ops around
+    the doc-row search and kernel 7 (their plain versions), in the order
+    the route ran them before its glue became kernels: the oracle the glue
+    kernels' plain versions are held to, bit for bit. Returns (the new
+    topics, draw a's branch, the tokens that take draw b)."""
+    k = hyper.num_topics
+    total, z_ds = cdf_search.doc_row_search_plain(
+        n_wk, word, doc, tables.kd_cnt, tables.kd_idx, tables.terms.t1,
+        tables.m2_all, tables.g_cdf, uniforms[0], uniforms[1], hyper.beta)
+    w, d = word.long(), doc.long()
+    m1 = tables.g_cdf[-1]
+    m12 = m1 + tables.m2_all[w]
+
+    def draw(i):
+        u = uniforms[i] * total
+        branch = torch.where(u < m1, 0, torch.where(u < m12, 1, 2))
+        z_g = torch.clamp_max(torch.searchsorted(tables.g_cdf, u), k - 1)
+        t2 = torch.where(branch == 1, torch.clamp_min(u - m1, 0.0), 0.0)
+        z_w = cdf_search.cdf_row_search_plain(n_wk, word, tables.terms.t4, t2)
+        z = torch.where(branch == 0, z_g,
+                        torch.where(branch == 1, z_w.long(), z_ds[i]))
+        return torch.clamp_max(z, k - 1).to(torch.int32), branch
+
+    z1, branch = draw(0)
+    z2, _ = draw(1)
+    zo = z_old.long()
+    nw_prev = torch.clamp_min(n_wk[w, zo].to(torch.float32), 1.0)
+    nd_prev = torch.clamp_min(n_kd[d, zo].to(torch.float32), 1.0)
+    p_w = 1.0 / nw_prev
+    p_d = torch.clamp(1.0 / nd_prev + (nd_prev + nw_prev - 1.0)
+                      / (nd_prev * nw_prev), 0.0, 1.0)
+    remedy_p = torch.where(branch == 1, p_w,
+                           torch.where(branch == 2, p_d, 0.0))
+    take_second = (z1 == z_old) & (uniforms[2] < remedy_p)
+    return torch.where(take_second, z2, z1), branch, take_second
+
+
+@pytest.mark.parametrize("seed,kd,k,chunk,indexed", [
+    (0, 8, 20, 0, False), (1, 64, 64, 4099, True), (2, 128, 160, 4099, False),
+    (3, 128, 130, 1000, True), (4, 8, 200, 4099, True),
+    (2**31 - 1, 64, 300, 0, False)])
+def test_glue_plain_versions_equal_the_torch_chain(seed, kd, k, chunk,
+                                                   indexed, monkeypatch):
+    """``zen_cdf_cell`` on the kernel route (the uniforms, draws and remedy
+    as ``ops.cdf_uniforms``/``cdf_draws``/``cdf_remedy``, run here as their
+    plain versions) against :func:`_torch_chain` over the same chunks with
+    ``stream_uniforms``: the topics bit-equal at J of 8, 64 and 128, chunks
+    of the whole cell, 4,099 and 1,000 tokens, with and without a mesh
+    cell's ``token_index``; every branch taken, the remedy engaged."""
+    s = _setup(seed % 1000, e=9000, w=300, d=60, k=k)
+    _, th = _hypers(k)
+    word, doc, z_old = (t_(s[n]) for n in ("word", "doc", "topic"))
+    n_wk, n_kd = t_(s["n_wk"]), t_(s["n_kd"])
+    index = None
+    if indexed:
+        rng = np.random.default_rng(seed)
+        index = t_(rng.integers(2**31 - 4 * s["e"], 2**31 - 1, s["e"]
+                                ).astype(np.int32))
+    if chunk:
+        monkeypatch.setattr(tzc, "CDF_KERNEL_CHUNK_TOKENS", chunk)
+    got = tzc.zen_cdf_cell(seed, word, doc, z_old, None, n_wk, n_kd,
+                           t_(s["n_k"]), th, s["w"], kd, use_kernel=True,
+                           token_index=index)
+    tables = tzc.build_cdf_tables(n_wk, n_kd, t_(s["n_k"]), th, s["w"], kd,
+                                  use_kernel=True)
+    size = chunk or s["e"]
+    want, branch, take = [], [], []
+    for a in range(0, s["e"], size):
+        sl = slice(a, a + size)
+        n = word[sl].shape[0]
+        u = stream_uniforms(seed, a if index is None else index[sl], n,
+                            tzc.CDF_STREAMS)
+        z, b, tk = _torch_chain(tables, word[sl], doc[sl], z_old[sl], n_wk,
+                                n_kd, th, u)
+        want.append(z), branch.append(b), take.append(tk)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, torch.cat(want))
+    assert set(torch.cat(branch).tolist()) == {0, 1, 2}
+    assert int(torch.cat(take).sum()) > 0
+
+
+@pytest.mark.parametrize("seed", [0, 977, 2**31 - 1])
+@pytest.mark.parametrize("start", [0, 2**32 - 5, 3 * 2**32 + 11, "index"])
+def test_plain_uniforms_equal_stream_uniforms(seed, start):
+    """``ops.cdf_uniforms`` on the CPU (its plain version) equals
+    ``stream_uniforms`` entry for entry, for starts past 2^32 (the hash
+    takes the global index mod 2^32) and for a mesh cell's int32 corpus
+    indices."""
+    n = 1000
+    if start == "index":
+        start = torch.arange(2**31 - 600, 2**31 - 600 + 2 * n, 2,
+                             dtype=torch.int64).to(torch.int32)
+        start[::7] = 3
+    got = ops.cdf_uniforms(seed, start, n, tzc.CDF_STREAMS, device="cpu")
+    want = stream_uniforms(seed, start, n, tzc.CDF_STREAMS)
+    assert got.shape == (tzc.CDF_STREAMS, n) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(cdf_tokens.cdf_uniforms_plain(seed, start, n, 2),
+                       want[:2])
+
+
+def test_glue_refuses_ids_out_of_range():
+    """The plain versions refuse what the kernels trap on (a word, doc or
+    previous topic out of range), and the launchers refuse CPU tensors."""
+    t, k, w, d = 6, 5, 4, 3
+    i32 = torch.int32
+    word, doc = torch.zeros(t, dtype=i32), torch.zeros(t, dtype=i32)
+    z_old, u = torch.zeros(t, dtype=i32), torch.full((t,), 0.5)
+    z2 = torch.zeros((2, t), dtype=i32)
+    n_wk, n_kd = torch.ones((w, k), dtype=i32), torch.ones((d, k), dtype=i32)
+    draws = [word, u, u, u, torch.ones(w), torch.arange(1.0, k + 1), z2]
+    remedy = [z2, z_old, z_old, z_old, word, doc, n_wk, n_kd, u]
+    for args, fn, at, bound in ((draws, ops.cdf_draws, 0, w),
+                                (remedy, ops.cdf_remedy, 3, k),
+                                (remedy, ops.cdf_remedy, 4, w),
+                                (remedy, ops.cdf_remedy, 5, d)):
+        for bad in (bound, -1):
+            broken = list(args)
+            broken[at] = broken[at].clone()
+            broken[at][2] = bad
+            with pytest.raises(IndexError, match="outside"):
+                fn(*broken)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        cdf_tokens.cdf_draws_cuda(*draws)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        cdf_tokens.cdf_remedy_cuda(*remedy)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        cdf_tokens.cdf_uniforms_cuda(0, word, t, 3, "cpu")
 
 
 # -- zen_cdf serving -----------------------------------------------------------

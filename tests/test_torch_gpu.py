@@ -869,14 +869,16 @@ def test_zen_cdf_session_on_card_launches_only_kernel_7(cuda, kernels,
         st = sess.step(st)
         st.check_invariants(sess.corpus)
     counts = ops.launch_counts()
-    # one token chunk per sweep: two searches (draws a and b) and one
-    # doc-row search each; the delta merge two histograms per step
+    # one token chunk per sweep: two searches (draws a and b), and one
+    # doc-row search, uniforms, draws and remedy launch each; the delta
+    # merge two histograms per step
+    once = ("doc_row_search", "cdf_uniforms", "cdf_draws", "cdf_remedy")
     assert counts["cdf_row_search"] == (6 if launches else 0), counts
-    assert counts["doc_row_search"] == (3 if launches else 0), counts
+    for name in once:
+        assert counts[name] == (3 if launches else 0), counts
     assert counts["topic_histogram"] == (6 if launches else 0), counts
     assert all(v == 0 for name, v in counts.items()
-               if name not in ("cdf_row_search", "doc_row_search",
-                               "topic_histogram"))
+               if name not in ("cdf_row_search", "topic_histogram") + once)
     assert sess.llh(st) > llh0
 
 
@@ -884,8 +886,9 @@ def test_zen_cdf_launches_the_doc_row_search_once_a_chunk_on_card(
         cuda, monkeypatch):
     """1,099,652 tokens in chunks of the kernel route's width (one chunk),
     of 2^20 tokens (the off route's at max_kd 128, two chunks) and of 4,099
-    tokens: one doc-row search and two kernel-7 searches a chunk, and the
-    topics after two sweeps bit-equal across the three widths."""
+    tokens: one doc-row search, uniforms, draws and remedy launch and two
+    kernel-7 searches a chunk, and the topics after two sweeps bit-equal
+    across the three widths."""
     from repro_torch.algorithms import zen_cdf as zc
     from repro_torch.core.types import LDAHyperParams
     from repro_torch.data.corpus import synthetic_lda_corpus
@@ -905,13 +908,151 @@ def test_zen_cdf_launches_the_doc_row_search_once_a_chunk_on_card(
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         chunks = -(-sess.corpus.num_tokens // width)
-        assert counts["doc_row_search"] == 2 * chunks, (chunks, counts)
+        for name in ("doc_row_search", "cdf_uniforms", "cdf_draws",
+                     "cdf_remedy"):
+            assert counts[name] == 2 * chunks, (name, chunks, counts)
         assert counts["cdf_row_search"] == 4 * chunks, (chunks, counts)
         states.append(st.topic.cpu())
         chunk_counts.append(chunks)
     assert chunk_counts == [1, 2, 269]
     assert torch.equal(states[0], states[1])
     assert torch.equal(states[0], states[2])
+
+
+# -- zen_cdf's uniforms, draws and remedy (csrc/cdf_tokens.cu) ---------------
+
+def _glue_case(dev, t, k=1000, w=20000, seed=0):
+    """Inputs of the draws and the remedy at NYTimes-like widths: masses
+    that give each of the three branches, term-3 topics, kernel 7's
+    answers, and previous topics equal to draw a's topic for half the
+    tokens (so the remedy engages)."""
+    g = torch.Generator(device=dev).manual_seed(seed + t)
+    i32 = torch.int32
+    d = max(2, t // 300)
+    word = torch.randint(0, w, (t,), generator=g, device=dev, dtype=i32)
+    doc = torch.sort(torch.randint(0, d, (t,), generator=g, device=dev)
+                     ).values.to(i32)
+    g_cdf = torch.cumsum(torch.rand(k, generator=g, device=dev) * 1e-4, 0)
+    m2_all = torch.rand(w, generator=g, device=dev) * 0.05
+    total = g_cdf[-1] + m2_all[word.long()] + torch.rand(
+        t, generator=g, device=dev) * 0.1
+    z_d = torch.randint(0, k, (2, t), generator=g, device=dev, dtype=i32)
+    z_w = torch.randint(0, k, (2, t), generator=g, device=dev, dtype=i32)
+    n_wk = torch.randint(0, 6, (w, k), generator=g, device=dev, dtype=i32)
+    n_kd = torch.randint(0, 4, (d, k), generator=g, device=dev, dtype=i32)
+    return word, doc, g_cdf, m2_all, total, z_d, z_w, n_wk, n_kd
+
+
+@pytest.mark.parametrize("t", [1 << 24, 1 << 20, 4099])
+@pytest.mark.parametrize("indexed", [False, True])
+def test_glue_kernels_bit_equal_to_plain_versions_on_card(cuda, t, indexed):
+    """The uniforms (from a start past 2^32, or a mesh cell's int32 corpus
+    indices), the draws and the remedy, each launch against its plain
+    version on the same inputs: bit-equal at a path chunk (2^24 tokens),
+    2^20 and 4,099; every branch taken and the remedy engaged."""
+    from repro_torch.kernels import cdf_tokens as ct
+
+    word, doc, g_cdf, m2_all, total, z_d, z_w, n_wk, n_kd = _glue_case(
+        cuda, t)
+    seed, start = 2**31 - 3, 2**32 - t // 2
+    if indexed:
+        start = torch.randint(0, 2**31 - 1, (t,), device=cuda,
+                              dtype=torch.int32)
+    before = ops.launch_counts()
+    u = ops.cdf_uniforms(seed, start, t, 3, device=cuda)
+    assert torch.equal(u, ct.cdf_uniforms_plain(seed, start, t, 3, cuda))
+    targets, code = ops.cdf_draws(word, total, u[0], u[1], m2_all, g_cdf,
+                                  z_d)
+    want_targets, want_code = ct.cdf_draws_plain(word, total, u[0], u[1],
+                                                 m2_all, g_cdf, z_d)
+    assert torch.equal(targets, want_targets)
+    assert torch.equal(code, want_code)
+    assert bool((code[0] >= 0).any() and (code[0] == -1).any()
+                and (code[0] < -1).any())
+    z1 = torch.clamp_max(torch.where(code[0] >= 0, code[0], torch.where(
+        code[0] == -1, z_w[0], -2 - code[0])), 999)
+    z_old = torch.where(torch.arange(t, device=cuda) % 2 == 0, z1,
+                        torch.randint(0, 1000, (t,), device=cuda,
+                                      dtype=torch.int32))
+    args = (code, z_w[0], z_w[1], z_old, word, doc, n_wk, n_kd, u[2])
+    got = ops.cdf_remedy(*args)
+    want, second = ct.cdf_remedy_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert 0 < int(second.sum()) < t
+    after = ops.launch_counts()
+    for name in ("cdf_uniforms", "cdf_draws", "cdf_remedy"):
+        assert after[name] == before[name] + 1, name
+
+
+def test_zen_cdf_session_bit_equal_to_the_plain_glue_on_card(cuda,
+                                                             monkeypatch):
+    """Two sweeps of a ``zen_cdf`` session on the kernel route, and again
+    with the uniforms, draws and remedy run as their plain versions on
+    the card: the same topics and counts."""
+    from repro_torch.algorithms import zen_cdf as zc
+    from repro_torch.core.types import LDAHyperParams
+    from repro_torch.data.corpus import synthetic_lda_corpus
+    from repro_torch.kernels import cdf_tokens as ct
+    from repro_torch.train.session import RunConfig, TrainSession
+
+    corpus, _ = synthetic_lda_corpus(0, 2200, 300, 64, 500)
+    hyper = LDAHyperParams(num_topics=64, alpha=0.1)
+    states = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(zc, "cdf_uniforms", ct.cdf_uniforms_plain)
+            monkeypatch.setattr(zc, "cdf_draws", ct.cdf_draws_plain)
+            monkeypatch.setattr(zc, "cdf_remedy", lambda *a, count=False:
+                                ct.cdf_remedy_plain(*a)[0])
+        sess = TrainSession(corpus, hyper, RunConfig(
+            algorithm="zen_cdf", max_kd=8), device=cuda)
+        st = sess.init(0)
+        ops.reset_launch_counts()
+        for _ in range(2):
+            st = sess.step(st)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["cdf_remedy"] == (0 if plain else 2)
+        states.append(st)
+    for name in ("topic", "n_wk", "n_kd", "n_k"):
+        assert torch.equal(getattr(states[0], name),
+                           getattr(states[1], name)), name
+
+
+_OUT_OF_RANGE_GLUE = """
+import torch
+from repro_torch.kernels import ops
+d = torch.device("cuda", 0)
+i32 = torch.int32
+ids = [torch.zeros(64, dtype=i32, device=d) for _ in range(3)]
+ids[{which}][9] = {value}
+word, doc, z_old = ids
+u = torch.full((64,), 0.5, device=d)
+try:
+    if {which} == 0:
+        ops.cdf_draws(word, u, u, u, torch.ones(10, device=d),
+                      torch.arange(1.0, 17.0, device=d),
+                      torch.zeros((2, 64), dtype=i32, device=d))
+    else:
+        code = torch.zeros((2, 64), dtype=i32, device=d)
+        ops.cdf_remedy(code, z_old, z_old, z_old, word, doc,
+                       torch.ones((10, 16), dtype=i32, device=d),
+                       torch.ones((5, 16), dtype=i32, device=d), u)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", e)
+"""
+
+
+@pytest.mark.parametrize("which,value", [(0, 10), (2, 16), (2, -1)])
+def test_out_of_range_id_raises_in_the_glue_kernels(cuda, which, value):
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _OUT_OF_RANGE_GLUE.format(which=which, value=value)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": src})
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
 
 
 def test_engine_serves_zen_cdf_on_card(cuda):

@@ -201,6 +201,8 @@ def test_wrappers_route_by_device_and_count_only_launches():
                                    "sparse_row_sample": 0,
                                    "cdf_row_search": 0,
                                    "doc_row_search": 0,
+                                   "cdf_uniforms": 0, "cdf_draws": 0,
+                                   "cdf_remedy": 0,
                                    "topic_histogram": 0}
     meta = [x.to("meta") for x in args]
     with pytest.raises(ValueError, match="no kernel or plain version"):

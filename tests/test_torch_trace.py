@@ -8,8 +8,9 @@ in the collector. Under ``torch.profiler.profile`` every span is a user
 annotation nested as the step nests it, both counters equal a recount of
 their predicate after every step, the readers of device milliseconds
 find nothing on the CPU, and two profiled windows each see only their
-own totals. The doc-row search's counter ``zen_cdf.row_entries`` counts
-only on the kernel route (``kernels="on"`` here runs its plain version).
+own totals. The doc-row search's counter ``zen_cdf.row_entries`` and the
+remedy's ``zen_cdf.remedy_second`` count only on the kernel route
+(``kernels="on"`` here runs their plain versions).
 """
 import hashlib
 
@@ -21,6 +22,7 @@ from portbench import registry
 from portbench.tests import tiny
 from repro_torch.algorithms import zen_cdf
 from repro_torch.kernels import ops
+from repro_torch.kernels.cdf_tokens import cdf_remedy_plain
 from repro_torch.observe import metrics, trace_totals
 
 DENSE, CDF = tiny.CELLS
@@ -131,9 +133,9 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
     """``on`` takes the kernels' routes, whose ops run their plain
     versions on the CPU; ``off`` the plain routes."""
     monkeypatch.setenv("REPRO_KERNELS", kernels)
-    searches, entries = [], []
+    searches, entries, seconds = [], [], []
     bsearch, row_search = zen_cdf._bsearch_gather, zen_cdf.cdf_row_search
-    doc_search = zen_cdf.doc_row_search
+    doc_search, remedy = zen_cdf.doc_row_search, zen_cdf.cdf_remedy
 
     def spy_bsearch(mat, rows, targets):
         searches.append(int((targets > 0).sum()))
@@ -147,9 +149,14 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
         entries.append(int((kd_cnt[doc.long()] > 0).sum()))
         return doc_search(n_wk, word, doc, kd_cnt, *args, **kwargs)
 
+    def spy_remedy(*args, **kwargs):
+        seconds.append(int(cdf_remedy_plain(*args)[1].sum()))
+        return remedy(*args, **kwargs)
+
     monkeypatch.setattr(zen_cdf, "_bsearch_gather", spy_bsearch)
     monkeypatch.setattr(zen_cdf, "cdf_row_search", spy_row_search)
     monkeypatch.setattr(zen_cdf, "doc_row_search", spy_doc_search)
+    monkeypatch.setattr(zen_cdf, "cdf_remedy", spy_remedy)
     run = runner(name)
     changed = 0
     with cpu_profile():
@@ -164,12 +171,17 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
                     "zen_cdf.search_tokens"] == sum(searches)
             else:
                 assert "zen_cdf.search_tokens" not in counters
-            # the doc-row search runs on the kernel route alone
+            # the doc-row search and the remedy's kernel run on the kernel
+            # route alone
             if name == CDF and kernels == "on":
                 assert entries and counters[
                     "zen_cdf.row_entries"] == sum(entries)
+                assert sum(seconds) > 0 and counters[
+                    "zen_cdf.remedy_second"] == sum(seconds)
             else:
                 assert not entries and "zen_cdf.row_entries" not in counters
+                assert not seconds
+                assert "zen_cdf.remedy_second" not in counters
 
 
 def test_ops_count_their_predicates_on_the_plain_route(collector):
@@ -202,6 +214,34 @@ def test_ops_count_their_predicates_on_the_plain_route(collector):
         + int(changed.sum()),
         "zen_cdf.search_tokens": int((targets > 0).sum()),
         "zen_cdf.row_entries": int((kd_cnt[rows.long()] > 0).sum())}
+
+
+def test_remedy_counts_the_second_draws_on_the_plain_route(collector):
+    """``ops.cdf_remedy(count=True)`` on the CPU adds the tokens that take
+    draw b to ``zen_cdf.remedy_second``, and counting changes no output."""
+    g = torch.Generator().manual_seed(7)
+    t, k, i32 = 2000, 6, torch.int32
+    z_old = torch.randint(0, k, (t,), generator=g, dtype=i32)
+    # draw a's codes: term 1 (a topic), term 2 (-1), term 3 (-2 - topic)
+    z_a = torch.randint(0, k, (t,), generator=g, dtype=i32)
+    z_a[::2] = z_old[::2]
+    kind = torch.randint(0, 3, (t,), generator=g)
+    code = torch.stack([
+        torch.where(kind == 0, z_a, torch.where(kind == 1, -1, -2 - z_a)),
+        torch.randint(0, k, (t,), generator=g, dtype=i32)]).to(i32)
+    args = (code, z_a, z_old, z_old,
+            torch.randint(0, 9, (t,), generator=g, dtype=i32),
+            torch.randint(0, 5, (t,), generator=g, dtype=i32),
+            torch.randint(0, 4, (9, k), generator=g, dtype=i32),
+            torch.randint(0, 4, (5, k), generator=g, dtype=i32),
+            torch.rand(t, generator=g))
+    with cpu_profile():
+        got = ops.cdf_remedy(*args, count=True)
+    want, second = cdf_remedy_plain(*args)
+    assert torch.equal(got, want) and torch.equal(got, ops.cdf_remedy(*args))
+    assert 0 < int(second.sum()) < t
+    assert trace_totals()["counters"] == {
+        "zen_cdf.remedy_second": int(second.sum())}
 
 
 @pytest.mark.parametrize("name", tiny.CELLS)

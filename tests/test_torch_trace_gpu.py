@@ -1,6 +1,6 @@
-"""The training step's spans and the work counters of kernels 5 and 7 and
-of the doc-row search on the card (marker ``gpu``; they skip without
-one). Run them where a card is:
+"""The training step's spans and the work counters of kernels 5 and 7, of
+the doc-row search and of ``zen_cdf``'s remedy on the card (marker
+``gpu``; they skip without one). Run them where a card is:
 
     PYTHONPATH=src:. python -m pytest -m gpu --noconftest \
         tests/test_torch_trace_gpu.py
@@ -16,6 +16,7 @@ from repro_torch.algorithms import zen_cdf
 from repro_torch.kernels.cdf_search import (cdf_row_search_cuda,
                                             doc_row_search_cuda,
                                             doc_row_search_plain)
+from repro_torch.kernels.cdf_tokens import cdf_remedy_cuda, cdf_remedy_plain
 from repro_torch.kernels.topic_histogram import topic_histogram_cuda
 from repro_torch.observe import trace_totals
 
@@ -140,11 +141,49 @@ def test_doc_row_search_same_with_its_counter(cuda, t, k, j):
         (kd_cnt[args[2].long()] > 0).sum())
 
 
+@pytest.mark.parametrize("t", [1 << 20, 4099, 3])
+def test_remedy_same_with_its_counter(cuda, t):
+    """The counter of tokens that take draw b on the card equals the plain
+    version's count, and counting changes no output."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda).manual_seed(t)
+    i32, k, w, d = torch.int32, 300, 500, max(2, t // 300)
+    z1 = torch.randint(0, k, (t,), generator=g, device=cuda, dtype=i32)
+    kind = torch.randint(0, 3, (t,), generator=g, device=cuda)
+    code = torch.stack([
+        torch.where(kind == 0, z1, torch.where(kind == 1, -1, -2 - z1)),
+        torch.randint(0, k, (t,), generator=g, device=cuda, dtype=i32)
+    ]).to(i32)
+    z_old = torch.where(kind < 2, z1, torch.randint(
+        0, k, (t,), generator=g, device=cuda, dtype=i32))
+    args = (code, z1, z1, z_old,
+            torch.randint(0, w, (t,), generator=g, device=cuda, dtype=i32),
+            torch.randint(0, d, (t,), generator=g, device=cuda, dtype=i32),
+            torch.randint(0, 4, (w, k), generator=g, device=cuda, dtype=i32),
+            torch.randint(0, 3, (d, k), generator=g, device=cuda, dtype=i32),
+            torch.rand(t, generator=g, device=cuda))
+    plain = cdf_remedy_cuda(*args)
+    with card_profile():
+        counted = cdf_remedy_cuda(*args, count=True)
+        again = cdf_remedy_cuda(*args, count=True)
+    card = trace_totals()["counters"]
+    want, second = cdf_remedy_plain(*args)
+    for x in (plain, counted, again):
+        assert torch.equal(x, want)
+    assert card == {"zen_cdf.remedy_second": 2 * int(second.sum())}
+    with profile(activities=[ProfilerActivity.CPU]):
+        ops.cdf_remedy(*(x.cpu() for x in args), count=True)
+    assert trace_totals()["counters"] == {
+        "zen_cdf.remedy_second": int(second.sum())}
+
+
 def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
     from portbench import registry
 
-    searches, entries = [], []
+    searches, entries, seconds = [], [], []
     row_search, doc_search = zen_cdf.cdf_row_search, zen_cdf.doc_row_search
+    remedy = zen_cdf.cdf_remedy
 
     def spy(*args, **kwargs):
         searches.append((args[3] > 0).sum())
@@ -154,8 +193,13 @@ def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
         entries.append((kd_cnt[doc.long()] > 0).sum())
         return doc_search(n_wk, word, doc, kd_cnt, *args, **kwargs)
 
+    def spy_remedy(*args, **kwargs):
+        seconds.append(cdf_remedy_plain(*args)[1].sum())
+        return remedy(*args, **kwargs)
+
     monkeypatch.setattr(zen_cdf, "cdf_row_search", spy)
     monkeypatch.setattr(zen_cdf, "doc_row_search", spy_doc)
+    monkeypatch.setattr(zen_cdf, "cdf_remedy", spy_remedy)
     cell, config, traffic = tiny.spec("nytimes-cdf-sweeps", **SIZES)
     run = registry.runner(config["runner"]).Runner(
         config, traffic, cell, tiny.SEED, cuda)
@@ -163,6 +207,7 @@ def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
     run.step()
     searches.clear()
     entries.clear()
+    seconds.clear()
     changed = 0
     with card_profile():
         for _ in range(3):
@@ -172,4 +217,6 @@ def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
     assert trace_totals()["counters"] == {
         "counts.changed_tokens": changed,
         "zen_cdf.search_tokens": int(sum(searches)),
-        "zen_cdf.row_entries": int(sum(entries))}
+        "zen_cdf.row_entries": int(sum(entries)),
+        "zen_cdf.remedy_second": int(sum(seconds))}
+    assert sum(seconds) > 0

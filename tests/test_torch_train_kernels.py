@@ -274,9 +274,9 @@ def test_build_covers_both_sources_in_parallel_targets():
     per source, all at once), and every launcher is exported by one."""
     names = [s.name for s in _build.SOURCES]
     assert names == ["zen_infer.cu", "zen_train.cu", "sparse_row.cu",
-                     "cdf_search.cu", "topic_histogram.cu"]
+                     "cdf_search.cu", "topic_histogram.cu", "cdf_tokens.cu"]
     targets = {_build.target(s) for s in _build.SOURCES}
-    assert len(targets) == 5
+    assert len(targets) == 6
     texts = [s.read_text() for s in _build.SOURCES]
     for fn in _build.SIGNATURES:
         assert sum(f'extern "C" int {fn}(' in t for t in texts) == 1, fn
