@@ -2463,7 +2463,7 @@ def phase_cdf_kernels(sess, st, seed: int, sm_count: int,
 
     c, h, k = sess.corpus, sess.hyper, K_NYT
     tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
-                              CDF_MAX_KD, use_kernel=True)
+                              CDF_MAX_KD, zc.KERNEL_ROUTE)
     sweep_seed = key_seed(fold_in(st.rng, st.iteration))
     term = tab.terms.t4
     w_cdf = torch.cumsum(st.n_wk.to(torch.float32) * term[None, :], dim=-1)
@@ -2619,9 +2619,9 @@ def phase_doc_row_kernels(sess, st):
     runs = {}
     for j in (MAXKD_NYT, CDF_MAX_KD):
         tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
-                                  j, use_kernel=True)
+                                  j, zc.KERNEL_ROUTE)
         off = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
-                                  j, use_kernel=False)
+                                  j, zc.PLAIN_ROUTE)
         args = (st.n_wk, word, doc, tab.kd_cnt, tab.kd_idx, tab.terms.t1,
                 tab.m2_all, tab.g_cdf, u[0], u[1])
 
@@ -2715,7 +2715,7 @@ def phase_doc_row_kernels(sess, st):
     chunk_runs = {}
     for j in (MAXKD_NYT, CDF_MAX_KD):
         tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
-                                  j, use_kernel=True)
+                                  j, zc.KERNEL_ROUTE)
         args = (st.n_wk, word, doc, tab.kd_cnt, tab.kd_idx, tab.terms.t1,
                 tab.m2_all, tab.g_cdf, u[0], u[1])
 
@@ -2779,7 +2779,7 @@ def phase_cdf_glue_kernels(sess, st):
     import torch
 
     from repro_torch.algorithms import zen_cdf as zc
-    from repro_torch.core.keys import fold_in, key_seed
+    from repro_torch.core.keys import fold_in, key_seed, stream_uniforms
     from repro_torch.kernels import cdf_tokens as ct
     from repro_torch.kernels import ops
 
@@ -2788,7 +2788,7 @@ def phase_cdf_glue_kernels(sess, st):
     word, doc, z_old = c.word[:t], c.doc[:t], st.topic[:t]
     seed = key_seed(fold_in(st.rng, st.iteration))
     tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
-                              MAXKD_NYT, use_kernel=True)
+                              MAXKD_NYT, zc.KERNEL_ROUTE)
     u = ops.cdf_uniforms(seed, 0, t, zc.CDF_STREAMS, device=word.device)
     total, z_d = ops.doc_row_search(
         st.n_wk, word, doc, tab.kd_cnt, tab.kd_idx, tab.terms.t1, tab.m2_all,
@@ -2802,7 +2802,7 @@ def phase_cdf_glue_kernels(sess, st):
     tg_p, code_p = ct.cdf_draws_plain(*draw_args)
     z_p, second = ct.cdf_remedy_plain(*rem_args)
     mism = {
-        "cdf_uniforms": int((u != ct.cdf_uniforms_plain(
+        "cdf_uniforms": int((u != stream_uniforms(
             seed, 0, t, zc.CDF_STREAMS, word.device)).sum()),
         "cdf_draws": int((targets != tg_p).sum() + (code != code_p).sum()),
         "cdf_remedy": int((z_new != z_p).sum())}
@@ -2813,8 +2813,8 @@ def phase_cdf_glue_kernels(sess, st):
         "cdf_uniforms": (
             lambda: ops.cdf_uniforms(seed, 0, t, zc.CDF_STREAMS,
                                      device=word.device),
-            lambda: ct.cdf_uniforms_plain(seed, 0, t, zc.CDF_STREAMS,
-                                          word.device)),
+            lambda: stream_uniforms(seed, 0, t, zc.CDF_STREAMS,
+                                    word.device)),
         "cdf_draws": (lambda: ops.cdf_draws(*draw_args),
                       lambda: ct.cdf_draws_plain(*draw_args)),
         "cdf_remedy": (lambda: ops.cdf_remedy(*rem_args),

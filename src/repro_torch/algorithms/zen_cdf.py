@@ -9,33 +9,34 @@ lower-bound search, twice, and the paper's §3.1 remedy picks the second
 draw where the first equals the token's previous topic (the term-2 and
 term-3 tables are stale: they include it).
 
-Term 2 has two routes, as in the reference. With kernels dispatched
-(``kernel_dispatch``: the tensors on the card under ``kernels="auto"``)
-it goes through kernel 7 (``kernels.ops.cdf_row_search``), which reads
-each token's integer count row in place and searches the prefix sums of
-counts·t4; the branch masses are then one matvec. Otherwise it searches a
-(W, K) float ``w_cdf`` matrix by ``log K`` scalar gathers per token
-(:func:`_bsearch_gather`). The two add in different orders, so they are
-equal in distribution, not bit for bit (the reference's contract too).
-Kernel 7 is only asked for the tokens whose draw takes term 2; the others
-get target 0, which its walk answers at once (their term-2 topic is
-never used).
+A chunk of tokens takes five steps: its three uniform streams; term 3
+(each token's total mass and both draws' term-3 topics); the draws (each
+one's branch, term-1 topic and term-2 target, as a code); term 2, once a
+draw; the remedy (:func:`zen_cdf_tokens` runs the last four). A route
+(:class:`CdfRoute`) says how each step runs and how wide a chunk is.
+:func:`zen_cdf_cell` chooses it once a sweep from ``kernel_dispatch``
+(the tensors on the card under ``kernels="auto"``), and the tables carry
+it.
 
-Term 3 follows the same choice. With kernels dispatched one launch a
-chunk (``kernels.ops.doc_row_search``) builds, scans and searches each
-token's top-``max_kd`` doc row in a warp's registers, for both draws,
-and returns the token's total mass and its two term-3 topics: no (chunk,
-max_kd) tensor exists. Otherwise :func:`doc_rows` gathers the rows and
-``torch.cumsum`` adds them, and each draw searches the (chunk, max_kd)
-CDF. The two add in different orders: equal in distribution, a draw
-differing only at a near-tie.
+* :data:`KERNEL_ROUTE` launches kernels (``kernels.ops``): the uniforms,
+  the draws and the remedy with each token's work in registers
+  (``kernels.cdf_tokens``);
+  term 3 as one doc-row search that builds, scans and searches each
+  token's top-``max_kd`` doc row in a warp's registers, so no (chunk,
+  max_kd) tensor exists; term 2 as kernel 7, which reads each token's
+  integer count row in place and searches the prefix sums of counts·t4
+  (the branch masses are then one matvec).
+* :data:`PLAIN_ROUTE` runs torch ops and launches no ``zen_cdf`` kernel:
+  the same uniforms, draws and remedy (``core.keys.stream_uniforms`` and
+  the kernels' plain versions, called directly); term 3 as :func:`doc_rows`,
+  whose ``torch.cumsum`` each draw searches; term 2 as ``log K`` scalar
+  gathers into a (W, K) float ``w_cdf`` matrix (:func:`_bsearch_gather`).
 
-The rest of a token's work follows it too. On the kernel route three
-more kernels (``kernels.cdf_tokens``) hash the chunk's uniforms, take each
-draw's branch, term-1 topic and term-2 target, and pick the topics and
-apply the remedy, each token in registers (:func:`_kernel_tokens`), bit-
-equal to the torch chain that is their plain version; the plain route
-keeps its own chain. The two routes share no logic.
+Terms 2 and 3 add in another order on each route, so the routes are equal
+in distribution, not bit for bit (the reference's contract too): a draw
+differs only at a near-tie. Term 2 is only searched for the tokens whose
+draw takes it; the others get target 0, which kernel 7's walk answers at
+once (their term-2 topic is never used).
 
 Differences from the reference, none of which changes the sampler:
 
@@ -49,7 +50,7 @@ Differences from the reference, none of which changes the sampler:
   so the rows are ranked by the tie-free key ``count·K + (K - 1 -
   topic)``; another tie order would change draws.
 * Tokens go in chunks (the reference takes all at once), sized by what a
-  chunk keeps live (:func:`cdf_chunk_tokens`): off the kernels, its (chunk,
+  chunk keeps live (the route's ``chunk``): on the plain route, its (chunk,
   max_kd) gathered rows hold at most :data:`CDF_CHUNK_ELEMS` elements (at
   NYTIMES width the (T, 64) int64 index rows alone would be 51 GB); on the
   kernel route only per-token vectors are left, and a chunk is
@@ -64,11 +65,11 @@ Differences from the reference, none of which changes the sampler:
 
 While a profiler records, the sweep's phases are spans
 (``observe.metrics.span``): ``zen_cdf.tables`` (:func:`build_cdf_tables`)
-once, and in each chunk ``zen_cdf.doc_rows`` (:func:`doc_rows`, or the
-doc-row search), ``zen_cdf.draws`` (the uniforms, then both draws) and
-``zen_cdf.remedy``; the tokens whose draw searches a term-2 row (target >
-0, what kernel 7 queues) add to the counter ``zen_cdf.search_tokens``,
-and on the kernel route the live (count > 0) doc-row entries to
+once, and in each chunk ``zen_cdf.doc_rows`` (term 3), ``zen_cdf.draws``
+(the uniforms, then both draws and their term-2 searches) and
+``zen_cdf.remedy``. On either route the tokens whose draw searches a
+term-2 row (target > 0, what kernel 7 queues) add to the counter
+``zen_cdf.search_tokens``, the live (count > 0) doc-row entries to
 ``zen_cdf.row_entries`` and the tokens whose remedy takes draw b to
 ``zen_cdf.remedy_second``.
 
@@ -82,7 +83,7 @@ uses no kernel, in the reference either.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -95,9 +96,14 @@ from repro_torch.algorithms.registry import register
 from repro_torch.algorithms.zen_dense import _searchsorted_rows
 from repro_torch.core.decompositions import ZenTerms, precompute_zen_terms
 from repro_torch.core.keys import stream_uniforms, token_uniforms
-from repro_torch.core.sampler import chunk_size, chunked_token_map
+from repro_torch.core.sampler import chunked_token_map
 from repro_torch.core.types import LDAHyperParams
-from repro_torch.kernels.cdf_search import SEARCH_TOKENS
+from repro_torch.kernels.cdf_search import ROW_ENTRIES, SEARCH_TOKENS
+from repro_torch.kernels.cdf_tokens import (
+    REMEDY_SECOND,
+    cdf_draws_plain,
+    cdf_remedy_plain,
+)
 from repro_torch.kernels.ops import (
     cdf_draws,
     cdf_remedy,
@@ -109,7 +115,7 @@ from repro_torch.observe import metrics
 
 # sparse doc-row width when the config leaves max_kd = 0 (auto)
 DEFAULT_MAX_KD = 64
-# off the kernel route: elements of the widest gathered (chunk, max_kd)
+# on the plain route: elements of the widest gathered (chunk, max_kd)
 # temporary (doc_rows' rows, weights and CDF)
 CDF_CHUNK_ELEMS = 1 << 27
 # on the kernel route: tokens a chunk. Only per-token vectors live there,
@@ -143,13 +149,6 @@ def _bsearch_gather(mat: torch.Tensor, rows: torch.Tensor,
     return torch.clamp_max(pos, k - 1).to(torch.int32)
 
 
-def _bsearch_shared(cdf: torch.Tensor, targets: torch.Tensor
-                    ) -> torch.Tensor:
-    """Lower bound of each target in one shared ascending CDF (K,)."""
-    return torch.clamp_max(torch.searchsorted(cdf, targets),
-                           cdf.shape[0] - 1)
-
-
 def doc_topk(n_kd: torch.Tensor, kd: int):
     """The ``kd`` largest counts of every row of ``n_kd`` (R, K): (cnt (R,
     kd) int32, topic (R, kd) int64), higher count first and the lower
@@ -167,41 +166,57 @@ def doc_topk(n_kd: torch.Tensor, kd: int):
     return cnt, idx
 
 
+class CdfRoute(NamedTuple):
+    """How a sweep's tokens run: the step functions of
+    :func:`zen_cdf_tokens` and the rule that sizes :func:`zen_cdf_cell`'s
+    chunks (:data:`KERNEL_ROUTE` or :data:`PLAIN_ROUTE`)."""
+
+    # (n_wk, t4) -> ((W, K) term-2 CDF rows or None, m2_all (W,))
+    term2_table: Callable
+    # ops.cdf_uniforms' arguments -> (streams, n) float32
+    uniforms: Callable
+    # (tables, word, doc, n_wk, hyper, u_a, u_b, count) -> (total (T,)
+    # float32, each draw's term-3 topic (2, T) int32)
+    term3: Callable
+    # ops.cdf_draws' arguments -> (targets (2, T) float32, code (2, T) int32)
+    draws: Callable
+    # (tables, n_wk, word, targets (T,), count) -> term-2 topics (T,) int32
+    term2: Callable
+    # ops.cdf_remedy's arguments -> the new topics (T,) int32
+    remedy: Callable
+    # max_kd -> (row width, elements) of a chunk (core.sampler.chunk_size)
+    chunk: Callable
+
+
 class CdfTables(NamedTuple):
-    """One sweep's tables (paper Alg. 2 l.5-13, in CDF form)."""
+    """One sweep's tables (paper Alg. 2 l.5-13, in CDF form) and the route
+    its tokens take."""
 
     terms: ZenTerms
     g_cdf: torch.Tensor  # (K,) CDF of gDense
     m2_all: torch.Tensor  # (W,) term-2 mass per word
-    w_cdf: Optional[torch.Tensor]  # (W, K) term-2 CDF rows; None: kernel
+    w_cdf: Optional[torch.Tensor]  # (W, K) term-2 CDF rows; plain route
     kd_cnt: torch.Tensor  # (D, max_kd) int32 top counts per doc
-    kd_idx: torch.Tensor  # (D, max_kd) their topics; int32 with w_cdf None
+    kd_idx: torch.Tensor  # (D, max_kd) int32 their topics
+    route: CdfRoute
 
 
 def build_cdf_tables(n_wk, n_kd, n_k, hyper: LDAHyperParams,
                      num_words_pad: int, max_kd: int,
-                     use_kernel: bool) -> CdfTables:
+                     route: CdfRoute) -> CdfTables:
     terms = precompute_zen_terms(n_k, hyper, num_words_pad)
     g_cdf = torch.cumsum(terms.g_dense, dim=0)
-    if use_kernel:
-        # branch masses only: no (W, K) float CDF matrix
-        w_cdf = None
-        m2_all = n_wk.to(torch.float32) @ terms.t4
-    else:
-        w_cdf = torch.cumsum(n_wk.to(torch.float32) * terms.t4[None, :],
-                             dim=-1)
-        m2_all = w_cdf[:, -1]
+    w_cdf, m2_all = route.term2_table(n_wk, terms.t4)
     kd_cnt, kd_idx = doc_topk(n_kd, min(max_kd, hyper.num_topics))
-    if use_kernel:
-        kd_idx = kd_idx.to(torch.int32)  # what the doc-row search reads
     return CdfTables(terms=terms, g_cdf=g_cdf, m2_all=m2_all, w_cdf=w_cdf,
-                     kd_cnt=kd_cnt, kd_idx=kd_idx)
+                     kd_cnt=kd_cnt, kd_idx=kd_idx.to(torch.int32),
+                     route=route)
 
 
 def doc_rows(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
              n_wk: torch.Tensor, hyper: LDAHyperParams):
-    """Term 3 of T tokens: (topics (T, max_kd) int64 of the doc's top
-    rows, the CDF (T, max_kd) of cnt·(N_w|k + β)·t1 over them)."""
+    """Term 3 of T tokens: (topics (T, max_kd) of the doc's top rows, the
+    CDF (T, max_kd) of cnt·(N_w|k + β)·t1 over them)."""
     k = hyper.num_topics
     w, d = word.long(), doc.long()
     rows_idx = tables.kd_idx[d]
@@ -214,108 +229,90 @@ def doc_rows(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
     return rows_idx, torch.cumsum(d_vals, dim=-1)
 
 
+def _plain_term2_table(n_wk, t4):
+    w_cdf = torch.cumsum(n_wk.to(torch.float32) * t4[None, :], dim=-1)
+    return w_cdf, w_cdf[:, -1]
+
+
+def _plain_term3(tables: CdfTables, word, doc, n_wk,
+                 hyper: LDAHyperParams, u_a, u_b, count: bool):
+    """The plain route's term 3: :func:`doc_rows`, then each draw's lower
+    bound of ``max(u·total - m1 - m2, 0)`` in its (T, max_kd) CDF; what
+    ``ops.doc_row_search`` gives, but for the order of the adds."""
+    if count:
+        metrics.count(ROW_ENTRIES,
+                      (tables.kd_cnt > 0).sum(1)[doc.long()].sum())
+    rows_idx, d_cdf = doc_rows(tables, word, doc, n_wk, hyper)
+    m1, m2 = tables.g_cdf[-1], tables.m2_all[word.long()]
+    total = (m1 + m2) + d_cdf[:, -1]
+    z_d = [rows_idx.gather(1, _searchsorted_rows(d_cdf, torch.clamp_min(
+        u * total - m1 - m2, 0.0)).long()[:, None])[:, 0] for u in (u_a, u_b)]
+    return total, torch.stack(z_d)
+
+
+def _plain_term2(tables: CdfTables, n_wk, word, targets, count: bool):
+    """The plain route's term 2: each target's lower bound in its word's
+    ``w_cdf`` row."""
+    if count:
+        metrics.count(SEARCH_TOKENS, (targets > 0).sum())
+    return _bsearch_gather(tables.w_cdf, word, targets)
+
+
+def _plain_remedy(*args, count: bool = False):
+    z, second = cdf_remedy_plain(*args)
+    if count:
+        metrics.count(REMEDY_SECOND, second.sum())
+    return z
+
+
+def _kernel_term3(tables: CdfTables, word, doc, n_wk,
+                  hyper: LDAHyperParams, u_a, u_b, count: bool):
+    return doc_row_search(
+        n_wk, word, doc, tables.kd_cnt, tables.kd_idx, tables.terms.t1,
+        tables.m2_all, tables.g_cdf, u_a, u_b, beta=hyper.beta, count=count)
+
+
+def _kernel_term2(tables: CdfTables, n_wk, word, targets, count: bool):
+    return cdf_row_search(n_wk, word, tables.terms.t4, targets, count=count)
+
+
+KERNEL_ROUTE = CdfRoute(
+    term2_table=lambda n_wk, t4: (None, n_wk.to(torch.float32) @ t4),
+    uniforms=cdf_uniforms, term3=_kernel_term3, draws=cdf_draws,
+    term2=_kernel_term2, remedy=cdf_remedy,
+    chunk=lambda max_kd: (1, CDF_KERNEL_CHUNK_TOKENS))
+PLAIN_ROUTE = CdfRoute(
+    term2_table=_plain_term2_table, uniforms=stream_uniforms,
+    term3=_plain_term3, draws=cdf_draws_plain, term2=_plain_term2,
+    remedy=_plain_remedy,
+    chunk=lambda max_kd: (max_kd, CDF_CHUNK_ELEMS))
+
+
 def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
                    z_old: torch.Tensor, n_wk: torch.Tensor,
                    n_kd: torch.Tensor, hyper: LDAHyperParams,
                    uniforms: torch.Tensor) -> torch.Tensor:
     """New topics (T,) int32: the three-term CDF draw twice, then the
-    remedy. ``uniforms`` (3, T) in [0, 1): draw a, draw b, remedy (the
-    reference's ``split(key, 3)``; each draw's u is the first half of its
-    key's split). When ``tables.w_cdf`` is None the tokens take the kernel
-    route (:func:`_kernel_tokens`), else the plain route."""
-    if tables.w_cdf is None:
-        return _kernel_tokens(tables, word, doc, z_old, n_wk, n_kd, hyper,
-                              uniforms)
-    k = hyper.num_topics
+    remedy, on ``tables.route``. ``uniforms`` (3, T) in [0, 1): draw a,
+    draw b, remedy (the reference's ``split(key, 3)``; each draw's u is the
+    first half of its key's split). A draw's code is its term-1 topic,
+    -1 for term 2 (its search's answer is the topic) or ``-2 - z3`` for
+    term 3 (``z3`` its term-3 topic)."""
+    route = tables.route
     dev = word.device
     counting = metrics.tracing()
     with metrics.span("zen_cdf.doc_rows", dev):
-        rows_idx, d_cdf = doc_rows(tables, word, doc, n_wk, hyper)
-
+        total, z_d = route.term3(tables, word, doc, n_wk, hyper, uniforms[0],
+                                 uniforms[1], counting)
     with metrics.span("zen_cdf.draws", dev):
-        w, d = word.long(), doc.long()
-        m1 = tables.g_cdf[-1]
-        m2 = tables.m2_all[w]
-        m12 = m1 + m2
-        total = m12 + d_cdf[:, -1]
-
-        def draw(i):
-            u = uniforms[i] * total
-            branch = torch.where(u < m1, 0, torch.where(u < m12, 1, 2))
-            # term 1: the shared global CDF (replaces gTable)
-            z_g = _bsearch_shared(tables.g_cdf, u)
-            # term 2: the word's CDF row (replaces wTable); only term-2 draws
-            # need it, the others search target 0
-            t2 = torch.where(branch == 1, torch.clamp_min(u - m1, 0.0), 0.0)
-            z_w = _bsearch_gather(tables.w_cdf, word, t2)
-            if counting:
-                metrics.count(SEARCH_TOKENS, (t2 > 0).sum())
-            # term 3: the doc's sparse row CDF (dSparse + BSearch)
-            pos = _searchsorted_rows(d_cdf, torch.clamp_min(u - m1 - m2, 0.0))
-            z_d = rows_idx.gather(1, pos.long()[:, None])[:, 0]
-            z = torch.where(branch == 0, z_g,
-                            torch.where(branch == 1, z_w.long(), z_d))
-            return torch.clamp_max(z, k - 1).to(torch.int32), branch
-
-        z1, branch = draw(0)
-        z2, _ = draw(1)
-
+        targets, code = route.draws(word, total, uniforms[0], uniforms[1],
+                                    tables.m2_all, tables.g_cdf, z_d)
+        z_wa, z_wb = (route.term2(tables, n_wk, word, targets[i], counting)
+                      for i in (0, 1))
     # resampling remedy (§3.1) for the staleness of terms 2 and 3
     with metrics.span("zen_cdf.remedy", dev):
-        zo = z_old.long()
-        nw_prev = torch.clamp_min(n_wk[w, zo].to(torch.float32), 1.0)
-        nd_prev = torch.clamp_min(n_kd[d, zo].to(torch.float32), 1.0)
-        p_w = 1.0 / nw_prev
-        p_d = torch.clamp(1.0 / nd_prev + (nd_prev + nw_prev - 1.0)
-                          / (nd_prev * nw_prev), 0.0, 1.0)
-        remedy_p = torch.where(branch == 1, p_w,
-                               torch.where(branch == 2, p_d, 0.0))
-        take_second = (z1 == z_old) & (uniforms[2] < remedy_p)
-        return torch.where(take_second, z2, z1)
-
-
-def _kernel_tokens(tables: CdfTables, word, doc, z_old, n_wk, n_kd,
-                   hyper: LDAHyperParams, uniforms) -> torch.Tensor:
-    """:func:`zen_cdf_tokens` on the kernel route, three kernels and
-    kernel 7 twice: the doc-row search (both draws' term-3 topics and each
-    token's total), the draws (``kernels.ops.cdf_draws``: branch, term-1
-    topic, term-2 target), kernel 7 on each draw's target and the remedy
-    (``kernels.ops.cdf_remedy``); no per-token temporary but their inputs
-    and outputs."""
-    terms = tables.terms
-    dev = word.device
-    counting = metrics.tracing()
-    with metrics.span("zen_cdf.doc_rows", dev):
-        total, z_d = doc_row_search(
-            n_wk, word, doc, tables.kd_cnt, tables.kd_idx, terms.t1,
-            tables.m2_all, tables.g_cdf, uniforms[0], uniforms[1],
-            beta=hyper.beta, count=counting)
-    with metrics.span("zen_cdf.draws", dev):
-        targets, code = cdf_draws(word, total, uniforms[0], uniforms[1],
-                                  tables.m2_all, tables.g_cdf, z_d)
-        z_wa, z_wb = (cdf_row_search(n_wk, word, terms.t4, targets[i],
-                                     count=counting) for i in (0, 1))
-    with metrics.span("zen_cdf.remedy", dev):
-        return cdf_remedy(code, z_wa, z_wb, z_old, word, doc, n_wk, n_kd,
-                          uniforms[2], count=counting)
-
-
-def _chunk_budget(max_kd: int, use_kernel: bool) -> tuple[int, int]:
-    """(row width, elements) that size :func:`zen_cdf_cell`'s chunks:
-    per-token vectors only on the kernel route, (chunk, max_kd) gathered
-    rows off it."""
-    if use_kernel:
-        return 1, CDF_KERNEL_CHUNK_TOKENS
-    return max_kd, CDF_CHUNK_ELEMS
-
-
-def cdf_chunk_tokens(num_tokens: int, max_kd: int, use_kernel: bool,
-                     token_chunk: int = 0) -> int:
-    """Tokens a chunk of :func:`zen_cdf_cell`: ``token_chunk`` when set,
-    else :data:`CDF_KERNEL_CHUNK_TOKENS` on the kernel route and
-    ``CDF_CHUNK_ELEMS // max_kd`` off it, at most ``num_tokens``."""
-    width, elems = _chunk_budget(max_kd, use_kernel)
-    return chunk_size(num_tokens, width, token_chunk, elems)
+        return route.remedy(code, z_wa, z_wb, z_old, word, doc, n_wk, n_kd,
+                            uniforms[2], count=counting)
 
 
 def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
@@ -327,24 +324,22 @@ def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
     """One precomputed-CDF ZenLDA pass over a cell's tokens (stale counts)
     -> (T,) int32: the tables once, then the tokens in chunks
     (``token_index``: the tokens' global indices, default their
-    positions). Work per
-    token: O(log K) (term 1, and term 2 off the kernel) + O(max_kd)
-    (term 3); kernel 7 walks a term-2 row up to its lower bound."""
+    positions), on :data:`KERNEL_ROUTE` where ``use_kernel`` and
+    :data:`PLAIN_ROUTE` otherwise. Work per token: O(log K) (term 1, and
+    term 2 on the plain route) + O(max_kd) (term 3); kernel 7 walks a
+    term-2 row up to its lower bound."""
+    route = KERNEL_ROUTE if use_kernel else PLAIN_ROUTE
     with metrics.span("zen_cdf.tables", word.device):
         tables = build_cdf_tables(n_wk, n_kd, n_k, hyper, num_words_pad,
-                                  max_kd, use_kernel)
+                                  max_kd, route)
 
     def chunk(start, w, d, z):
         with metrics.span("zen_cdf.draws", w.device):
-            if tables.w_cdf is None:
-                u = cdf_uniforms(seed, start, w.shape[0], CDF_STREAMS,
-                                 device=w.device)
-            else:
-                u = stream_uniforms(seed, start, w.shape[0], CDF_STREAMS,
-                                    device=w.device)
+            u = route.uniforms(seed, start, w.shape[0], CDF_STREAMS,
+                               device=w.device)
         return zen_cdf_tokens(tables, w, d, z, n_wk, n_kd, hyper, u)
 
-    width, elems = _chunk_budget(tables.kd_idx.shape[1], use_kernel)
+    width, elems = route.chunk(tables.kd_idx.shape[1])
     return chunked_token_map(chunk, (word, doc, z_old), token_chunk, width,
                              elems, token_index)
 

@@ -1,6 +1,6 @@
-"""``zen_cdf``'s per-token draws and remedy on the kernel route: the glue
-around the doc-row search and kernel 7 (``cdf_search``), as three kernels
-(``csrc/cdf_tokens.cu``).
+"""``zen_cdf``'s per-token uniforms, draws and remedy on the kernel route:
+the steps around the doc-row search and kernel 7 (``cdf_search``), as
+three kernels (``csrc/cdf_tokens.cu``).
 
 A token chunk runs :func:`cdf_uniforms_cuda` (the three uniform streams),
 the doc-row search (each token's total mass and both draws' term-3
@@ -10,10 +10,12 @@ code), kernel 7 once a draw on the targets, and :func:`cdf_remedy_cuda`
 term-1 topic on branch 0, -1 on branch 1 (kernel 7's answer is the topic)
 and ``-2 - z3`` on branch 2 (``z3`` its term-3 topic).
 
-The plain versions are the torch chain the kernel route ran before these
-kernels, in its operation order, so each kernel is bit-equal to its plain
-version on the card (``-fmad=false``, IEEE division; the source's note).
-The ``kernels="off"`` route (``algorithms.zen_cdf``) keeps its own chain.
+Each kernel is bit-equal to its plain version on the card
+(``-fmad=false``, IEEE division; the source's note). The plain versions
+are torch ops: ``core.keys.stream_uniforms`` for the uniforms, and
+:func:`cdf_draws_plain` and :func:`cdf_remedy_plain` here. The
+``kernels="off"`` route (``algorithms.zen_cdf.PLAIN_ROUTE``) runs the same
+three.
 
 While a trace asks for it (``count=True``), the remedy kernel adds the
 tokens that take draw b to the profiled stretch's counter
@@ -28,26 +30,10 @@ from repro_torch.kernels.zen_sampler import (
     MASK32,
     check_cuda_args,
     check_ids,
-    hash_bits,
 )
 
 # the profiled stretch's counter of tokens whose remedy takes draw b
 REMEDY_SECOND = "zen_cdf.remedy_second"
-
-
-def cdf_uniforms_plain(seed: int, start, n: int, streams: int,
-                       device=None) -> torch.Tensor:
-    """(streams, n) float32 U[0, 1): entry (s, i) is the top 24 bits of
-    ``hash(seed, row_i, s)`` times 2^-24, ``row_i`` = ``start + i`` or,
-    where ``start`` is a (n,) tensor (a mesh cell's corpus indices),
-    ``start[i]``."""
-    if isinstance(start, torch.Tensor):
-        rows = start.to(device=device, dtype=torch.int64)
-    else:
-        rows = torch.arange(start, start + n, device=device)
-    cols = torch.arange(streams, device=device)[:, None]
-    h = hash_bits(seed, rows[None, :], cols)
-    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 def cdf_uniforms_cuda(seed: int, start, n: int, streams: int,

@@ -37,7 +37,6 @@ from repro_torch.kernels.cdf_tokens import (
     cdf_remedy_cuda,
     cdf_remedy_plain,
     cdf_uniforms_cuda,
-    cdf_uniforms_plain,
 )
 from repro_torch.kernels.fused_gather import (
     zen_fused_infer_sample_cuda,
@@ -229,10 +228,14 @@ def cdf_uniforms(seed: int, start, n: int, streams: int, *, device):
     (streams, n) float32 U[0, 1), entry (s, i) the top 24 bits of
     ``hash(seed, row_i, s)`` times 2^-24, ``row_i`` = ``start + i`` (mod
     2^32) or, where ``start`` is a (n,) int32 tensor (a mesh cell's corpus
-    indices), ``start[i]``: what ``core.keys.stream_uniforms`` gives."""
+    indices), ``start[i]``. The plain version is
+    ``core.keys.stream_uniforms``."""
     device = torch.device(device)
     if _route(device) == "cpu":
-        return cdf_uniforms_plain(seed, start, n, streams, device)
+        # imported here: repro_torch.core's package imports this module
+        from repro_torch.core.keys import stream_uniforms
+
+        return stream_uniforms(seed, start, n, streams, device)
     out = cdf_uniforms_cuda(seed, start, n, streams, device)
     _count("cdf_uniforms", n * streams)
     return out

@@ -65,6 +65,16 @@ def t_(a):
     return torch.from_numpy(np.array(a))
 
 
+def _route(use_kernel):
+    return tzc.KERNEL_ROUTE if use_kernel else tzc.PLAIN_ROUTE
+
+
+def _chunk_tokens(use_kernel, num_tokens, max_kd, token_chunk=0):
+    """Tokens a chunk of ``zen_cdf_cell`` on the route, by its chunk rule."""
+    width, elems = _route(use_kernel).chunk(max_kd)
+    return tsampler.chunk_size(num_tokens, width, token_chunk, elems)
+
+
 def _near_ties(target, vals, got, want):
     """Rows where ``got`` != ``want`` (lower-bound positions into the rows
     of ``vals``), after checking each is a near-tie: a float64 prefix sum
@@ -173,10 +183,6 @@ def test_search_helpers_equal_the_references():
     np.testing.assert_array_equal(
         tzc._bsearch_gather(t_(mat), t_(rows), t_(tgt)).numpy(),
         np.asarray(jzc._bsearch_gather(jnp.asarray(mat), jnp.asarray(rows),
-                                       jnp.asarray(tgt))))
-    np.testing.assert_array_equal(
-        tzc._bsearch_shared(t_(mat[7]), t_(tgt)).numpy(),
-        np.asarray(jzc._bsearch_shared(jnp.asarray(mat[7]),
                                        jnp.asarray(tgt))))
     got = _searchsorted_rows(t_(mat[rows]), t_(tgt))
     assert got.dtype == torch.int32
@@ -292,7 +298,7 @@ def test_zen_cdf_draws_fed_reference_uniforms(seed, kd, use_kernel):
         jnp.asarray(s["n_k"]), jh, s["w"], kd, use_kernel=use_kernel))
     u = _reference_uniforms(key, s["e"])
     tables = tzc.build_cdf_tables(t_(s["n_wk"]), t_(s["n_kd"]), t_(s["n_k"]),
-                                  th, s["w"], kd, use_kernel)
+                                  th, s["w"], kd, _route(use_kernel))
     got = tzc.zen_cdf_tokens(tables, *(t_(s[n]) for n in names),
                              t_(s["n_wk"]), t_(s["n_kd"]), th,
                              t_(np.stack(u))).numpy()
@@ -329,7 +335,7 @@ def test_chunk_width_follows_the_route(use_kernel, token_chunk):
     tokens) and CDF_CHUNK_ELEMS // max_kd off it (95); never more than
     the tokens."""
     n = 95 << 20
-    got = tzc.cdf_chunk_tokens(n, 128, use_kernel, token_chunk)
+    got = _chunk_tokens(use_kernel, n, 128, token_chunk)
     if token_chunk:
         assert got == token_chunk
     elif use_kernel:
@@ -337,9 +343,9 @@ def test_chunk_width_follows_the_route(use_kernel, token_chunk):
     else:
         assert got == tzc.CDF_CHUNK_ELEMS // 128
     nyt = 99_500_000
-    assert -(-nyt // tzc.cdf_chunk_tokens(nyt, 128, use_kernel)) == (
+    assert -(-nyt // _chunk_tokens(use_kernel, nyt, 128)) == (
         6 if use_kernel else 95)
-    assert tzc.cdf_chunk_tokens(480, 128, use_kernel) == 480
+    assert _chunk_tokens(use_kernel, 480, 128) == 480
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
@@ -347,8 +353,10 @@ def test_cell_walks_its_routes_chunks(use_kernel, monkeypatch):
     """``zen_cdf_cell`` walks the chunks of its own route's constant (7
     tokens on the kernel route, 60 off it, each route blind to the other's
     constant), and the draws equal the whole-corpus chunk's. A chunk's
-    uniforms come from ``ops.cdf_uniforms`` on the kernel route and from
-    ``stream_uniforms`` off it, once a chunk."""
+    uniforms come from its route's step, once a chunk: ``ops.cdf_uniforms``
+    on the kernel route and ``stream_uniforms`` off it."""
+    assert tzc.KERNEL_ROUTE.uniforms is ops.cdf_uniforms
+    assert tzc.PLAIN_ROUTE.uniforms is stream_uniforms
     s = _setup(5, e=480)
     _, th = _hypers(s["k"])
     args = [t_(s[n]) for n in ("word", "doc", "topic")] + [None] + \
@@ -357,8 +365,9 @@ def test_cell_walks_its_routes_chunks(use_kernel, monkeypatch):
                              use_kernel=use_kernel)
     monkeypatch.setattr(tzc, "CDF_KERNEL_CHUNK_TOKENS", 7)
     monkeypatch.setattr(tzc, "CDF_CHUNK_ELEMS", 8 * 60)
-    source = "cdf_uniforms" if use_kernel else "stream_uniforms"
-    chunks, uniforms = [], getattr(tzc, source)
+    route, other = (("KERNEL_ROUTE", "PLAIN_ROUTE") if use_kernel
+                    else ("PLAIN_ROUTE", "KERNEL_ROUTE"))
+    chunks, uniforms = [], getattr(tzc, route).uniforms
 
     def counted(seed, start, n, *rest, **kw):
         chunks.append((start, n))
@@ -367,9 +376,10 @@ def test_cell_walks_its_routes_chunks(use_kernel, monkeypatch):
     def refused(*args, **kwargs):
         raise AssertionError("the other route's uniforms")
 
-    monkeypatch.setattr(tzc, source, counted)
-    monkeypatch.setattr(
-        tzc, "stream_uniforms" if use_kernel else "cdf_uniforms", refused)
+    monkeypatch.setattr(tzc, route,
+                        getattr(tzc, route)._replace(uniforms=counted))
+    monkeypatch.setattr(tzc, other,
+                        getattr(tzc, other)._replace(uniforms=refused))
     got = tzc.zen_cdf_cell(1234, *args, th, s["w"], 8,
                            use_kernel=use_kernel)
     size = 7 if use_kernel else 60
@@ -413,7 +423,7 @@ def _row_search_args(s, th, kd, u):
     """The op's arguments on the kernel route's tables (int32 ``kd_idx``)
     for draws a and b of ``u``, and the tables."""
     tables = tzc.build_cdf_tables(t_(s["n_wk"]), t_(s["n_kd"]), t_(s["n_k"]),
-                                  th, s["w"], kd, use_kernel=True)
+                                  th, s["w"], kd, tzc.KERNEL_ROUTE)
     args = (t_(s["n_wk"]), t_(s["word"]), t_(s["doc"]), tables.kd_cnt,
             tables.kd_idx, tables.terms.t1, tables.m2_all, tables.g_cdf,
             t_(u[0]), t_(u[1]))
@@ -424,7 +434,7 @@ def _off_route_term3(s, th, kd, u):
     """Today's ``kernels="off"`` term 3: :func:`doc_rows`, the token's
     total, and each draw's ``_searchsorted_rows`` position and topic."""
     tables = tzc.build_cdf_tables(t_(s["n_wk"]), t_(s["n_kd"]), t_(s["n_k"]),
-                                  th, s["w"], kd, use_kernel=False)
+                                  th, s["w"], kd, tzc.PLAIN_ROUTE)
     word, doc = t_(s["word"]), t_(s["doc"])
     rows_idx, d_cdf = tzc.doc_rows(tables, word, doc, t_(s["n_wk"]), th)
     m1, m2 = tables.g_cdf[-1], tables.m2_all[word.long()]
@@ -492,7 +502,7 @@ def test_doc_row_search_on_prefix_sums_and_past_the_mass(kd):
     th = LDAHyperParams(num_topics=k, alpha=0.1, beta=0.0)
     n_k = np.full(k, 1, np.int32)
     g = tzc.build_cdf_tables(t_(n_wk), t_(n_kd), t_(n_k), th, w, kd,
-                             use_kernel=True)
+                             tzc.KERNEL_ROUTE)
     # t1 = 1 / (N_k + W·beta) = 1: every weight cnt·n_wk is an integer
     assert bool((g.terms.t1 == 1.0).all())
     tables = g._replace(g_cdf=torch.zeros(k), m2_all=torch.zeros(w))
@@ -582,16 +592,17 @@ class _Shapes(torch.utils._python_dispatch.TorchDispatchMode):
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
-def test_kernel_route_makes_no_chunk_by_row_tensor(use_kernel, monkeypatch):
-    """On the kernel route every tensor the token path makes outside the
-    four kernels (run here as their plain versions) holds one value per
-    token at most: no (chunk, max_kd) rows, weights or CDF. The plain
-    route, the control, makes them."""
+def test_kernel_route_makes_no_chunk_by_row_tensor(use_kernel):
+    """On the kernel route every tensor the token path makes outside its
+    four kernel steps (term 3, the draws, term 2 and the remedy; run here
+    as their plain versions) holds one value per token at most: no (chunk,
+    max_kd) rows, weights or CDF. The plain route, the control, makes them
+    in its term-3 step, which the watch sees there."""
     s = _setup(8, e=500)
     _, th = _hypers(s["k"])
     kd = 8
     tables = tzc.build_cdf_tables(t_(s["n_wk"]), t_(s["n_kd"]), t_(s["n_k"]),
-                                  th, s["w"], kd, use_kernel)
+                                  th, s["w"], kd, _route(use_kernel))
     watch = _Shapes()
 
     def as_kernel(fn):
@@ -603,10 +614,9 @@ def test_kernel_route_makes_no_chunk_by_row_tensor(use_kernel, monkeypatch):
                 watch.inside -= 1
         return run
 
-    monkeypatch.setattr(tzc, "doc_row_search",
-                        as_kernel(tzc.doc_row_search))
-    for name in ("cdf_row_search", "cdf_draws", "cdf_remedy"):
-        monkeypatch.setattr(tzc, name, as_kernel(getattr(tzc, name)))
+    steps = ("draws", "term2", "remedy") + (("term3",) if use_kernel else ())
+    tables = tables._replace(route=tables.route._replace(
+        **{n: as_kernel(getattr(tables.route, n)) for n in steps}))
     u = stream_uniforms(3, 0, s["e"], tzc.CDF_STREAMS)
     args = [t_(s[n]) for n in ("word", "doc", "topic", "n_wk", "n_kd")]
     with watch:
@@ -687,7 +697,7 @@ def test_glue_plain_versions_equal_the_torch_chain(seed, kd, k, chunk,
                            t_(s["n_k"]), th, s["w"], kd, use_kernel=True,
                            token_index=index)
     tables = tzc.build_cdf_tables(n_wk, n_kd, t_(s["n_k"]), th, s["w"], kd,
-                                  use_kernel=True)
+                                  tzc.KERNEL_ROUTE)
     size = chunk or s["e"]
     want, branch, take = [], [], []
     for a in range(0, s["e"], size):
@@ -697,6 +707,98 @@ def test_glue_plain_versions_equal_the_torch_chain(seed, kd, k, chunk,
                             tzc.CDF_STREAMS)
         z, b, tk = _torch_chain(tables, word[sl], doc[sl], z_old[sl], n_wk,
                                 n_kd, th, u)
+        want.append(z), branch.append(b), take.append(tk)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, torch.cat(want))
+    assert set(torch.cat(branch).tolist()) == {0, 1, 2}
+    assert int(torch.cat(take).sum()) > 0
+
+
+def _off_route_chain(tables, word, doc, z_old, n_wk, n_kd, hyper, uniforms):
+    """The ``kernels="off"`` route's own chain of torch ops, as it ran
+    before it shared the draws and the remedy with the kernel route: the
+    doc rows (int64 topics) and their ``torch.cumsum``, then for each draw
+    its branch, term-1 search, term-2 search in ``w_cdf`` and term-3 search
+    in the doc row, then the remedy. The oracle the plain route is held to,
+    bit for bit. Returns (the new topics, draw a's branch, the tokens that
+    take draw b)."""
+    k = hyper.num_topics
+    w, d = word.long(), doc.long()
+    rows_idx = tables.kd_idx.long()[d]
+    rows_cnt = tables.kd_cnt[d]
+    nwk_at = n_wk.reshape(-1)[w[:, None] * k + rows_idx]
+    d_vals = (rows_cnt.to(torch.float32)
+              * (nwk_at.to(torch.float32) + hyper.beta)
+              * tables.terms.t1[rows_idx])
+    d_cdf = torch.cumsum(torch.where(rows_cnt > 0, d_vals, 0.0), dim=-1)
+    m1 = tables.g_cdf[-1]
+    m2 = tables.m2_all[w]
+    m12 = m1 + m2
+    total = m12 + d_cdf[:, -1]
+
+    def draw(i):
+        u = uniforms[i] * total
+        branch = torch.where(u < m1, 0, torch.where(u < m12, 1, 2))
+        z_g = torch.clamp_max(torch.searchsorted(tables.g_cdf, u), k - 1)
+        t2 = torch.where(branch == 1, torch.clamp_min(u - m1, 0.0), 0.0)
+        z_w = tzc._bsearch_gather(tables.w_cdf, word, t2)
+        pos = _searchsorted_rows(d_cdf, torch.clamp_min(u - m1 - m2, 0.0))
+        z_d = rows_idx.gather(1, pos.long()[:, None])[:, 0]
+        z = torch.where(branch == 0, z_g,
+                        torch.where(branch == 1, z_w.long(), z_d))
+        return torch.clamp_max(z, k - 1).to(torch.int32), branch
+
+    z1, branch = draw(0)
+    z2, _ = draw(1)
+    zo = z_old.long()
+    nw_prev = torch.clamp_min(n_wk[w, zo].to(torch.float32), 1.0)
+    nd_prev = torch.clamp_min(n_kd[d, zo].to(torch.float32), 1.0)
+    p_w = 1.0 / nw_prev
+    p_d = torch.clamp(1.0 / nd_prev + (nd_prev + nw_prev - 1.0)
+                      / (nd_prev * nw_prev), 0.0, 1.0)
+    remedy_p = torch.where(branch == 1, p_w,
+                           torch.where(branch == 2, p_d, 0.0))
+    take_second = (z1 == z_old) & (uniforms[2] < remedy_p)
+    return torch.where(take_second, z2, z1), branch, take_second
+
+
+@pytest.mark.parametrize("seed,kd,k,chunk,indexed", [
+    (0, 8, 20, 0, False), (1, 64, 64, 4099, True), (2, 128, 160, 4099, False),
+    (3, 128, 130, 1000, True), (4, 8, 200, 4099, True),
+    (2**31 - 1, 64, 300, 0, False)])
+def test_plain_route_equals_the_off_route_chain(seed, kd, k, chunk, indexed,
+                                                monkeypatch):
+    """``zen_cdf_cell`` on the plain route (``stream_uniforms``, the doc
+    rows and their row-wise search, the kernels' plain draws, the ``w_cdf``
+    search and the kernels' plain remedy) against :func:`_off_route_chain`
+    over the same chunks: the topics bit-equal at J of 8, 64 and 128,
+    chunks of the whole cell, 4,099 and 1,000 tokens, with and without a
+    mesh cell's ``token_index``; every branch taken, the remedy engaged."""
+    s = _setup(seed % 1000, e=9000, w=300, d=60, k=k)
+    _, th = _hypers(k)
+    word, doc, z_old = (t_(s[n]) for n in ("word", "doc", "topic"))
+    n_wk, n_kd = t_(s["n_wk"]), t_(s["n_kd"])
+    index = None
+    if indexed:
+        rng = np.random.default_rng(seed)
+        index = t_(rng.integers(2**31 - 4 * s["e"], 2**31 - 1, s["e"]
+                                ).astype(np.int32))
+    if chunk:
+        monkeypatch.setattr(tzc, "CDF_CHUNK_ELEMS", chunk * kd)
+    got = tzc.zen_cdf_cell(seed, word, doc, z_old, None, n_wk, n_kd,
+                           t_(s["n_k"]), th, s["w"], kd, use_kernel=False,
+                           token_index=index)
+    tables = tzc.build_cdf_tables(n_wk, n_kd, t_(s["n_k"]), th, s["w"], kd,
+                                  tzc.PLAIN_ROUTE)
+    size = chunk or s["e"]
+    want, branch, take = [], [], []
+    for a in range(0, s["e"], size):
+        sl = slice(a, a + size)
+        n = word[sl].shape[0]
+        u = stream_uniforms(seed, a if index is None else index[sl], n,
+                            tzc.CDF_STREAMS)
+        z, b, tk = _off_route_chain(tables, word[sl], doc[sl], z_old[sl],
+                                    n_wk, n_kd, th, u)
         want.append(z), branch.append(b), take.append(tk)
     assert got.dtype == torch.int32
     assert torch.equal(got, torch.cat(want))
@@ -720,8 +822,6 @@ def test_plain_uniforms_equal_stream_uniforms(seed, start):
     want = stream_uniforms(seed, start, n, tzc.CDF_STREAMS)
     assert got.shape == (tzc.CDF_STREAMS, n) and got.dtype == torch.float32
     assert torch.equal(got, want)
-    assert torch.equal(cdf_tokens.cdf_uniforms_plain(seed, start, n, 2),
-                       want[:2])
 
 
 def test_glue_refuses_ids_out_of_range():

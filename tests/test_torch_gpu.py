@@ -628,8 +628,9 @@ def test_kernel_route_allocates_no_chunk_by_row_tensor_on_card(cuda,
                      ).values.to(i32)
     z_old = torch.randint(0, k, (t,), generator=g, device=cuda, dtype=i32)
     hyper = LDAHyperParams(num_topics=k)
-    tables = zc.build_cdf_tables(n_wk, n_kd, n_kd.sum(0), hyper, w, j,
-                                 use_kernel)
+    tables = zc.build_cdf_tables(
+        n_wk, n_kd, n_kd.sum(0), hyper, w, j,
+        zc.KERNEL_ROUTE if use_kernel else zc.PLAIN_ROUTE)
     u = torch.rand((3, t), generator=g, device=cuda)
     zc.zen_cdf_tokens(tables, word, doc, z_old, n_wk, n_kd, hyper, u)
     torch.cuda.synchronize()
@@ -950,6 +951,7 @@ def test_glue_kernels_bit_equal_to_plain_versions_on_card(cuda, t, indexed):
     indices), the draws and the remedy, each launch against its plain
     version on the same inputs: bit-equal at a path chunk (2^24 tokens),
     2^20 and 4,099; every branch taken and the remedy engaged."""
+    from repro_torch.core.keys import stream_uniforms
     from repro_torch.kernels import cdf_tokens as ct
 
     word, doc, g_cdf, m2_all, total, z_d, z_w, n_wk, n_kd = _glue_case(
@@ -960,7 +962,7 @@ def test_glue_kernels_bit_equal_to_plain_versions_on_card(cuda, t, indexed):
                               dtype=torch.int32)
     before = ops.launch_counts()
     u = ops.cdf_uniforms(seed, start, t, 3, device=cuda)
-    assert torch.equal(u, ct.cdf_uniforms_plain(seed, start, t, 3, cuda))
+    assert torch.equal(u, stream_uniforms(seed, start, t, 3, cuda))
     targets, code = ops.cdf_draws(word, total, u[0], u[1], m2_all, g_cdf,
                                   z_d)
     want_targets, want_code = ct.cdf_draws_plain(word, total, u[0], u[1],
@@ -991,6 +993,7 @@ def test_zen_cdf_session_bit_equal_to_the_plain_glue_on_card(cuda,
     with the uniforms, draws and remedy run as their plain versions on
     the card: the same topics and counts."""
     from repro_torch.algorithms import zen_cdf as zc
+    from repro_torch.core.keys import stream_uniforms
     from repro_torch.core.types import LDAHyperParams
     from repro_torch.data.corpus import synthetic_lda_corpus
     from repro_torch.kernels import cdf_tokens as ct
@@ -1001,10 +1004,9 @@ def test_zen_cdf_session_bit_equal_to_the_plain_glue_on_card(cuda,
     states = []
     for plain in (False, True):
         if plain:
-            monkeypatch.setattr(zc, "cdf_uniforms", ct.cdf_uniforms_plain)
-            monkeypatch.setattr(zc, "cdf_draws", ct.cdf_draws_plain)
-            monkeypatch.setattr(zc, "cdf_remedy", lambda *a, count=False:
-                                ct.cdf_remedy_plain(*a)[0])
+            monkeypatch.setattr(zc, "KERNEL_ROUTE", zc.KERNEL_ROUTE._replace(
+                uniforms=stream_uniforms, draws=ct.cdf_draws_plain,
+                remedy=lambda *a, count=False: ct.cdf_remedy_plain(*a)[0]))
         sess = TrainSession(corpus, hyper, RunConfig(
             algorithm="zen_cdf", max_kd=8), device=cuda)
         st = sess.init(0)

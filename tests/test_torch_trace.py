@@ -8,9 +8,8 @@ in the collector. Under ``torch.profiler.profile`` every span is a user
 annotation nested as the step nests it, both counters equal a recount of
 their predicate after every step, the readers of device milliseconds
 find nothing on the CPU, and two profiled windows each see only their
-own totals. The doc-row search's counter ``zen_cdf.row_entries`` and the
-remedy's ``zen_cdf.remedy_second`` count only on the kernel route
-(``kernels="on"`` here runs their plain versions).
+own totals. ``zen_cdf``'s counters count on both of its routes by one
+rule (``kernels="on"`` here runs the kernel route's plain versions).
 """
 import hashlib
 
@@ -131,32 +130,30 @@ def test_spans_are_user_annotations_nested_as_the_step(collector):
 def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
                                                monkeypatch):
     """``on`` takes the kernels' routes, whose ops run their plain
-    versions on the CPU; ``off`` the plain routes."""
+    versions on the CPU; ``off`` the plain routes. ``zen_cdf``'s counters
+    equal a recount at its route's term-3, term-2 and remedy steps."""
     monkeypatch.setenv("REPRO_KERNELS", kernels)
-    searches, entries, seconds = [], [], []
-    bsearch, row_search = zen_cdf._bsearch_gather, zen_cdf.cdf_row_search
-    doc_search, remedy = zen_cdf.doc_row_search, zen_cdf.cdf_remedy
+    searches, entries, seconds, routes = [], [], [], set()
 
-    def spy_bsearch(mat, rows, targets):
-        searches.append(int((targets > 0).sum()))
-        return bsearch(mat, rows, targets)
+    def spied(which, route):
+        def term3(tables, word, doc, *args):
+            routes.add(which)
+            entries.append(int((tables.kd_cnt[doc.long()] > 0).sum()))
+            return route.term3(tables, word, doc, *args)
 
-    def spy_row_search(*args, **kwargs):
-        searches.append(int((args[3] > 0).sum()))
-        return row_search(*args, **kwargs)
+        def term2(tables, n_wk, word, targets, count):
+            searches.append(int((targets > 0).sum()))
+            return route.term2(tables, n_wk, word, targets, count)
 
-    def spy_doc_search(n_wk, word, doc, kd_cnt, *args, **kwargs):
-        entries.append(int((kd_cnt[doc.long()] > 0).sum()))
-        return doc_search(n_wk, word, doc, kd_cnt, *args, **kwargs)
+        def remedy(*args, **kwargs):
+            seconds.append(int(cdf_remedy_plain(*args)[1].sum()))
+            return route.remedy(*args, **kwargs)
 
-    def spy_remedy(*args, **kwargs):
-        seconds.append(int(cdf_remedy_plain(*args)[1].sum()))
-        return remedy(*args, **kwargs)
+        return route._replace(term3=term3, term2=term2, remedy=remedy)
 
-    monkeypatch.setattr(zen_cdf, "_bsearch_gather", spy_bsearch)
-    monkeypatch.setattr(zen_cdf, "cdf_row_search", spy_row_search)
-    monkeypatch.setattr(zen_cdf, "doc_row_search", spy_doc_search)
-    monkeypatch.setattr(zen_cdf, "cdf_remedy", spy_remedy)
+    for which in ("KERNEL_ROUTE", "PLAIN_ROUTE"):
+        monkeypatch.setattr(zen_cdf, which,
+                            spied(which, getattr(zen_cdf, which)))
     run = runner(name)
     changed = 0
     with cpu_profile():
@@ -167,21 +164,19 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
             counters = trace_totals()["counters"]
             assert counters["counts.changed_tokens"] == changed
             if name == CDF:
+                assert routes == {
+                    "KERNEL_ROUTE" if kernels == "on" else "PLAIN_ROUTE"}
                 assert searches and counters[
                     "zen_cdf.search_tokens"] == sum(searches)
-            else:
-                assert "zen_cdf.search_tokens" not in counters
-            # the doc-row search and the remedy's kernel run on the kernel
-            # route alone
-            if name == CDF and kernels == "on":
                 assert entries and counters[
                     "zen_cdf.row_entries"] == sum(entries)
                 assert sum(seconds) > 0 and counters[
                     "zen_cdf.remedy_second"] == sum(seconds)
             else:
-                assert not entries and "zen_cdf.row_entries" not in counters
-                assert not seconds
-                assert "zen_cdf.remedy_second" not in counters
+                assert not (routes or searches or entries or seconds)
+                for counter in ("search_tokens", "row_entries",
+                                "remedy_second"):
+                    assert f"zen_cdf.{counter}" not in counters
 
 
 def test_ops_count_their_predicates_on_the_plain_route(collector):

@@ -182,24 +182,22 @@ def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
     from portbench import registry
 
     searches, entries, seconds = [], [], []
-    row_search, doc_search = zen_cdf.cdf_row_search, zen_cdf.doc_row_search
-    remedy = zen_cdf.cdf_remedy
+    route = zen_cdf.KERNEL_ROUTE
 
-    def spy(*args, **kwargs):
-        searches.append((args[3] > 0).sum())
-        return row_search(*args, **kwargs)
+    def spy(tables, n_wk, word, targets, count):
+        searches.append((targets > 0).sum())
+        return route.term2(tables, n_wk, word, targets, count)
 
-    def spy_doc(n_wk, word, doc, kd_cnt, *args, **kwargs):
-        entries.append((kd_cnt[doc.long()] > 0).sum())
-        return doc_search(n_wk, word, doc, kd_cnt, *args, **kwargs)
+    def spy_doc(tables, word, doc, *args):
+        entries.append((tables.kd_cnt[doc.long()] > 0).sum())
+        return route.term3(tables, word, doc, *args)
 
     def spy_remedy(*args, **kwargs):
         seconds.append(cdf_remedy_plain(*args)[1].sum())
-        return remedy(*args, **kwargs)
+        return route.remedy(*args, **kwargs)
 
-    monkeypatch.setattr(zen_cdf, "cdf_row_search", spy)
-    monkeypatch.setattr(zen_cdf, "doc_row_search", spy_doc)
-    monkeypatch.setattr(zen_cdf, "cdf_remedy", spy_remedy)
+    monkeypatch.setattr(zen_cdf, "KERNEL_ROUTE", route._replace(
+        term2=spy, term3=spy_doc, remedy=spy_remedy))
     cell, config, traffic = tiny.spec("nytimes-cdf-sweeps", **SIZES)
     run = registry.runner(config["runner"]).Runner(
         config, traffic, cell, tiny.SEED, cuda)
