@@ -124,7 +124,9 @@ Phases, each printing one JSON line:
    ``n_wk`` gathers' 32-byte sectors and 64-byte segments counted from
    the data (per live entry, distinct per token's row, distinct over the
    chunk); and at both widths on the path's first chunk: bit-equal to the
-   plain version, the kernel's time and the bytes bound; then
+   plain version, the kernel's time and the bytes bound, and its time
+   walking zen_cdf's word order in whole-chunk tiles and in the path's
+   tiles (0 mismatches against token order; tokens per word run); then
    cdf_glue_kernels — zen_cdf's uniforms, draws and remedy kernels on the
    path's first chunk at the registry's max_kd, fed as the path feeds
    them: each bit-equal to its plain version (0 mismatches), CUDA-event
@@ -2599,9 +2601,12 @@ def phase_doc_row_kernels(sess, st):
     per live entry, the distinct sectors (and 64-byte segments) of each
     token's row, and the distinct ones of the whole chunk. Then, at both
     widths, on the first CDF_PATH_CHUNK tokens (the path's launch size):
-    bit-equal to the plain version, the kernel's time and the bytes bound.
-    Returns the kernel's row of the kernels table (at the registry's
-    max_kd)."""
+    bit-equal to the plain version, the kernel's time and the bytes bound;
+    the kernel's time walking the chunk in ``zen_cdf``'s word order
+    (``cdf_token_order``) in one whole-chunk tile and in the path's
+    CDF_ORDER_TILE_TOKENS tiles, each walk bit-equal to token order (0
+    mismatches), with its tokens per run of equal words. Returns the
+    kernel's row of the kernels table (at the registry's max_kd)."""
     import torch
 
     from repro_torch.algorithms import zen_cdf as zc
@@ -2712,6 +2717,11 @@ def phase_doc_row_kernels(sess, st):
     u = stream_uniforms(key_seed(fold_in(st.rng, st.iteration)), 0, t,
                         zc.CDF_STREAMS, device=word.device)
     n_docs = int(torch.unique(doc.long()).numel())
+    # the walks the kernel can take: token order, and zen_cdf's word order
+    # in whole-chunk tiles and in the path's tiles
+    walks = {"word_chunk": zc.cdf_token_order(word, t, t),
+             "word_tiles": zc.cdf_token_order(word, t,
+                                              zc.CDF_ORDER_TILE_TOKENS)}
     chunk_runs = {}
     for j in (MAXKD_NYT, CDF_MAX_KD):
         tab = zc.build_cdf_tables(st.n_wk, st.n_kd, st.n_k, h, c.num_words,
@@ -2719,8 +2729,8 @@ def phase_doc_row_kernels(sess, st):
         args = (st.n_wk, word, doc, tab.kd_cnt, tab.kd_idx, tab.terms.t1,
                 tab.m2_all, tab.g_cdf, u[0], u[1])
 
-        def kernel():
-            return ops.doc_row_search(*args, beta=h.beta)
+        def kernel(order=None):
+            return ops.doc_row_search(*args, beta=h.beta, order=order)
 
         (tot_k, z_k), (tot_p, z_p) = kernel(), doc_row_search_plain(
             *args, h.beta)
@@ -2728,18 +2738,36 @@ def phase_doc_row_kernels(sess, st):
         mism = int((z_k != z_p).sum()) + int((tot_k != tot_p).sum())
         check(mism == 0, f"doc_row_kernels J={j}: {mism} kernel-vs-plain "
               f"mismatches over {t} tokens")
-        del tot_k, z_k, tot_p, z_p
+        del tot_p, z_p
         ms_k = cuda_ms(kernel, reps=10)
+        orders = {}
+        for name, walk in walks.items():
+            tot_w, z_w = kernel(walk.order)
+            torch.cuda.synchronize()
+            # against the order-less launch: the walk changes no output
+            w_mism = int((z_w != z_k).sum()) + int((tot_w != tot_k).sum())
+            check(w_mism == 0, f"doc_row_kernels J={j}: {w_mism} mismatches "
+                  f"of the {name} walk against token order over {t} tokens")
+            del tot_w, z_w
+            n_runs = int(walk.runs[0])
+            orders[name] = {
+                "ms": cuda_ms(lambda: kernel(walk.order), reps=10),
+                "mismatches": w_mism, "word_runs": n_runs,
+                "tokens_per_word_run": t / n_runs}
+            mism += w_mism
+        del tot_k, z_k
         n_live = int((tab.kd_cnt > 0).sum(1)[doc.long()].sum())
         nbytes = t * 32 + n_docs * j * 12 + n_live * 4
         chunk_runs[j] = {"T": t, "J": j, "ms": ms_k, "mismatches": mism,
                          "live_per_token": n_live / t, "bytes": nbytes,
-                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "tile_tokens": zc.CDF_ORDER_TILE_TOKENS,
+                         "walks": orders}
         emit({"phase": "doc_row_kernels", "K": k, "docs": n_docs,
               **chunk_runs[j]})
         del tab, args
         torch.cuda.empty_cache()
-    del u
+    del u, walks
     main, chunk = runs[MAXKD_NYT], chunk_runs[MAXKD_NYT]
     return {
         "name": "doc_row_search", "route": "cuda",
@@ -2753,8 +2781,9 @@ def phase_doc_row_kernels(sess, st):
         "bound_ms": main["bound_ms"], "bound_by": "bytes",
         "bytes": main["bytes_bytes"],
         "sectors_per_token_row_ms": main["sectors_per_token_row_ms"],
-        # the path's launch size
+        # the path's launch size, in token order and on the path's walk
         "chunk_tokens": chunk["T"], "chunk_ms": chunk["ms"],
+        "chunk_word_order_ms": chunk["walks"]["word_tiles"]["ms"],
         "chunk_bound_ms": chunk["bound_ms"],
         "off_route_ms": main["off_route_ms"], "shapes": runs,
         "chunk_shapes": chunk_runs,

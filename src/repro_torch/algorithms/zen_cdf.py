@@ -25,7 +25,11 @@ it.
   token's top-``max_kd`` doc row in a warp's registers, so no (chunk,
   max_kd) tensor exists; term 2 as kernel 7, which reads each token's
   integer count row in place and searches the prefix sums of counts·t4
-  (the branch masses are then one matvec).
+  (the branch masses are then one matvec). The single box's ``prepare``
+  builds, once a run, each chunk's tokens in word order
+  (:func:`cdf_token_order`), and the doc-row search walks them so: the
+  warps running at once then share a few ``n_wk`` rows in the card's
+  cache. The order changes no draw; a mesh cell walks token order.
 * :data:`PLAIN_ROUTE` runs torch ops and launches no ``zen_cdf`` kernel:
   the same uniforms, draws and remedy (``core.keys.stream_uniforms`` and
   the kernels' plain versions, called directly); term 3 as :func:`doc_rows`,
@@ -71,7 +75,9 @@ once, and in each chunk ``zen_cdf.doc_rows`` (term 3), ``zen_cdf.draws``
 term-2 row (target > 0, what kernel 7 queues) add to the counter
 ``zen_cdf.search_tokens``, the live (count > 0) doc-row entries to
 ``zen_cdf.row_entries`` and the tokens whose remedy takes draw b to
-``zen_cdf.remedy_second``.
+``zen_cdf.remedy_second``; where the doc-row search walks a word order,
+that order's runs of equal words add to ``zen_cdf.word_runs`` (counted
+once in ``prepare``, added with no launch).
 
 Serving (``native_infer``): the model is frozen, so the per-sweep tables
 collapse to one precompute, :class:`FrozenCdfTables` (per-word CDFs of the
@@ -83,7 +89,7 @@ uses no kernel, in the reference either.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -95,8 +101,13 @@ from repro_torch.algorithms.base import (
 from repro_torch.algorithms.registry import register
 from repro_torch.algorithms.zen_dense import _searchsorted_rows
 from repro_torch.core.decompositions import ZenTerms, precompute_zen_terms
-from repro_torch.core.keys import stream_uniforms, token_uniforms
-from repro_torch.core.sampler import chunked_token_map
+from repro_torch.core.keys import (
+    fold_in,
+    key_seed,
+    stream_uniforms,
+    token_uniforms,
+)
+from repro_torch.core.sampler import chunk_size, chunked_token_map
 from repro_torch.core.types import LDAHyperParams
 from repro_torch.kernels.cdf_search import ROW_ENTRIES, SEARCH_TOKENS
 from repro_torch.kernels.cdf_tokens import (
@@ -124,6 +135,15 @@ CDF_CHUNK_ELEMS = 1 << 27
 # 7's two answers and its 16-byte queue entries, the output's 4 B to come),
 # so ~1.1 GB a chunk, 6 a NYTIMES sweep
 CDF_KERNEL_CHUNK_TOKENS = 1 << 24
+# on the kernel route: tokens a tile of the doc-row search's word order (a
+# chunk's tokens are sorted by word within each tile). On NYTimes an H100
+# runs the search fastest at 2^20: a tile's ~3,200 doc rows stay in L2 while
+# each word's n_wk row serves ~10 tokens (2^19-2^22 within 9%, whole-chunk
+# tiles 22-26% slower)
+CDF_ORDER_TILE_TOKENS = 1 << 20
+# the profiled stretch's counter of runs of equal words along the word
+# orders the doc-row search walked
+WORD_RUNS = "zen_cdf.word_runs"
 # elements of one block of the doc top-k's int64 keys
 _TOPK_ELEMS = 1 << 24
 # uniforms per token: draw a, draw b, the remedy
@@ -166,6 +186,34 @@ def doc_topk(n_kd: torch.Tensor, kd: int):
     return cnt, idx
 
 
+class CdfOrder(NamedTuple):
+    """The doc-row search's walk of a run's chunks (:func:`cdf_token_order`):
+    built once, since the corpus never changes."""
+
+    order: torch.Tensor  # (T,) int32: each chunk's chunk-local positions
+    runs: Tuple[torch.Tensor, ...]  # per chunk: its runs of equal words
+    chunk: int  # tokens a chunk, as the route's chunk rule sizes it
+
+
+def cdf_token_order(word: torch.Tensor, chunk: int, tile: int) -> CdfOrder:
+    """Each ``chunk``-token chunk's chunk-local positions sorted by word
+    within tiles of ``tile`` tokens (the tiles in turn, positions ascending
+    among equal words), and each chunk's runs of equal words along that
+    order (a run ends with its tile): 0-d int64 on the host, so that
+    counting them while tracing launches nothing on the card."""
+    e = word.shape[0]
+    order = torch.empty(e, dtype=torch.int32, device=word.device)
+    runs = []
+    for s in range(0, e, chunk):
+        w = word[s:s + chunk].long()
+        tiles = torch.arange(w.shape[0], device=w.device) // tile
+        key, pos = torch.sort((tiles << 32) + w, stable=True)
+        order[s:s + chunk] = pos.to(torch.int32)
+        runs.append((key[1:] != key[:-1]).sum() + 1)
+    runs = torch.stack(runs).cpu().unbind() if runs else ()
+    return CdfOrder(order=order, runs=runs, chunk=chunk)
+
+
 class CdfRoute(NamedTuple):
     """How a sweep's tokens run: the step functions of
     :func:`zen_cdf_tokens` and the rule that sizes :func:`zen_cdf_cell`'s
@@ -175,8 +223,9 @@ class CdfRoute(NamedTuple):
     term2_table: Callable
     # ops.cdf_uniforms' arguments -> (streams, n) float32
     uniforms: Callable
-    # (tables, word, doc, n_wk, hyper, u_a, u_b, count) -> (total (T,)
-    # float32, each draw's term-3 topic (2, T) int32)
+    # (tables, word, doc, n_wk, hyper, u_a, u_b, count, walk) -> (total
+    # (T,) float32, each draw's term-3 topic (2, T) int32); walk: None, or
+    # the chunk's (order, runs) of its CdfOrder
     term3: Callable
     # ops.cdf_draws' arguments -> (targets (2, T) float32, code (2, T) int32)
     draws: Callable
@@ -235,10 +284,11 @@ def _plain_term2_table(n_wk, t4):
 
 
 def _plain_term3(tables: CdfTables, word, doc, n_wk,
-                 hyper: LDAHyperParams, u_a, u_b, count: bool):
+                 hyper: LDAHyperParams, u_a, u_b, count: bool, walk=None):
     """The plain route's term 3: :func:`doc_rows`, then each draw's lower
     bound of ``max(u·total - m1 - m2, 0)`` in its (T, max_kd) CDF; what
-    ``ops.doc_row_search`` gives, but for the order of the adds."""
+    ``ops.doc_row_search`` gives, but for the order of the adds. It takes
+    the tokens all at once, so a ``walk`` changes nothing here."""
     if count:
         metrics.count(ROW_ENTRIES,
                       (tables.kd_cnt > 0).sum(1)[doc.long()].sum())
@@ -266,10 +316,16 @@ def _plain_remedy(*args, count: bool = False):
 
 
 def _kernel_term3(tables: CdfTables, word, doc, n_wk,
-                  hyper: LDAHyperParams, u_a, u_b, count: bool):
+                  hyper: LDAHyperParams, u_a, u_b, count: bool, walk=None):
+    order = None
+    if walk is not None:
+        order, runs = walk
+        if count:
+            metrics.count(WORD_RUNS, runs)
     return doc_row_search(
         n_wk, word, doc, tables.kd_cnt, tables.kd_idx, tables.terms.t1,
-        tables.m2_all, tables.g_cdf, u_a, u_b, beta=hyper.beta, count=count)
+        tables.m2_all, tables.g_cdf, u_a, u_b, beta=hyper.beta, order=order,
+        count=count)
 
 
 def _kernel_term2(tables: CdfTables, n_wk, word, targets, count: bool):
@@ -291,19 +347,20 @@ PLAIN_ROUTE = CdfRoute(
 def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
                    z_old: torch.Tensor, n_wk: torch.Tensor,
                    n_kd: torch.Tensor, hyper: LDAHyperParams,
-                   uniforms: torch.Tensor) -> torch.Tensor:
+                   uniforms: torch.Tensor, walk=None) -> torch.Tensor:
     """New topics (T,) int32: the three-term CDF draw twice, then the
     remedy, on ``tables.route``. ``uniforms`` (3, T) in [0, 1): draw a,
     draw b, remedy (the reference's ``split(key, 3)``; each draw's u is the
     first half of its key's split). A draw's code is its term-1 topic,
     -1 for term 2 (its search's answer is the topic) or ``-2 - z3`` for
-    term 3 (``z3`` its term-3 topic)."""
+    term 3 (``z3`` its term-3 topic). ``walk``: None (token order) or the
+    (order (T,) int32, runs) that term 3 walks the tokens in."""
     route = tables.route
     dev = word.device
     counting = metrics.tracing()
     with metrics.span("zen_cdf.doc_rows", dev):
         total, z_d = route.term3(tables, word, doc, n_wk, hyper, uniforms[0],
-                                 uniforms[1], counting)
+                                 uniforms[1], counting, walk)
     with metrics.span("zen_cdf.draws", dev):
         targets, code = route.draws(word, total, uniforms[0], uniforms[1],
                                     tables.m2_all, tables.g_cdf, z_d)
@@ -315,33 +372,53 @@ def zen_cdf_tokens(tables: CdfTables, word: torch.Tensor, doc: torch.Tensor,
                             uniforms[2], count=counting)
 
 
+def _chunk_tokens(route: CdfRoute, num_tokens: int, max_kd: int,
+                  token_chunk: int) -> int:
+    """Tokens a chunk on ``route``: ``chunked_token_map``'s own rule."""
+    width, elems = route.chunk(max_kd)
+    return chunk_size(num_tokens, width, token_chunk, elems)
+
+
 def zen_cdf_cell(seed: int, word: torch.Tensor, doc: torch.Tensor,
                  z_old: torch.Tensor, mask, n_wk: torch.Tensor,
                  n_kd: torch.Tensor, n_k: torch.Tensor,
                  hyper: LDAHyperParams, num_words_pad: int, max_kd: int,
                  use_kernel: bool = False, token_chunk: int = 0,
-                 token_index=None) -> torch.Tensor:
+                 token_index=None,
+                 order: Optional[CdfOrder] = None) -> torch.Tensor:
     """One precomputed-CDF ZenLDA pass over a cell's tokens (stale counts)
     -> (T,) int32: the tables once, then the tokens in chunks
     (``token_index``: the tokens' global indices, default their
     positions), on :data:`KERNEL_ROUTE` where ``use_kernel`` and
-    :data:`PLAIN_ROUTE` otherwise. Work per token: O(log K) (term 1, and
-    term 2 on the plain route) + O(max_kd) (term 3); kernel 7 walks a
-    term-2 row up to its lower bound."""
+    :data:`PLAIN_ROUTE` otherwise. ``order`` (:func:`cdf_token_order`, for
+    these chunks) is the walk of term 3 on the kernel route; it changes no
+    draw. Work per token: O(log K) (term 1, and term 2 on the plain route)
+    + O(max_kd) (term 3); kernel 7 walks a term-2 row up to its lower
+    bound."""
     route = KERNEL_ROUTE if use_kernel else PLAIN_ROUTE
     with metrics.span("zen_cdf.tables", word.device):
         tables = build_cdf_tables(n_wk, n_kd, n_k, hyper, num_words_pad,
                                   max_kd, route)
+    kd = tables.kd_idx.shape[1]
+    arrays, runs = (word, doc, z_old), iter(())
+    if order is not None and use_kernel:
+        size = _chunk_tokens(route, word.shape[0], kd, token_chunk)
+        if order.chunk != size or order.order.shape != word.shape:
+            raise ValueError(
+                f"a word order of {order.order.shape[0]} tokens in chunks "
+                f"of {order.chunk} for {word.shape[0]} in chunks of {size}")
+        arrays, runs = arrays + (order.order,), iter(order.runs)
 
-    def chunk(start, w, d, z):
+    def chunk(start, w, d, z, *walk):
         with metrics.span("zen_cdf.draws", w.device):
             u = route.uniforms(seed, start, w.shape[0], CDF_STREAMS,
                                device=w.device)
-        return zen_cdf_tokens(tables, w, d, z, n_wk, n_kd, hyper, u)
+        return zen_cdf_tokens(tables, w, d, z, n_wk, n_kd, hyper, u,
+                              (walk[0], next(runs)) if walk else None)
 
-    width, elems = route.chunk(tables.kd_idx.shape[1])
-    return chunked_token_map(chunk, (word, doc, z_old), token_chunk, width,
-                             elems, token_index)
+    width, elems = route.chunk(kd)
+    return chunked_token_map(chunk, arrays, token_chunk, width, elems,
+                             token_index)
 
 
 class FrozenCdfTables(NamedTuple):
@@ -421,14 +498,32 @@ class ZenCdf(CellBackend):
             max_kd=min(knobs.max_kd or DEFAULT_MAX_KD, hyper.num_topics),
         )
 
+    def prepare(self, corpus, hyper, knobs: SamplerKnobs):
+        """On the kernel route, the word order of every chunk of the corpus
+        (:class:`CdfOrder`) that term 3 walks; None off it."""
+        if not kernel_dispatch(knobs.kernels, corpus.word.device):
+            return None
+        chunk = _chunk_tokens(KERNEL_ROUTE, corpus.word.shape[0],
+                              knobs.max_kd or DEFAULT_MAX_KD,
+                              knobs.token_chunk)
+        return cdf_token_order(corpus.word, chunk, CDF_ORDER_TILE_TOKENS)
+
+    def sweep(self, state, corpus, hyper, knobs: SamplerKnobs, aux=None):
+        seed = key_seed(fold_in(state.rng, state.iteration))
+        return self.cell_sweep(
+            seed, corpus.word, corpus.doc, state.topic, None, state.n_wk,
+            state.n_kd, state.n_k, hyper, corpus.num_words, knobs,
+            order=aux)
+
     def cell_sweep(self, seed, word, doc, z_old, mask, n_wk, n_kd, n_k,
                    hyper, num_words_pad, knobs: SamplerKnobs,
-                   token_index=None):
+                   token_index=None, order: Optional[CdfOrder] = None):
         return zen_cdf_cell(
             seed, word, doc, z_old, mask, n_wk, n_kd, n_k, hyper,
             num_words_pad, knobs.max_kd or DEFAULT_MAX_KD,
             use_kernel=kernel_dispatch(knobs.kernels, word.device),
             token_chunk=knobs.token_chunk, token_index=token_index,
+            order=order,
         )
 
     def prepare_infer(self, n_wk, n_k, hyper, knobs: SamplerKnobs,

@@ -75,10 +75,10 @@ SIGNATURES = {
     "sparse_row": (_P, _P, _P, _P, _I, _I, _P),
     # ..., searched (a work counter, or null), stream
     "cdf_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    # 12 pointers, T, K, J, W, D, beta, entries (a work counter, or null),
-    # stream
-    "doc_row_search": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                       _I, _I, _I, _I, _F, _P, _P),
+    # 13 pointers (order: null for token order), T, K, J, W, D, beta,
+    # entries (a work counter, or null), stream
+    "doc_row_search": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _F, _P, _P),
     # ..., changed (a work counter, or null), stream
     "topic_histogram": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # seed, start, token_index (null: start + i), out, n, streams, stream

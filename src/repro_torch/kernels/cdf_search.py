@@ -33,7 +33,10 @@ version forms each weight as ``zen_cdf.doc_rows`` does and adds in the
 kernel's order (``sparse_row.strip_prefix``), so the two are bit-equal on
 the card; against ``doc_rows`` and its ``torch.cumsum`` a draw may differ
 only at a near-tie. Its counter :data:`ROW_ENTRIES` adds the live (count
-> 0) row entries it gathers.
+> 0) row entries it gathers. An ``order`` (a permutation of the tokens,
+``zen_cdf``'s word-major walk of a chunk) says which token each warp
+takes; it changes no output, only which tokens run at once (and so what
+the card's caches share).
 """
 from __future__ import annotations
 
@@ -112,10 +115,22 @@ def cdf_row_search_cuda(counts: torch.Tensor, rows: torch.Tensor,
 
 
 def doc_row_search_plain(n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf,
-                         u_a, u_b, beta: float):
+                         u_a, u_b, beta: float, order=None):
     """Plain-torch version of ``doc_row_kernel``, one chunk of tokens at a
     time: (total (T,) float32, z (2, T) int32), as
-    :func:`doc_row_search_cuda` documents."""
+    :func:`doc_row_search_cuda` documents. With an ``order`` it computes
+    on the tokens in that order and scatters the results back, as the
+    kernel's warps do."""
+    if order is not None:
+        check_ids(order, word.shape[0], "order")
+        at = order.long()
+        total, z = doc_row_search_plain(n_wk, word[at], doc[at], kd_cnt,
+                                        kd_idx, t1, m2_all, g_cdf, u_a[at],
+                                        u_b[at], beta)
+        out_total, out_z = torch.empty_like(total), torch.empty_like(z)
+        out_total[at] = total
+        out_z[:, at] = z
+        return out_total, out_z
     check_ids(word, n_wk.shape[0], "word")
     check_ids(doc, kd_cnt.shape[0], "doc")
     t, j = word.shape[0], kd_cnt.shape[1]
@@ -140,7 +155,8 @@ def doc_row_search_plain(n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf,
 
 
 def doc_row_search_cuda(n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf,
-                        u_a, u_b, beta: float, count: bool = False):
+                        u_a, u_b, beta: float, order=None,
+                        count: bool = False):
     """Launch ``doc_row_search`` on the current stream; no sync. For token
     t and its doc's row r = doc[t] of the (D, J) int32 ``kd_cnt`` and
     ``kd_idx``: the weights ``cnt·(n_wk[word[t], idx] + beta)·t1[idx]``
@@ -148,26 +164,31 @@ def doc_row_search_cuda(n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf,
     d_mass; ``total[t] = (m1 + m2_all[word[t]]) + d_mass`` with ``m1 =
     g_cdf[K - 1]`` (read on the card, never by the host); for each draw
     (``u_a``, ``u_b``) ``t3 = max(u01·total - m1 - m2, 0)`` and ``z[i, t] =
-    idx[min(#{prefix < t3}, J - 1)]``. ``count`` (only while tracing) adds
-    the live row entries to :data:`ROW_ENTRIES`. An id out of range aborts
-    the kernel, and the caller's next synchronize raises."""
+    idx[min(#{prefix < t3}, J - 1)]``. ``order`` (T,) int32, a permutation
+    of the tokens (None: token order), is the walk: warp i takes token
+    ``order[i]``; the outputs are the same. ``count`` (only while tracing)
+    adds the live row entries to :data:`ROW_ENTRIES`. An id or order entry
+    out of range aborts the kernel, and the caller's next synchronize
+    raises."""
     from repro_torch.kernels._build import (check_launch, library,
                                             work_counter)
 
     i32, f32 = torch.int32, torch.float32
+    walk = [] if order is None else [("order", order)]
     check_cuda_args(
         [("n_wk", n_wk), ("word", word), ("doc", doc), ("kd_cnt", kd_cnt),
          ("kd_idx", kd_idx), ("t1", t1), ("m2_all", m2_all),
-         ("g_cdf", g_cdf), ("u_a", u_a), ("u_b", u_b)],
-        [i32, i32, i32, i32, i32, f32, f32, f32, f32, f32],
+         ("g_cdf", g_cdf), ("u_a", u_a), ("u_b", u_b), *walk],
+        [i32, i32, i32, i32, i32, f32, f32, f32, f32, f32, i32],
     )
+    per_token = (word, doc, u_a, u_b) + tuple(x for _, x in walk)
     (w, k), t, (d, j) = n_wk.shape, word.shape[0], kd_cnt.shape
     if k < 1 or j < 1 or kd_idx.shape != (d, j) or t1.shape != (k,) \
             or g_cdf.shape != (k,) or m2_all.shape != (w,) \
-            or any(x.shape != (t,) for x in (word, doc, u_a, u_b)):
+            or any(x.shape != (t,) for x in per_token):
         raise ValueError(
-            f"shape mismatch: n_wk {tuple(n_wk.shape)}, word/doc/u_a/u_b "
-            f"{[tuple(x.shape) for x in (word, doc, u_a, u_b)]}, kd_cnt "
+            f"shape mismatch: n_wk {tuple(n_wk.shape)}, word/doc/u_a/u_b"
+            f"/order {[tuple(x.shape) for x in per_token]}, kd_cnt "
             f"{tuple(kd_cnt.shape)}, kd_idx {tuple(kd_idx.shape)}, t1 "
             f"{tuple(t1.shape)}, m2_all {tuple(m2_all.shape)}, g_cdf "
             f"{tuple(g_cdf.shape)} (K, J >= 1)"
@@ -185,7 +206,8 @@ def doc_row_search_cuda(n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf,
             n_wk.data_ptr(), word.data_ptr(), doc.data_ptr(),
             kd_cnt.data_ptr(), kd_idx.data_ptr(), t1.data_ptr(),
             m2_all.data_ptr(), g_cdf.data_ptr(), u_a.data_ptr(),
-            u_b.data_ptr(), total.data_ptr(), z.data_ptr(), t, k, j, w, d,
-            beta, entries, stream,
+            u_b.data_ptr(), None if order is None else order.data_ptr(),
+            total.data_ptr(), z.data_ptr(), t, k, j, w, d, beta, entries,
+            stream,
         ))
     return total, z

@@ -239,12 +239,23 @@ cdf_walk_kernel(const int* __restrict__ counts,
 // takes the branch, term 1 and term 2 from there. No (tokens, J) array of
 // weights, topics or prefix sums exists anywhere.
 //
-// What bounds it: per token 32 bytes of inputs and outputs, and the n_wk
-// value of each live entry (cnt > 0), gathered at random from the (W, K)
-// matrix: T·J·4 bytes (50.9 GB a NYTimes sweep at J = 128), and eight
-// times that where each gather costs a 32-byte sector that L2 does not
-// hold; the doc rows, 12 bytes an entry, are read about once a doc (tokens
-// lie doc by doc, so the warps of a block share a row through L1).
+// What bounds it: per token 32 bytes of inputs and outputs, the doc row
+// (12 bytes an entry) and the n_wk value of each live entry (cnt > 0) at
+// the row's topics. In token order (tokens lie doc by doc) the warps of a
+// block share the doc row through L1, but consecutive tokens have other
+// words, so each live entry costs a 32-byte n_wk sector that L2 does not
+// hold: ~94 sectors, ~3.0 KB a token on NYTimes at J = 128. Walked in
+// word order (`order`, zen_cdf's word-major permutation of a chunk, sorted
+// within tiles of the chunk), the warps running at once hold a few hundred
+// words, each word's 4 KB n_wk row (K = 1000) is read from HBM about once a
+// run of its tokens (~10 at 2^20-token tiles), and each token pays its doc
+// row's sectors (from L2, the tile's ~3,200 rows fitting there) and ~7
+// scattered sectors of its own reads and writes: ~450 bytes a token from
+// HBM. On an H100 that walk takes a 2^24-token NYTimes chunk from 14.1 to
+// 10.4 ms (J = 128), several times its HBM bytes, and J = 64 (half the doc
+// row) is only 3% faster: bytes no longer bound it; each warp's chain of
+// dependent loads (order, token, doc row, n_wk) most likely does
+// (unverified: no profiler counter reads on the card).
 //
 // Design: one warp per token, lane i holding entry 32 s + i of strip s. A
 // group of kGroup strips (the whole row up to J = 128) is loaded at once:
@@ -262,7 +273,9 @@ cdf_walk_kernel(const int* __restrict__ counts,
 // d_mass counting every lane (clamped to J - 1). A row wider than one
 // group (J > 128) is walked twice: the first pass keeps the carry only,
 // the second loads and scans each group again (the same operations, so
-// the same prefix sums) and counts.
+// the same prefix sums) and counts. Warp i takes token order[i] (i without
+// an order), and every per-token read and write goes through it: the
+// order changes which warp computes a token, never what it computes.
 //
 // Work count, while a trace asks for it (a counter pointer given): the live
 // entries gathered, summed over tokens; one atomicAdd a block.
@@ -270,8 +283,8 @@ cdf_walk_kernel(const int* __restrict__ counts,
 // Numerics: the plain torch version (kernels/cdf_search.py) forms each
 // weight with the same float32 operations in the same order as
 // zen_cdf.doc_rows and adds in exactly this order, so the two are
-// bit-equal on the card (-fmad=false: no contraction). A word, doc or
-// topic id out of range aborts the launch (__trap).
+// bit-equal on the card (-fmad=false: no contraction). A word, doc, topic
+// or order entry out of range aborts the launch (__trap).
 
 // strips of a row loaded and scanned at once; a row of up to 32 kGroup
 // entries stays in registers
@@ -348,15 +361,18 @@ doc_row_kernel(const int* __restrict__ n_wk, const int* __restrict__ word,
                const float* __restrict__ m2_all,
                const float* __restrict__ g_cdf,
                const float* __restrict__ u_a, const float* __restrict__ u_b,
+               const int* __restrict__ order,
                float* __restrict__ total, int* __restrict__ z,
                unsigned long long* __restrict__ entries, int T, int K, int J,
                int W, int D, float beta) {
   __shared__ int warp_live[kDocWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int t = blockIdx.x * kDocWarps + warp;
+  const int i = blockIdx.x * kDocWarps + warp;
   int live = 0;
-  if (t < T) {  // uniform per warp: the shuffles stay full-mask
+  if (i < T) {  // uniform per warp: the shuffles stay full-mask
+    const int t = order != nullptr ? order[i] : i;
+    if (t < 0 || t >= T) __trap();
     const int wd = word[t], d = doc[t];
     if (wd < 0 || wd >= W || d < 0 || d >= D) __trap();
     const int* cnt_row = kd_cnt + (size_t)d * (size_t)J;
@@ -468,21 +484,22 @@ extern "C" int doc_row_search_entries(void** at, unsigned long long* value) {
 }
 
 // Plain C launcher for ctypes: `total` (T,) float32 and `z` (2, T) int32
-// out; `entries` (or null: none) the counter this launch adds its live
-// row entries to. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 = launched).
+// out; `order` (or null: token order) a permutation of the T tokens, the
+// one warp i takes being order[i]; `entries` (or null: none) the counter
+// this launch adds its live row entries to. Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() (0 = launched).
 extern "C" int doc_row_search(const int* n_wk, const int* word,
                               const int* doc, const int* kd_cnt,
                               const int* kd_idx, const float* t1,
                               const float* m2_all, const float* g_cdf,
                               const float* u_a, const float* u_b,
-                              float* total, int* z, int T, int K, int J,
-                              int W, int D, float beta,
+                              const int* order, float* total, int* z, int T,
+                              int K, int J, int W, int D, float beta,
                               unsigned long long* entries, void* stream) {
   if (T <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((T + kDocWarps - 1) / kDocWarps);
   doc_row_kernel<<<blocks, kDocWarps * 32, 0, (cudaStream_t)stream>>>(
-      n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf, u_a, u_b, total,
-      z, entries, T, K, J, W, D, beta);
+      n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf, u_a, u_b, order,
+      total, z, entries, T, K, J, W, D, beta);
   return (int)cudaGetLastError();
 }

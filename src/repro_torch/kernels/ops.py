@@ -203,22 +203,24 @@ def cdf_row_search(counts, rows, term, targets, *, bt: int = 256,
 
 
 def doc_row_search(n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf, u_a,
-                   u_b, *, beta: float, count: bool = False):
+                   u_b, *, beta: float, order=None, count: bool = False):
     """``zen_cdf``'s term 3 for both draws, the doc rows read in place:
     (total (T,) float32, z (2, T) int32), the token's total mass and each
     draw's term-3 topic (``cdf_search.doc_row_search_cuda``). (W, K) int32
     ``n_wk``, (T,) int32 word and doc ids, (D, J) int32 ``kd_cnt`` and
     ``kd_idx``, (K,) float32 ``t1`` and ``g_cdf``, (W,) float32 ``m2_all``
-    and the two draws' (T,) float32 uniforms in. ``count``: add the live
-    row entries (count > 0) to the trace's ``zen_cdf.row_entries``."""
+    and the two draws' (T,) float32 uniforms in. ``order`` (T,) int32, a
+    permutation of the tokens or None, is the order the tokens are taken
+    in; it changes no output. ``count``: add the live row entries (count >
+    0) to the trace's ``zen_cdf.row_entries``."""
     args = (n_wk, word, doc, kd_cnt, kd_idx, t1, m2_all, g_cdf, u_a, u_b,
             beta)
     if _route(n_wk) == "cpu":
         if count:
             metrics.count(ROW_ENTRIES,
                           (kd_cnt > 0).sum(1)[doc.long()].sum())
-        return doc_row_search_plain(*args)
-    out = doc_row_search_cuda(*args, count=count)
+        return doc_row_search_plain(*args, order=order)
+    out = doc_row_search_cuda(*args, order=order, count=count)
     _count("doc_row_search", word.shape[0])
     return out
 

@@ -577,12 +577,47 @@ def test_doc_row_search_kernel_bit_equal_to_plain_version_on_card(cuda, t,
     assert bool((kd_idx[doc] == z[0].long()[:, None]).any(1).all())
 
 
+@pytest.mark.parametrize("words", ["skewed", "distinct"])
+@pytest.mark.parametrize("j", [64, 128, 160])
+@pytest.mark.parametrize("t", [1 << 20, 4099])
+def test_doc_row_search_in_word_order_bit_equal_on_card(cuda, t, j, words):
+    """The kernel walking ``zen_cdf``'s word order (whole-chunk tiles and
+    the path's tiles) equals its order-less launch bit for bit: totals and
+    both draws, J 64, 128 and 160 (two passes), on a skewed word set (a few
+    words take most tokens: long runs) and on all-distinct words (runs of
+    one). The order's runs, built on the card, equal a recount."""
+    from repro_torch.algorithms import zen_cdf as zc
+
+    args = list(_doc_row_case(cuda, t, 1000, j, w=max(20000, t)))
+    g = torch.Generator(device=cuda).manual_seed(t + j)
+    if words == "skewed":
+        args[1] = (torch.rand(t, generator=g, device=cuda) ** 6
+                   * 20000).to(torch.int32)
+    else:
+        args[1] = torch.randperm(args[0].shape[0], generator=g,
+                                 device=cuda)[:t].to(torch.int32)
+    want = ops.doc_row_search(*args, beta=0.01)
+    for tile in (t, zc.CDF_ORDER_TILE_TOKENS, 1000):
+        walk = zc.cdf_token_order(args[1], t, tile)
+        got = ops.doc_row_search(*args, beta=0.01, order=walk.order)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        cpu = zc.cdf_token_order(args[1].cpu(), t, tile)
+        assert torch.equal(walk.order.cpu(), cpu.order)
+        # counted while tracing with no launch: the runs are on the host
+        assert walk.runs[0].device.type == "cpu"
+        assert int(walk.runs[0]) == int(cpu.runs[0]) == sum(
+            int(torch.unique(args[1][a:a + tile]).numel())
+            for a in range(0, t, tile))
+
+
 _OUT_OF_RANGE_DOC_ROW = """
 import torch
 from repro_torch.kernels import ops
 d = torch.device("cuda", 0)
 i32 = torch.int32
 ids = [torch.zeros(64, dtype=i32, device=d) for _ in range(2)]
+ids.append(torch.arange(64, dtype=i32, device=d))
 ids[{which}][9] = {value}
 try:
     ops.doc_row_search(
@@ -591,14 +626,15 @@ try:
         torch.zeros((5, 4), dtype=i32, device=d), torch.ones(16, device=d),
         torch.ones(10, device=d), torch.ones(16, device=d),
         torch.full((64,), 0.5, device=d), torch.full((64,), 0.5, device=d),
-        beta=0.01)
+        beta=0.01, order=ids[2] if {which} == 2 else None)
     torch.cuda.synchronize()
 except RuntimeError as e:
     print("RAISED", e)
 """
 
 
-@pytest.mark.parametrize("which,value", [(0, 10), (1, 5), (1, -1)])
+@pytest.mark.parametrize("which,value", [(0, 10), (1, 5), (1, -1), (2, 64),
+                                         (2, -1)])
 def test_out_of_range_id_raises_in_doc_row_search(cuda, which, value):
     src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
     proc = subprocess.run(

@@ -134,11 +134,16 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
     equal a recount at its route's term-3, term-2 and remedy steps."""
     monkeypatch.setenv("REPRO_KERNELS", kernels)
     searches, entries, seconds, routes = [], [], [], set()
+    runs = []
 
     def spied(which, route):
         def term3(tables, word, doc, *args):
             routes.add(which)
             entries.append(int((tables.kd_cnt[doc.long()] > 0).sum()))
+            walk = args[-1]
+            if walk is not None:  # the chunk's word order: its words' runs
+                w = word[walk[0].long()]
+                runs.append(int((w[1:] != w[:-1]).sum()) + 1)
             return route.term3(tables, word, doc, *args)
 
         def term2(tables, n_wk, word, targets, count):
@@ -172,10 +177,14 @@ def test_counters_equal_a_recount_step_by_step(name, kernels, collector,
                     "zen_cdf.row_entries"] == sum(entries)
                 assert sum(seconds) > 0 and counters[
                     "zen_cdf.remedy_second"] == sum(seconds)
+                # the kernel route walks the session's word orders (one
+                # tile a chunk at this size), the plain route none
+                assert bool(runs) == (kernels == "on")
+                assert counters.get("zen_cdf.word_runs", 0) == sum(runs)
             else:
                 assert not (routes or searches or entries or seconds)
                 for counter in ("search_tokens", "row_entries",
-                                "remedy_second"):
+                                "remedy_second", "word_runs"):
                     assert f"zen_cdf.{counter}" not in counters
 
 

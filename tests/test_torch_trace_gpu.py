@@ -181,7 +181,7 @@ def test_remedy_same_with_its_counter(cuda, t):
 def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
     from portbench import registry
 
-    searches, entries, seconds = [], [], []
+    searches, entries, seconds, runs = [], [], [], []
     route = zen_cdf.KERNEL_ROUTE
 
     def spy(tables, n_wk, word, targets, count):
@@ -190,6 +190,12 @@ def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
 
     def spy_doc(tables, word, doc, *args):
         entries.append((tables.kd_cnt[doc.long()] > 0).sum())
+        # the session's word order of the chunk: its runs of equal words
+        # within each tile, recounted
+        order, tile = args[-1][0].long(), zen_cdf.CDF_ORDER_TILE_TOKENS
+        key = (torch.arange(order.shape[0], device=order.device) // tile
+               << 32) + word[order].long()
+        runs.append((key[1:] != key[:-1]).sum() + 1)
         return route.term3(tables, word, doc, *args)
 
     def spy_remedy(*args, **kwargs):
@@ -203,9 +209,8 @@ def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
         config, traffic, cell, tiny.SEED, cuda)
     run.build({})
     run.step()
-    searches.clear()
-    entries.clear()
-    seconds.clear()
+    for spied in (searches, entries, seconds, runs):
+        spied.clear()
     changed = 0
     with card_profile():
         for _ in range(3):
@@ -216,5 +221,6 @@ def test_counters_of_a_session_equal_a_recount(cuda, monkeypatch):
         "counts.changed_tokens": changed,
         "zen_cdf.search_tokens": int(sum(searches)),
         "zen_cdf.row_entries": int(sum(entries)),
-        "zen_cdf.remedy_second": int(sum(seconds))}
-    assert sum(seconds) > 0
+        "zen_cdf.remedy_second": int(sum(seconds)),
+        "zen_cdf.word_runs": int(sum(runs))}
+    assert sum(seconds) > 0 and sum(runs) > 0
